@@ -1,0 +1,137 @@
+"""Build and load the port's CUDA kernels.
+
+Every ``csrc/*.cu`` source compiles to an object in its own ``nvcc``
+process, all started together, and the objects link into one shared
+library with a plain C interface, loaded through ``ctypes``:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
+         -Xcompiler -fPIC -c -o <src>.o csrc/<src>.cu        (each source)
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared \
+         -o build/libspinrelax_kernels_<hash>.so *.o
+
+The library name carries a hash of the sources and flags, so an edited
+source rebuilds and a stale library is never loaded.  The build runs at
+the first kernel launch of a process (or at an explicit :func:`load`),
+never at import.  Every C entry point returns ``cudaGetLastError()``
+after its launch; :func:`check` raises on a non-zero code.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "build"
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+# argtypes of every C entry point (pointers and the stream as void*,
+# sizes as int, element strides as long long).
+_SIGNATURES = {
+    # v, out, B, F, D, n_inner, s_outer, s_inner, s_t, s_c, stream
+    "acf_lag_sums_f32": (_P, _P, _I, _I, _I, _I, _L, _L, _L, _L, _P),
+    # p, y, isg, dt, out, T, B, K, s2_free, stream
+    "lm_hgc_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "lm_cost_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+}
+
+_lock = threading.Lock()
+_lib = None
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def _nvcc() -> str:
+    cand = shutil.which("nvcc")
+    if cand is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
+        cand = "/usr/local/cuda/bin/nvcc"
+    if cand is None:
+        raise RuntimeError(
+            "nvcc not found: the CUDA kernels of spinrelax_tpu_torch are "
+            "built from csrc/ at first use and need the CUDA toolkit"
+        )
+    return cand
+
+
+def library_path() -> Path:
+    h = hashlib.sha256()
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    h.update(" ".join(COMPILE_FLAGS).encode())
+    return BUILD_DIR / f"libspinrelax_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile ``csrc/*.cu`` into the hashed library unless it exists.
+    ``verbose`` prints ptxas' register and shared-memory report."""
+    out = library_path()
+    if out.exists():
+        return out
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{out.stem}.{os.getpid()}"
+    objs, procs = [], []
+    try:
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = BUILD_DIR / f"{src.stem}.{tag}.o"
+            cmd = [nvcc, *COMPILE_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+                   "-c", "-o", str(obj), str(src)]
+            objs.append(obj)
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        for cmd, proc in procs:
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
+            if verbose:
+                print(log, end="")
+        tmp = BUILD_DIR / f"{tag}.so.tmp"
+        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+        res = subprocess.run(cmd, stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(
+                f"nvcc link failed ({res.returncode}):\n{' '.join(cmd)}\n{res.stdout}")
+        os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    return out
+
+
+def load(verbose: bool = False):
+    """The loaded kernel library (built on first call)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build(verbose=verbose)))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
+            _lib = lib
+        return _lib
+
+
+def check(code: int, name: str) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if code != 0:
+        raise RuntimeError(f"{name}: CUDA error {code} at launch")

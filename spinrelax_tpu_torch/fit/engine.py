@@ -1,0 +1,177 @@
+"""The batched multi-exponential LM (port of ``spinrelax_tpu/fit/engine.py``).
+
+``fit_multiexp_engine`` solves a (B, T) batch of bounded multi-exp fits
+as ONE masked loop over all (B * n_starts) lanes, with exactly the
+trust-region and convergence gates of ``fit.lm.lm_solve`` /
+``fit.engine._engine_jit`` in the JAX package:
+
+- lam0 = 1e-3, x0.33 on accept and x3 on reject, clamped to [1e-12, 1e10];
+- accepted step with max|step| < 1e-10;
+- accepted step with relative cost gain <= ftol = 10 ulp of the dtype;
+- accepted step with ||step|| < sqrt(eps) (sqrt(eps) + ||t||), tested
+  only while lam <= lam0;
+- a stall window of 8 iterations improving the best cost by <= 8 ftol
+  relative, tested only while lam <= 100 lam0;
+- lam >= 1e6, or 60 iterations;
+- ``skip`` lanes start done.
+
+A finished lane is frozen; the loop runs while any lane is live.  The
+per-iteration H = J^T J, g = J^T r and costs come from ``ops.cuda_lm``
+(kernels B and C for CUDA float32, their plain versions for CPU tensors)
+on lag-major (T, B) operands, so the (B, T, P) Jacobian is only built
+once, in the covariance tail.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..ops import cuda_lm
+from .lm import (
+    MultiExpFit, _chol_solve_small, _finalise_multiexp, _init_multiexp,
+    _multiexp_res_jac, _spd_inv_diag_small, _to_constrained, _to_unconstrained,
+)
+
+
+def _bounds(K: int, s2_free: bool, tau_max, dtype, device):
+    lo = [0.0] * K + [1e-8] * K + ([0.0] if s2_free else [])
+    hi = torch.tensor([1.0] * K + [0.0] * K + ([1.0] if s2_free else []),
+                      dtype=dtype, device=device)
+    hi[K : 2 * K] = tau_max
+    return torch.tensor(lo, dtype=dtype, device=device), hi
+
+
+def fit_multiexp_engine(dt, decay, sigma, K: int, s2_free: bool,
+                        n_starts: int = 1, skip=None,
+                        max_iter: int = 60) -> MultiExpFit:
+    """Batched bounded multi-exp fit (see module docstring).
+
+    dt (T,), decay and sigma (B, T), all on one device in one dtype.
+    skip : optional (B,) bool -- lanes created already done (their
+        returned values are the projected initial guess).
+    """
+    dev, f = decay.device, decay.dtype
+    dt = torch.as_tensor(dt, dtype=f, device=dev).contiguous()
+    sigma = torch.as_tensor(sigma, dtype=f, device=dev)
+    B, T = decay.shape
+    P = cuda_lm.n_par(K, s2_free)
+    tau_max = dt[-1] * 10.0
+
+    # --- initialisation ------------------------------------------------
+    C0, tau0_shared, S20 = _init_multiexp(dt, decay, K, s2_free)
+    if n_starts > 1:
+        # Deterministic extra starts drawn in float64 numpy, independent
+        # of dtype and device (same draws as the JAX package).
+        u = torch.as_tensor(
+            np.random.default_rng(12345).uniform(size=(n_starts - 1, K)),
+            dtype=f, device=dev,
+        )
+        step = torch.mean(dt[1:] - dt[:-1])
+        lo_l, hi_l = torch.log(step * 0.5), torch.log(dt[-1] * 2.0)
+        extra = torch.sort(torch.exp(lo_l + u * (hi_l - lo_l)), dim=1).values
+        starts = torch.cat([tau0_shared[None], extra], dim=0)
+    else:
+        starts = tau0_shared[None]
+    S = starts.shape[0]
+    BS = B * S
+    # start-major stacking: lane b, start s -> row s * B + b
+    dec_s = decay.repeat(S, 1)
+    sig_s = sigma.repeat(S, 1)
+    C0_s = C0.repeat(S, 1)
+    S20_s = S20.repeat(S)
+    tau0_s = starts.repeat_interleave(B, dim=0)  # (BS, K)
+    if skip is None:
+        done = torch.zeros(BS, dtype=torch.bool, device=dev)
+    else:
+        done = torch.as_tensor(skip, dtype=torch.bool, device=dev).repeat(S)
+
+    p0 = torch.cat([C0_s, tau0_s] + ([S20_s[:, None]] if s2_free else []), dim=1)
+    lo, hi = _bounds(K, s2_free, tau_max, f, dev)
+    span = hi - lo
+
+    # --- lag-major operands of the kernels ------------------------------
+    y_t = dec_s.T.contiguous()
+    isg_t = (1.0 / sig_s).T.contiguous()
+
+    def pt_of_t(t):  # (BS, P) unconstrained -> (P, BS) constrained
+        return _to_constrained(t, lo, hi).T.contiguous()
+
+    eps = torch.finfo(f).eps
+    ftol = 10.0 * eps
+    xtol = 1e-10
+    xtol_rel = float(np.sqrt(eps))
+    stall_window = 8
+    lam0 = 1e-3
+    lam_stuck = 1e6
+
+    t = _to_unconstrained(p0, lo, hi)
+    lam = torch.full((BS,), lam0, dtype=f, device=dev)
+    it = torch.zeros(BS, dtype=torch.int32, device=dev)
+    c_best = torch.full((BS,), float("inf"), dtype=f, device=dev)
+    c_mark = c_best.clone()
+    eye = torch.eye(P, dtype=f, device=dev)
+
+    while bool(torch.any((it < max_iter) & ~done)):
+        H_p, g_p, c_old = cuda_lm.hgc(pt_of_t(t), y_t, isg_t, dt, K, s2_free)
+        s = torch.sigmoid(t)
+        D = span * s * (1.0 - s)  # (BS, P) chain rule
+        H = H_p * D[:, :, None] * D[:, None, :]
+        g = g_p * D
+        diag = torch.clamp(torch.diagonal(H, dim1=1, dim2=2), min=1e-12)
+        A = H + lam[:, None, None] * eye * diag[:, None, :] * eye
+        step_v = -_chol_solve_small(A, g)
+        t_new = t + step_v
+        c_new = cuda_lm.cost(pt_of_t(t_new), y_t, isg_t, dt, K, s2_free)
+        improved = (c_new < c_old) & torch.isfinite(c_new)
+        t_next = torch.where(improved[:, None], t_new, t)
+        lam_next = torch.where(improved, torch.clamp(lam * 0.33, min=1e-12),
+                               torch.clamp(lam * 3.0, max=1e10))
+        small = torch.amax(torch.abs(step_v), dim=1) < xtol
+        flat = improved & ((c_old - c_new) <= ftol * c_old)
+        small_rel = improved & (lam <= lam0) & (
+            torch.linalg.vector_norm(step_v, dim=1)
+            < xtol_rel * (xtol_rel + torch.linalg.vector_norm(t, dim=1))
+        )
+        c_best_next = torch.minimum(
+            torch.minimum(c_best, torch.where(torch.isfinite(c_old), c_old, c_best)),
+            torch.where(torch.isfinite(c_new), c_new, c_best),
+        )
+        at_window = (it + 1) % stall_window == 0
+        stalled = (
+            at_window & torch.isfinite(c_mark) & (lam_next <= 100.0 * lam0)
+            & ((c_mark - c_best_next) <= stall_window * ftol * c_best_next)
+        )
+        c_mark = torch.where(at_window, c_best_next, c_mark)
+        c_best = c_best_next
+        done_next = (done | (improved & small) | flat | small_rel | stalled
+                     | (lam_next >= lam_stuck))
+        t = torch.where(done[:, None], t, t_next)
+        lam = torch.where(done, lam, lam_next)
+        it = torch.where(done, it, it + 1)
+        done = done_next
+    p_fin = _to_constrained(t, lo, hi)  # (BS, P)
+
+    # --- covariance tail + finalisation ----------------------------------
+    r_fin, Jp = _multiexp_res_jac(p_fin, dt, dec_s, sig_s, K, s2_free)
+    cost_fin = 0.5 * torch.sum(r_fin * r_fin, dim=1)
+    H = Jp.transpose(1, 2) @ Jp
+    dof = max(T - P, 1)
+    red_chisq = torch.sum(r_fin * r_fin, dim=1) / dof
+    dead = torch.diagonal(H, dim1=1, dim2=2) == 0.0
+    Hs = torch.where(dead[:, :, None] | dead[:, None, :], eye, H)
+    var = torch.where(dead, torch.zeros_like(red_chisq)[:, None],
+                      _spd_inv_diag_small(Hs)) * red_chisq[:, None]
+    perr = torch.sqrt(torch.clamp(var, min=0.0))
+    C = p_fin[:, :K]
+    tau = p_fin[:, K : 2 * K]
+    S2 = p_fin[:, -1] if s2_free else 1.0 - C.sum(dim=1)
+    dS2 = perr[:, -1] if s2_free else torch.zeros_like(S2)
+    fin = _finalise_multiexp(dt, dec_s, sig_s, C, tau, S2, perr[:, :K],
+                             perr[:, K : 2 * K], dS2, C0_s, S20_s, s2_free)
+    if S > 1:
+        # best start per lane by final cost; ties keep the cold start.
+        best = torch.argmin(cost_fin.reshape(S, B), dim=0)
+        idx = best * B + torch.arange(B, device=dev)
+        fin = tuple(a[idx] for a in fin)
+    return MultiExpFit(*fin)

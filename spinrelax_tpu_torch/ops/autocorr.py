@@ -1,0 +1,206 @@
+"""P2 orientational autocorrelation C(t) with Palmer chunk statistics.
+
+Port of ``spinrelax_tpu/ops/autocorr.py`` (main-path subset).  The lag
+sums s[d] = sum_t (v(t) . v(t+d))^2 behind every C(t) come from
+:func:`acf_sums`, which launches kernel A (``ops.cuda_acf``) for a CUDA
+float32 tensor and runs :func:`acf_sums_plain` -- the FFT form of the
+JAX package's ``_acf_sums_fft`` -- for a CPU tensor.  A CUDA tensor of
+any other dtype raises.
+
+Palmer statistics follow the reference exactly: per-chunk lag means
+-0.5 + 1.5 s / (F - d), then mean and std / (sqrt(n) - 1) across chunks
+with the POPULATION std (calculate-Ct-from-traj.py:228); one chunk gives
+NaN dCt, as the reference's 0/0 does.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import cuda_acf
+
+# Index pairs of the 6 unique outer-product components and their weights
+# (off-diagonals count twice in sum_ab, so their components carry sqrt 2).
+_PAIR_I = (0, 1, 2, 0, 0, 1)
+_PAIR_J = (0, 1, 2, 1, 2, 2)
+_SQRT2 = 2.0**0.5
+_PAIR_W = (1.0, 1.0, 1.0, _SQRT2, _SQRT2, _SQRT2)
+
+# Bonds per FFT batch in acf_sums_plain: bounds the spectra's memory
+# (a float64 batch of 4096 bonds at F = 1000 holds ~300 MB of spectra).
+PLAIN_CHUNK = 4096
+
+
+def _fft_len(n_min: int) -> int:
+    """Smallest 5-smooth length >= n_min (linear correlation needs
+    nfft >= nFrames + nDeltas)."""
+    best = 1
+    while best < n_min:
+        best *= 2
+    m5 = 1
+    while m5 < 8 * n_min:
+        m3 = m5
+        while m3 < 8 * n_min:
+            m = m3
+            while m < n_min:
+                m *= 2
+            best = min(best, m)
+            m3 *= 3
+        m5 *= 5
+    return best
+
+
+def acf_sums_plain(vecs: torch.Tensor, n_deltas: int) -> torch.Tensor:
+    """Sum_t (v(t).v(t+delta))^2 for delta = 1..n_deltas via FFT, on any
+    device and dtype: the plain version of kernel A.
+
+    P2 identity: (v.v')^2 = sum_ab [v_a v_b](t) [v_a v_b](t+d), so the lag
+    profile is the autocorrelation of the six weighted outer-product
+    components; their power spectra are summed before one inverse FFT.
+
+    vecs : (..., nFrames, 3) -> (..., n_deltas)
+    """
+    lead = vecs.shape[:-2]
+    n_frames = vecs.shape[-2]
+    nfft = _fft_len(n_frames + n_deltas)
+    flat = vecs.reshape((-1, n_frames, 3))
+    out = torch.empty((flat.shape[0], n_deltas), dtype=vecs.dtype,
+                      device=vecs.device)
+    for lo in range(0, flat.shape[0], PLAIN_CHUNK):
+        v = flat[lo : lo + PLAIN_CHUNK]
+        w6 = torch.stack(
+            [w * v[..., i] * v[..., j]
+             for i, j, w in zip(_PAIR_I, _PAIR_J, _PAIR_W)],
+            dim=-2,
+        )  # (b, 6, nF)
+        W = torch.fft.rfft(w6, n=nfft, dim=-1)
+        power = torch.sum(W.real**2 + W.imag**2, dim=-2)
+        acf = torch.fft.irfft(power, n=nfft, dim=-1)
+        out[lo : lo + PLAIN_CHUNK] = acf[:, 1 : n_deltas + 1]
+    return out.reshape(lead + (n_deltas,))
+
+
+def _bond_view(vecs: torch.Tensor) -> torch.Tensor:
+    """(..., F, 3) -> the kernel's (nOuter, nInner, F, 3) view, without a
+    copy when the leading dims number one or two."""
+    if vecs.ndim == 3:
+        return vecs.unsqueeze(0)
+    if vecs.ndim == 4:
+        return vecs
+    raise ValueError(
+        f"acf_sums on CUDA takes (B, F, 3) or (A, B, F, 3), got {tuple(vecs.shape)}"
+    )
+
+
+def acf_sums(vecs: torch.Tensor, n_deltas: int,
+             lag_major: bool = False) -> torch.Tensor:
+    """Sum_t (v(t).v(t+delta))^2 for delta = 1..n_deltas — the dispatcher
+    (JAX ``_acf_sums``): kernel A for CUDA float32, the plain FFT form
+    for a CPU tensor, and an error for any other CUDA dtype.
+
+    vecs : (..., nFrames, 3).  Returns (..., n_deltas), or with
+    ``lag_major`` the kernel's native (n_deltas, B) with B the leading
+    dims flattened row-major.
+    """
+    if vecs.is_cuda:
+        if vecs.dtype != torch.float32:
+            raise TypeError(
+                f"acf_sums on CUDA runs kernel A, which takes float32; got {vecs.dtype}"
+            )
+        s = cuda_acf.acf_lag_sums(_bond_view(vecs), n_deltas)
+        return s if lag_major else s.T.reshape(vecs.shape[:-2] + (n_deltas,))
+    if vecs.device.type != "cpu":
+        raise ValueError(f"acf_sums: unsupported device {vecs.device}")
+    s = acf_sums_plain(vecs, n_deltas)
+    return s.reshape(-1, n_deltas).T if lag_major else s
+
+
+def _n_vals(n_frames: int, n_deltas: int, like: torch.Tensor) -> torch.Tensor:
+    return n_frames - torch.arange(1, n_deltas + 1, dtype=like.dtype,
+                                   device=like.device)
+
+
+def ct_palmer(vecs: torch.Tensor):
+    """C(t) with Palmer chunk statistics.
+
+    vecs : (nReplicates, nFrames, nResidues, 3) unit bond vectors in
+        Palmer chunks.
+    Returns Ct, dCt : (nDeltas, nResidues), nDeltas = nFrames // 2.
+    """
+    n_rep, n_frames, n_res, _ = vecs.shape
+    n_deltas = n_frames // 2
+    # (nRep, nRes, nF, 3) view: bond index rep * nRes + res.
+    s = acf_sums(vecs.transpose(1, 2), n_deltas, lag_major=True)
+    per_rep = -0.5 + 1.5 * s.reshape(n_deltas, n_rep, n_res) / _n_vals(
+        n_frames, n_deltas, vecs
+    )[:, None, None]
+    Ct = per_rep.mean(dim=1)
+    dCt = per_rep.std(dim=1, correction=0) / (n_rep**0.5 - 1.0)
+    return Ct, dCt
+
+
+def palmer_pooled_stats(acc_s: torch.Tensor, acc_s2: torch.Tensor, count):
+    """(shifted sum, shifted sum of squares, chunk count) -> (mean, dCt)
+    in the accumulators' own orientation.
+
+    Producers accumulate e = x - 1 and e**2 (not x and x**2): the variance
+    is shift-invariant, and near C = 1, where the spread is smallest, raw
+    f32 sums cancel to their rounding floor.  count == 1 gives NaN dCt.
+    """
+    count = torch.as_tensor(count, dtype=acc_s.dtype, device=acc_s.device)
+    e_mean = acc_s / count
+    mean = 1.0 + e_mean
+    var = torch.clamp(acc_s2 / count - e_mean**2, min=0.0)
+    denom = torch.sqrt(count) - 1.0
+    safe = torch.where(denom > 0, denom, torch.ones_like(denom))
+    dct = torch.where(denom > 0, torch.sqrt(var) / safe,
+                      torch.full_like(var, float("nan")))
+    return mean, dct
+
+
+def tile_palmer_group(group: torch.Tensor) -> torch.Tensor:
+    """Chunk group (g, nFrames, nRes, 3) -> the tile layout
+    (nTiles, 3, nFrames, 128), lanes (chunk, residue) row-major and
+    zero-padded to a multiple of 128."""
+    g, n_frames, n_res, _ = group.shape
+    b = g * n_res
+    v = group.transpose(1, 2).reshape(b, n_frames, 3)
+    b_pad = ((b + 127) // 128) * 128
+    if b_pad != b:
+        v = torch.cat([v, v.new_zeros((b_pad - b, n_frames, 3))], dim=0)
+    return v.reshape(b_pad // 128, 128, n_frames, 3).permute(0, 3, 2, 1).contiguous()
+
+
+def palmer_group_update_pretiled(vt: torch.Tensor, acc_s: torch.Tensor,
+                                 acc_s2: torch.Tensor, n_group: int,
+                                 n_res: int):
+    """One streamed Palmer group step on tile-layout input.
+
+    vt : (nTiles, 3, nFrames, 128) group of ``n_group`` chunks x ``n_res``
+        residues (:func:`tile_palmer_group`).
+    acc_s, acc_s2 : (nDeltas, nRes) running shifted sums.
+    Returns the updated accumulators (new tensors); finalise with
+    :func:`palmer_pooled_stats` on the total chunk count.
+    """
+    n_tiles, _, n_frames, _ = vt.shape
+    n_deltas = n_frames // 2
+    b = n_group * n_res
+    if b > n_tiles * 128:
+        raise ValueError(
+            f"n_group*n_res ({b}) exceeds tile capacity ({n_tiles * 128})"
+        )
+    v = vt.permute(0, 3, 2, 1)  # (nTiles, 128, F, 3) view
+    if not vt.is_cuda:
+        v = v.reshape(n_tiles * 128, n_frames, 3)[:b]
+    s = acf_sums(v, n_deltas, lag_major=True)[:, :b]  # (nDeltas, B)
+    # palmer_pooled_stats convention: accumulate e = per - 1 and e**2.
+    e = -1.5 + 1.5 * s / _n_vals(n_frames, n_deltas, vt)[:, None]
+    e = e.reshape(n_deltas, n_group, n_res)
+    return acc_s + e.sum(dim=1), acc_s2 + (e**2).sum(dim=1)
+
+
+def lag_times(delta_t: float, tau_memory: float) -> torch.Tensor:
+    """The lag-time grid of calculate_dt (calculate-Ct-from-traj.py:
+    240-243), as a float64 CPU tensor like the reference's floats."""
+    n_pts = int(0.5 * tau_memory / delta_t)
+    return (torch.arange(n_pts, dtype=torch.float64) + 1.0) * delta_t

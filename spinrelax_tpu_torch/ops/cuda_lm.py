@@ -1,0 +1,136 @@
+"""Kernels B and C: the multi-exponential LM's per-iteration evaluation on
+the GPU (``csrc/lm_hgc.cu``).
+
+Replace ``spinrelax_tpu/ops/pallas_lm.py:hgc`` and ``:cost``.  For each
+problem b of a batch, with the model S2 + sum_k C_k exp(-t/tau_k) and
+residual r = (model - y) * isg over T lags:
+
+  ``hgc``  : H = J^T J (B, P, P), g = J^T r (B, P), 0.5 ||r||^2 (B,)
+  ``cost`` : 0.5 ||r||^2 (B,) only (the trial step)
+
+Operands are lag-major: p (P, B) constrained parameters (rows C_0..C_{K-1},
+tau_0..tau_{K-1}, (S2)), y and isg (T, B), dt (T,).  Each wrapper launches
+its kernel for CUDA float32 operands (counting the launch) and runs the
+plain PyTorch version for CPU tensors; anything else raises.  The kernel
+emits the packed upper triangle; the unpack to (B, P, P) is plain torch.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import _build
+
+K_MAX = 4  # the kernels are instantiated for K = 1..4, S2 free or fixed
+
+
+def n_par(K: int, s2_free: bool) -> int:
+    return 2 * K + (1 if s2_free else 0)
+
+
+def _residual(p, y, isg, dt, K: int, s2_free: bool):
+    """Residual (T, B) and the K exponentials exp(-t / tau_k) (T, B)."""
+    E = [torch.exp(-dt[:, None] / p[K + k]) for k in range(K)]
+    if s2_free:
+        S2 = p[2 * K]
+    else:
+        S2 = 1.0
+        for k in range(K):
+            S2 = S2 - p[k]
+    model = S2 + sum(p[k] * E[k] for k in range(K))
+    return (model - y) * isg, E
+
+
+def hgc_plain(p, y, isg, dt, K: int, s2_free: bool):
+    """Plain version of kernel B: (H (B, P, P), g (B, P), cost (B,))."""
+    r, E = _residual(p, y, isg, dt, K, s2_free)
+    planes = [(E[k] if s2_free else E[k] - 1.0) * isg for k in range(K)]
+    planes += [(p[k] / (p[K + k] * p[K + k])) * dt[:, None] * E[k] * isg
+               for k in range(K)]
+    if s2_free:
+        planes.append(isg.expand_as(r))
+    J = torch.stack(planes)  # (P, T, B), already * isg
+    H = torch.einsum("itb,jtb->bij", J, J)
+    g = torch.einsum("itb,tb->bi", J, r)
+    return H, g, 0.5 * torch.sum(r * r, dim=0)
+
+
+def cost_plain(p, y, isg, dt, K: int, s2_free: bool):
+    """Plain version of kernel C: 0.5 ||r||^2 (B,)."""
+    r, _ = _residual(p, y, isg, dt, K, s2_free)
+    return 0.5 * torch.sum(r * r, dim=0)
+
+
+def _check_cuda(name, p, y, isg, dt, K, s2_free):
+    for t in (p, y, isg, dt):
+        if not t.is_cuda:
+            raise ValueError(f"{name}: operands must all be on the GPU")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} takes float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: operands must be contiguous")
+    if not 1 <= K <= K_MAX:
+        raise ValueError(f"{name}: kernel built for K = 1..{K_MAX}, got {K}")
+    T, B = y.shape
+    if (p.shape != (n_par(K, s2_free), B) or isg.shape != (T, B)
+            or dt.shape != (T,) or B < 1 or T < 1 or T * B >= 2**62):
+        raise ValueError(
+            f"{name}: shapes p {tuple(p.shape)}, y {tuple(y.shape)}, "
+            f"isg {tuple(isg.shape)}, dt {tuple(dt.shape)} do not match "
+            f"K={K}, s2_free={s2_free}"
+        )
+    return T, B
+
+
+def _launch(fn_name, p, y, isg, dt, out, T, B, K, s2_free):
+    lib = _build.load()
+    with torch.cuda.device(y.device):
+        stream = torch.cuda.current_stream(y.device).cuda_stream
+        code = getattr(lib, fn_name)(
+            p.data_ptr(), y.data_ptr(), isg.data_ptr(), dt.data_ptr(),
+            out.data_ptr(), T, B, K, int(s2_free), stream,
+        )
+    _build.check(code, fn_name)
+
+
+def hgc_cuda(p, y, isg, dt, K: int, s2_free: bool):
+    """Kernel B on CUDA float32 operands -> (H, g, cost)."""
+    T, B = _check_cuda("hgc", p, y, isg, dt, K, s2_free)
+    P = n_par(K, s2_free)
+    n_tri = P * (P + 1) // 2
+    out = torch.empty((n_tri + P + 1, B), dtype=torch.float32, device=y.device)
+    _launch("lm_hgc_f32", p, y, isg, dt, out, T, B, K, s2_free)
+    hgc_cuda.launches += 1
+    iu, ju = torch.triu_indices(P, P, device=y.device)
+    tri = out[:n_tri].T  # (B, n_tri)
+    H = out.new_empty((B, P, P))
+    H[:, iu, ju] = tri
+    H[:, ju, iu] = tri
+    return H, out[n_tri : n_tri + P].T, out[n_tri + P]
+
+
+def cost_cuda(p, y, isg, dt, K: int, s2_free: bool):
+    """Kernel C on CUDA float32 operands -> cost (B,)."""
+    T, B = _check_cuda("cost", p, y, isg, dt, K, s2_free)
+    out = torch.empty((B,), dtype=torch.float32, device=y.device)
+    _launch("lm_cost_f32", p, y, isg, dt, out, T, B, K, s2_free)
+    cost_cuda.launches += 1
+    return out
+
+
+hgc_cuda.launches = 0
+cost_cuda.launches = 0
+
+
+def hgc(p, y, isg, dt, K: int, s2_free: bool):
+    """H/g/cost: kernel B for CUDA tensors, :func:`hgc_plain` on the CPU."""
+    if y.is_cuda:
+        return hgc_cuda(p, y, isg, dt, K, s2_free)
+    return hgc_plain(p, y, isg, dt, K, s2_free)
+
+
+def cost(p, y, isg, dt, K: int, s2_free: bool):
+    """0.5 ||r||^2: kernel C for CUDA tensors, :func:`cost_plain` on the CPU."""
+    if y.is_cuda:
+        return cost_cuda(p, y, isg, dt, K, s2_free)
+    return cost_plain(p, y, isg, dt, K, s2_free)

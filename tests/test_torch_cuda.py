@@ -1,0 +1,119 @@
+"""The port's CUDA kernels on the card, each against its plain version.
+
+Needs an NVIDIA GPU and nvcc; every test skips without them.  The file
+imports no JAX, so it runs on a machine without it:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from spinrelax_tpu_torch.entry import correlated_walk
+from spinrelax_tpu_torch.fit.lm import fit_multiexp
+from spinrelax_tpu_torch.ops import autocorr as tac
+from spinrelax_tpu_torch.ops import cuda_acf, cuda_lm
+from spinrelax_tpu_torch.parallel.pipeline import make_forward
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def gen():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.Generator(device="cuda").manual_seed(1234)
+
+
+def _unit(shape, gen):
+    v = torch.randn(shape + (3,), generator=gen, device="cuda")
+    return v / v.norm(dim=-1, keepdim=True)
+
+
+@pytest.mark.parametrize("layout", ["chunks", "contiguous", "pretiled"])
+@pytest.mark.parametrize("F", [64, 101, 1000])
+def test_acf_kernel_matches_plain(gen, layout, F):
+    """Kernel A against the float64 FFT plain version: max abs error on
+    C(t) = -0.5 + 1.5 s / (F - d) <= 1e-6 (the TPU kernel's bound)."""
+    D = F // 2
+    if layout == "chunks":
+        v = _unit((3, F, 70), gen).transpose(1, 2)  # (R, N, F, 3) view
+    elif layout == "contiguous":
+        v = _unit((130, F), gen)
+    else:
+        v = tac.tile_palmer_group(_unit((2, F, 100), gen)).permute(0, 3, 2, 1)
+    before = cuda_acf.acf_lag_sums.launches
+    s = tac.acf_sums(v, D, lag_major=True)
+    assert cuda_acf.acf_lag_sums.launches == before + 1
+    ref = tac.acf_sums_plain(v.double(), D).reshape(-1, D).T
+    n = F - torch.arange(1, D + 1, device="cuda", dtype=torch.float64)
+    err = (1.5 * (s.double() - ref) / n[:, None]).abs().max().item()
+    assert err <= 1e-6, err
+
+
+@pytest.mark.parametrize("K", [1, 2, 3, 4])
+@pytest.mark.parametrize("s2f", [False, True])
+def test_lm_kernels_match_plain(gen, K, s2f):
+    """Kernels B and C against float64 hgc_plain / cost_plain with
+    tests/test_engine.py's tolerances."""
+    B, T = 300, 200
+    dt = torch.arange(1, T + 1, device="cuda", dtype=torch.float32)
+    y = torch.rand((T, B), generator=gen, device="cuda") * 0.7 + 0.3
+    isg = 1.0 / (torch.rand((T, B), generator=gen, device="cuda") * 1.5 + 0.5)
+    rows = [torch.rand((K, B), generator=gen, device="cuda") * 0.39 + 0.01,
+            torch.rand((K, B), generator=gen, device="cuda") * 199 + 1]
+    if s2f:
+        rows.append(torch.rand((1, B), generator=gen, device="cuda") * 0.6 + 0.2)
+    p = torch.cat(rows).contiguous()
+    H, g, c = cuda_lm.hgc(p, y, isg, dt, K, s2f)
+    c2 = cuda_lm.cost(p, y, isg, dt, K, s2f)
+    Hr, gr, cr = cuda_lm.hgc_plain(p.double(), y.double(), isg.double(), dt.double(), K, s2f)
+    torch.testing.assert_close(H.double(), Hr, rtol=3e-5, atol=1e-4)
+    torch.testing.assert_close(g.double(), gr, rtol=3e-5, atol=1e-3)
+    torch.testing.assert_close(c.double(), cr, rtol=1e-5, atol=0)
+    torch.testing.assert_close(c2.double(), cr, rtol=1e-5, atol=0)
+
+
+def test_wrappers_raise_instead_of_falling_back(gen):
+    v = _unit((2, 40), gen)
+    with pytest.raises(TypeError):
+        tac.acf_sums(v.double(), 20)
+    with pytest.raises(ValueError):
+        tac.acf_sums(v, 40)  # D >= F
+    T, B = 10, 4
+    y = torch.zeros((T, B), device="cuda")
+    dt = torch.ones(T, device="cuda")
+    with pytest.raises(ValueError):
+        cuda_lm.hgc(torch.zeros((11, B), device="cuda"), y, y, dt, 5, True)
+    with pytest.raises(ValueError):
+        cuda_lm.cost(torch.zeros((B, 5), device="cuda").T, y, y, dt, 2, True)
+    with pytest.raises(TypeError):
+        cuda_lm.cost(torch.zeros((5, B), device="cuda", dtype=torch.float64), y, y, dt, 2, True)
+
+
+def test_forward_on_card_matches_cpu(gen):
+    """The forward on the card launches all three kernels and agrees with
+    the same forward on the CPU in float32 (plain kernels): C(t) to 2e-6,
+    the fit with test_engine's selection criteria."""
+    v = correlated_walk(8, 200, 64)
+    counters = (cuda_acf.acf_lag_sums, cuda_lm.hgc_cuda, cuda_lm.cost_cuda)
+    before = [c.launches for c in counters]
+    fwd = make_forward()
+    a = fwd(torch.from_numpy(v).cuda())
+    assert all(c.launches > n for c, n in zip(counters, before))
+    b = fwd(torch.from_numpy(v))
+    np.testing.assert_allclose(a.Ct.cpu().numpy(), b.Ct.numpy(), atol=2e-6)
+    for out in a:
+        assert torch.isfinite(out).all()
+
+    def fit(o):
+        dt = torch.arange(o.Ct.shape[0], dtype=o.Ct.dtype, device=o.Ct.device) + 1.0
+        sg = torch.where(o.dCt.T > 0, o.dCt.T, torch.ones_like(o.dCt.T))
+        return fit_multiexp(dt, o.Ct.T.contiguous(), sg, K=2, s2_free=True)
+
+    fa, fb = fit(a), fit(b)
+    rel = ((fa.chisq.cpu() - fb.chisq).abs() / fb.chisq).numpy()
+    assert np.median(rel) < 1e-4 and np.mean(rel < 1e-2) > 0.95
