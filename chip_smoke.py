@@ -11,18 +11,26 @@ Builds the port's CUDA kernels from csrc/ and runs, in order:
    abs on C(t) = -0.5 + 1.5 s / (F - d);
 2. kernels B and C (LM H/g/cost) against their plain versions in float64
    on the card at B = 1024, T = 500 for (K, s2_free) in (1, fixed),
-   (2, free), (4, free); tests/test_engine.py's tolerances;
+   (2, free), (4, free) and on ragged (B, T) down to (1, 1);
+   tests/test_engine.py's tolerances; C's cost equal to B's bit for bit,
+   and a second launch equal to the first; their times at the forward's
+   shape and at a ladder rung (B = 10 000, T = 500, K = 4, S2 free);
 3. the full-width forward step (32 Palmer chunks x 1000 frames x 1024
    N-H bonds, float32) on the card, counting kernel launches, held to the
    same forward on the CPU in float64 (C(t), rates, flags, median
    chi-square) and float32 (the fit's chi-square per lane, with
-   tests/test_engine.py's criteria);
+   tests/test_engine.py's criteria); one forward under torch.profiler for
+   the device-busy time and kernels B's and C's time per launch;
 4. ten streamed pretiled group steps plus the pooled finish, held to a
    float64 plain route on the card.
 
 Prints ptxas' register report of the build, timing lines (kernel vs
 plain, CUDA events, in turns), the card's name and power limit, one
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": {...}}``.
+Each kernel's ``bound_ms`` is the larger of its bytes (each input read
+once, each output written once) over 3.35 TB/s and its float32 operations
+(an FMA counts 2, a multiply, add or exp 1) over 67 TFLOP/s, the H100
+SXM's published peaks, computed from this run's shapes.
 Exits non-zero, without the last line, when there is no GPU, the package
 is not beside the script, or any check fails.
 """
@@ -40,6 +48,7 @@ N_REP, N_FRAMES, N_RES = 32, 1000, 1024
 N_DELTAS = N_FRAMES // 2
 ACF_BOUND = 1e-6  # max abs error on C(t) against float64
 LM_TOL = dict(H=(3e-5, 1e-4), g=(3e-5, 1e-3), cost=(1e-5, 0.0))  # (rtol, atol)
+HBM_BYTES_S, FP32_FLOP_S = 3.35e12, 67e12  # H100 SXM peaks at 700 W
 
 failures: list[str] = []
 
@@ -65,12 +74,53 @@ def cuda_ms(torch, fn, reps: int = 5) -> float:
     return start.elapsed_time(end) / reps
 
 
-def paired_ms(torch, kernel_fn, plain_fn, reps: int = 5):
-    """(kernel ms, plain ms): cuda_ms of each, timed in turns kernel,
+def graph_ms(torch, fn, reps: int = 5) -> float:
+    """Device time per call of fn: reps calls captured in one CUDA graph and
+    replayed between two CUDA events, so the host's cost of issuing a
+    launch from Python, which exceeds a few-microsecond kernel, is not in
+    the timing (after a warm-up call and a warm-up replay)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def paired_ms(torch, kernel_fn, plain_fn, reps: int = 5, timer=cuda_ms):
+    """(kernel ms, plain ms): timer of each, timed in turns kernel,
     plain, plain, kernel so a drift of the card's clocks hits both."""
-    k1, p1 = cuda_ms(torch, kernel_fn, reps), cuda_ms(torch, plain_fn, reps)
-    p2, k2 = cuda_ms(torch, plain_fn, reps), cuda_ms(torch, kernel_fn, reps)
+    k1, p1 = timer(torch, kernel_fn, reps), timer(torch, plain_fn, reps)
+    p2, k2 = timer(torch, plain_fn, reps), timer(torch, kernel_fn, reps)
     return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def bound_ms(n_bytes: float, n_flops: float):
+    """(least time in ms, what bounds it) at the card's published peaks."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_S, n_flops / FP32_FLOP_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def lm_bound(K: int, s2f: bool, B: int, T: int, full: bool):
+    """bound_ms of kernel B (full) or C at (B, T).  Per (t, b) the residual
+    takes K multiplies, K exps, K FMAs and 3 flops more, its square 1 FMA;
+    kernel B adds the P Jacobian planes (2K or 3K multiplies, 3K) and the
+    P(P+1)/2 + P FMAs of J^T J and J^T r."""
+    P = 2 * K + int(s2f)
+    flops = 4 * K + 5
+    if full:
+        flops += (K if s2f else 2 * K) + 3 * K + 2 * (P * (P + 1) // 2 + P)
+    out = B * (P * P + P + 1) if full else B
+    return bound_ms(4 * (2 * T * B + T + P * B + out), flops * T * B)
 
 
 def wall_s(torch, fn):
@@ -140,50 +190,114 @@ def phase_acf(torch, tac, cuda_acf, vecs, gen):
     return worst, ms, plain_ms
 
 
+def lm_operands(torch, gen, K, s2f, B, T):
+    """Random p (taus up to T), and y = the model at p plus an offset of
+    0.1 to 0.5 of either sign, so no residual is a cancellation below what
+    float32 can resolve (its relative error would be unbounded)."""
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device="cuda")
+
+    dt = torch.arange(1, T + 1, device="cuda", dtype=torch.float32)
+    C, tau = rand(K, B) * 0.39 + 0.01, rand(K, B) * (T - 1) + 1
+    S2 = rand(1, B) * 0.6 + 0.2 if s2f else 1.0 - C.sum(0, keepdim=True)
+    model = S2 + (C[:, None] * torch.exp(-dt[None, :, None] / tau[:, None])).sum(0)
+    y = model + (rand(T, B) * 0.4 + 0.1) * torch.where(rand(T, B) < 0.5, -1.0, 1.0)
+    isg = 1.0 / (rand(T, B) * 1.5 + 0.5)
+    p = torch.cat([C, tau] + ([S2] if s2f else [])).contiguous()
+    return p, y, isg, dt
+
+
 def phase_lm(torch, cuda_lm, gen):
     print("phase 2: kernels B/C (lm_hgc, lm_cost) vs hgc_plain/cost_plain, float64 "
           "reference", flush=True)
-    B, T = 1024, 500
     worst_b = worst_c = 0.0
-    dt = torch.arange(1, T + 1, device="cuda", dtype=torch.float32)
-    for K, s2f in [(1, False), (2, True), (4, True)]:
-        y = torch.rand((T, B), generator=gen, device="cuda") * 0.7 + 0.3
-        isg = 1.0 / (torch.rand((T, B), generator=gen, device="cuda") * 1.5 + 0.5)
-        rows = [torch.rand((K, B), generator=gen, device="cuda") * 0.39 + 0.01,
-                torch.rand((K, B), generator=gen, device="cuda") * 499 + 1]
-        if s2f:
-            rows.append(torch.rand((1, B), generator=gen, device="cuda") * 0.6 + 0.2)
-        p = torch.cat(rows).contiguous()
-        got = cuda_lm.hgc_cuda(p, y, isg, dt, K, s2f)
-        c2 = cuda_lm.cost_cuda(p, y, isg, dt, K, s2f)
-        ref = cuda_lm.hgc_plain(p.double(), y.double(), isg.double(), dt.double(), K, s2f)
+    cases = [(1, False, 1024, 500), (2, True, 1024, 500), (4, True, 1024, 500),
+             (2, True, 1, 1), (3, False, 77, 31), (4, False, 1025, 499),
+             (2, True, 10_000, 500)]
+    for K, s2f, B, T in cases:
+        args = (*lm_operands(torch, gen, K, s2f, B, T), K, s2f)
+        got = cuda_lm.hgc_cuda(*args)
+        c2 = cuda_lm.cost_cuda(*args)
+        tag = f"K={K} s2_free={s2f} B={B} T={T}"
+        ref = cuda_lm.hgc_plain(*(a.double() for a in args[:4]), K, s2f)
         for name, a, b in zip(("H", "g", "cost"), got, ref):
             rtol, atol = LM_TOL[name]
             diff = (a.double() - b).abs()
             ok = bool((diff <= atol + rtol * b.abs()).all())
             worst_b = max(worst_b, float(diff.max()))
-            check(ok, f"B K={K} s2_free={s2f} {name}: max abs err {float(diff.max()):.3e} "
+            check(ok, f"B {tag} {name}: max abs err {float(diff.max()):.3e} "
                       f"(rtol {rtol}, atol {atol})")
         diff = (c2.double() - ref[2]).abs()
         worst_c = max(worst_c, float(diff.max()))
         check(bool((diff <= LM_TOL["cost"][0] * ref[2].abs()).all()),
-              f"C K={K} s2_free={s2f} cost: max abs err {float(diff.max()):.3e}")
-    K, s2f = 2, True  # the forward's fit; rows C0 C1 tau0 tau1 S2 of the K=4 draw
-    p = torch.cat([p[0:2], p[4:6], p[8:9]]).contiguous()
-    args = (p, y, isg, dt, K, s2f)
+              f"C {tag} cost: max abs err {float(diff.max()):.3e}")
+        again = cuda_lm.hgc_cuda(*args)
+        check(torch.equal(got[2], c2) and all(map(torch.equal, got, again))
+              and torch.equal(c2, cuda_lm.cost_cuda(*args)),
+              f"B/C {tag}: C's cost == B's bit for bit; relaunch bitwise equal")
+
     times = {}
-    times["B"], times["B_plain"] = paired_ms(
-        torch, lambda: cuda_lm.hgc_cuda(*args), lambda: cuda_lm.hgc_plain(*args), reps=50)
-    times["C"], times["C_plain"] = paired_ms(
-        torch, lambda: cuda_lm.cost_cuda(*args), lambda: cuda_lm.cost_plain(*args), reps=50)
-    print(f"  time B/C at B 1024, T 500, K 2, S2 free: hgc kernel {times['B']:.4f} ms "
-          f"(plain {times['B_plain']:.4f} ms), cost kernel {times['C']:.4f} ms "
-          f"(plain {times['C_plain']:.4f} ms)", flush=True)
+    for key, (K, s2f, B, T), reps in (("fwd", (2, True, 1024, 500), 50),
+                                      ("rung", (4, True, 10_000, 500), 20)):
+        args = (*lm_operands(torch, gen, K, s2f, B, T), K, s2f)
+        t = times[key] = {"shape": f"B {B}, T {T}, K {K}, S2 {'free' if s2f else 'fixed'}"}
+        t["B"], t["B_plain"] = paired_ms(
+            torch, lambda: cuda_lm.hgc_cuda(*args), lambda: cuda_lm.hgc_plain(*args),
+            reps=reps, timer=graph_ms)
+        t["C"], t["C_plain"] = paired_ms(
+            torch, lambda: cuda_lm.cost_cuda(*args), lambda: cuda_lm.cost_plain(*args),
+            reps=reps, timer=graph_ms)
+        t["B_bound"], t["B_by"] = lm_bound(K, s2f, B, T, True)
+        t["C_bound"], t["C_by"] = lm_bound(K, s2f, B, T, False)
+        for k in "BC":
+            print(f"  time {k} at {t['shape']}: kernel {t[k] * 1e3:.2f} us (plain "
+                  f"{t[k + '_plain'] * 1e3:.2f} us), bound {t[k + '_bound'] * 1e3:.2f} us "
+                  f"({t[k + '_by']}), {t[k + '_bound'] / t[k]:.1%} of bound", flush=True)
     return worst_b, worst_c, times
 
 
 def rel_gap(a, b):
     return (a - b).abs() / b.abs().clamp_min(1e-30)
+
+
+def device_profile(torch, fn):
+    """Run fn once under torch.profiler -> (device-busy ms: the union of
+    the card's kernel and copy intervals, {kernel: (launches, total ms)})."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    busy, reach, per = 0.0, float("-inf"), {}
+    for lo, hi, name in spans:
+        busy += max(0.0, hi - max(lo, reach))
+        reach = max(reach, hi)
+        n, tot = per.get(name, (0, 0.0))
+        per[name] = (n + 1, tot + (hi - lo) / 1e3)
+    return busy / 1e3, per
+
+
+def lm_kernel_of(name: str):
+    """'B', 'C' or None for a profiled kernel name: lm_kernel<K, s2_free,
+    FULL>, FULL true for kernel B."""
+    if "lm_kernel<" not in name:
+        return None
+    full = name.split("lm_kernel<")[1].split(">")[0].split(",")[-1].strip()
+    return "B" if full == "true" else "C"
+
+
+def lm_kernel_times(per, kernel_of=lm_kernel_of):
+    """{'B' / 'C': (launches, us per launch)} from device_profile's table."""
+    out = {}
+    for name, (n, ms) in per.items():
+        key = kernel_of(name)
+        if key:
+            m, tot = out.get(key, (0, 0.0))
+            out[key] = (m + n, tot + ms)
+    return {k: (n, tot * 1e3 / n) for k, (n, tot) in out.items()}
 
 
 def phase_forward(torch, tac, counters, make_forward, fit_multiexp, vecs):
@@ -201,6 +315,13 @@ def phase_forward(torch, tac, counters, make_forward, fit_multiexp, vecs):
     secs2 = walls[2]
     print(f"  forward wall median {secs2 * 1e3:.2f} ms over 5 calls "
           f"(min {walls[0] * 1e3:.2f}, max {walls[-1] * 1e3:.2f})", flush=True)
+    busy, per = device_profile(torch, lambda: fwd(vecs))
+    n_dev = sum(n for n, _ in per.values())
+    lm = lm_kernel_times(per)
+    print(f"  profiled forward: {n_dev} device kernels and copies, device busy "
+          f"{busy:.2f} ms = {busy / (secs2 * 1e3):.1%} of the median wall; "
+          + "; ".join(f"kernel {k} {n} launches, {us:.2f} us each"
+                      for k, (n, us) in sorted(lm.items())), flush=True)
     t0 = time.perf_counter()
     cpu = fwd(vecs.cpu().double())
     print(f"  CPU float64 forward {time.perf_counter() - t0:.1f} s", flush=True)
@@ -256,7 +377,7 @@ def phase_forward(torch, tac, counters, make_forward, fit_multiexp, vecs):
     fit_t = wall_s(torch, lambda: fit_of(gpu.Ct, gpu.dCt))[1]
     print(f"  breakdown: ct_palmer {Ct_t * 1e3:.2f} ms, fit {fit_t * 1e3:.2f} ms, "
           f"whole forward {secs2 * 1e3:.2f} ms", flush=True)
-    return launches, secs2
+    return launches, secs2, busy
 
 
 def phase_stream(torch, tac, cuda_acf, gen):
@@ -322,7 +443,7 @@ def main() -> int:
     from spinrelax_tpu_torch.ops import cuda_acf, cuda_lm
     from spinrelax_tpu_torch.parallel.pipeline import make_forward
 
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     _build.load(verbose=True)  # ptxas: registers, shared memory, spills
     print(f"built {_build.library_path().name} in {time.perf_counter() - t0:.1f} s",
           flush=True)
@@ -337,32 +458,46 @@ def main() -> int:
     a_err, a_ms, a_plain = phase_acf(torch, tac, cuda_acf, vecs, gen)
     b_err, c_err_, lm_times = phase_lm(torch, cuda_lm, gen)
     counters = (cuda_acf.acf_lag_sums, cuda_lm.hgc_cuda, cuda_lm.cost_cuda)
-    launches, fwd_s = phase_forward(torch, tac, counters, make_forward,
-                                     fit_multiexp, vecs)
+    launches, fwd_s, busy_ms = phase_forward(torch, tac, counters, make_forward,
+                                              fit_multiexp, vecs)
     step_ms = phase_stream(torch, tac, cuda_acf, gen)
 
+    print(f"chip_smoke phases took {time.perf_counter() - t_start:.1f} s, build included",
+          flush=True)
     gpu = gpu_line()
+    fwd_t, rung = lm_times["fwd"], lm_times["rung"]
     print(f"timings on {gpu}: A kernel {a_ms:.4f} ms vs plain {a_plain:.4f} ms; "
-          f"B {lm_times['B']:.4f} vs {lm_times['B_plain']:.4f} ms; "
-          f"C {lm_times['C']:.4f} vs {lm_times['C_plain']:.4f} ms; forward "
-          f"{fwd_s * 1e3:.2f} ms; group step {step_ms:.4f} ms", flush=True)
+          f"B {fwd_t['B']:.5f} vs {fwd_t['B_plain']:.5f} ms; "
+          f"C {fwd_t['C']:.5f} vs {fwd_t['C_plain']:.5f} ms ({fwd_t['shape']}); "
+          f"B {rung['B']:.5f} ms, C {rung['C']:.5f} ms ({rung['shape']}); forward "
+          f"{fwd_s * 1e3:.2f} ms, device busy {busy_ms:.2f} ms; group step "
+          f"{step_ms:.4f} ms", flush=True)
     if failures:
         print(f"chip_smoke FAILED ({len(failures)}):", *failures, sep="\n  ",
               file=sys.stderr)
         return 1
     src = "spinrelax_tpu_torch/csrc/"
+    # Kernel A at the forward's chunks: sum over bonds of sum_{d<=D} (F - d)
+    # terms, each a 3-term dot (1 multiply, 2 FMAs) and 1 FMA: 7 flops.
+    n_terms = N_REP * N_RES * (N_DELTAS * N_FRAMES - N_DELTAS * (N_DELTAS + 1) // 2)
+    a_bound, a_by = bound_ms(4 * (N_REP * N_FRAMES * N_RES * 3 + N_DELTAS * N_REP * N_RES),
+                             7 * n_terms)
     kernels = [
         dict(name="acf_lag_sums", route="cuda", source=src + "acf_lag_sums.cu",
              replaces="spinrelax_tpu/ops/pallas_acf.py:454", launches=launches[0],
-             max_abs_err=a_err, bound=ACF_BOUND, ms=a_ms, plain_ms=a_plain),
+             launches_per_forward=launches[0], max_abs_err=a_err, tolerance=ACF_BOUND,
+             ms=a_ms, plain_ms=a_plain, bound_ms=a_bound, bound_by=a_by, library_ms=None),
         dict(name="lm_hgc", route="cuda", source=src + "lm_hgc.cu",
              replaces="spinrelax_tpu/ops/pallas_lm.py:127", launches=launches[1],
-             max_abs_err=b_err, bound="rtol 3e-5 + atol 1e-4 (H), 1e-3 (g); rtol 1e-5 (cost)",
-             ms=lm_times["B"], plain_ms=lm_times["B_plain"]),
+             launches_per_forward=launches[1], max_abs_err=b_err,
+             tolerance="rtol 3e-5 + atol 1e-4 (H), 1e-3 (g); rtol 1e-5 (cost)",
+             ms=fwd_t["B"], plain_ms=fwd_t["B_plain"], bound_ms=fwd_t["B_bound"],
+             bound_by=fwd_t["B_by"], library_ms=None),
         dict(name="lm_cost", route="cuda", source=src + "lm_hgc.cu",
              replaces="spinrelax_tpu/ops/pallas_lm.py:169", launches=launches[2],
-             max_abs_err=c_err_, bound="rtol 1e-5", ms=lm_times["C"],
-             plain_ms=lm_times["C_plain"]),
+             launches_per_forward=launches[2], max_abs_err=c_err_, tolerance="rtol 1e-5",
+             ms=fwd_t["C"], plain_ms=fwd_t["C_plain"], bound_ms=fwd_t["C_bound"],
+             bound_by=fwd_t["C_by"], library_ms=None),
     ]
     print(gpu)
     print(json.dumps({"kernels": kernels}))

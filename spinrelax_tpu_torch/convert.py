@@ -12,6 +12,7 @@ from typing import Optional
 
 import torch
 
+from . import checked_device
 from .constants import NucleusPair
 
 
@@ -35,13 +36,15 @@ def forward_kwargs_from_jax(pair: Optional[NucleusPair] = None,
     )
 
 
-def palmer_state_from_numpy(acc_s, acc_s2, count, device="cpu"):
+def palmer_state_from_numpy(acc_s, acc_s2, count, device="cuda"):
     """A JAX stream's lag-leading (nDeltas, nRes) shifted accumulators and
     its chunk count -> (acc_s, acc_s2, count) for
     ``ops.autocorr.palmer_group_update_pretiled`` and
-    ``palmer_pooled_stats`` (dtype kept, values copied)."""
-    s = torch.tensor(acc_s, device=device)
-    s2 = torch.tensor(acc_s2, device=device)
+    ``palmer_pooled_stats`` (dtype kept, values copied).  On the card
+    unless ``device="cpu"``; raises without one."""
+    dev = checked_device(device)
+    s = torch.tensor(acc_s, device=dev)
+    s2 = torch.tensor(acc_s2, device=dev)
     if s.shape != s2.shape or s.ndim != 2:
         raise ValueError(
             f"accumulators must share one (nDeltas, nRes) shape, got "

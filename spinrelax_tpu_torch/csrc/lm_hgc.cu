@@ -8,40 +8,58 @@
 //     m(t) = S2 + sum_k C_k exp(-t / tau_k)    (S2 = 1 - sum_k C_k if fixed)
 //     r(t) = (m(t) - y(t)) * isg(t)
 //
-// lm_hgc writes, lag sums over t, the packed upper triangle of J^T J (rows
-// (i, j >= i) in row-major order), then J^T r, then 0.5 ||r||^2 -- the
-// row layout of the TPU kernel's output -- and lm_cost writes 0.5 ||r||^2.
-// The Jacobian columns are closed-form scalings of the K exponentials:
-// (E_k or E_k - 1) * isg, C_k / tau_k^2 * t * E_k * isg, and isg for a free
-// S2.  Parameters are rows of p (P, B): C_0..C_{K-1}, tau_0..tau_{K-1},
-// (S2).  Operands are lag-major: y, isg (T, B) and dt (T,); out (rows, B).
-// Lags with isg = 0 add nothing.
+// lm_hgc writes, lag sums over t, H = J^T J whole and symmetric (B, P, P),
+// then g = J^T r (B, P), then 0.5 ||r||^2 (B,), problem-major, into one
+// buffer -- what pallas_lm.hgc returns after its unpack -- and lm_cost
+// writes 0.5 ||r||^2 (B,).  The Jacobian columns are closed-form scalings
+// of the K exponentials: (E_k or E_k - 1) * isg, C_k / tau_k^2 * t * E_k *
+// isg, and isg for a free S2.  Parameters are rows of p (P, B):
+// C_0..C_{K-1}, tau_0..tau_{K-1}, (S2).  Operands are lag-major: y, isg
+// (T, B) and dt (T,).  Lags with isg = 0 add nothing.
 //
-// Design.  One thread per problem, b the fastest index of every operand
-// so loads coalesce; each thread loops over T with its (at most 55) sums
-// in registers, templated on (K, s2_free) so every loop unrolls.  Sums run
-// in f32 over blocks of TBLK lags and are then added to f32 totals (a
-// two-level sum), keeping the rounding error of a T-term sum near that of
-// a TBLK-term one.
+// What bounds it.  8 bytes of y and isg per (t, b) for about 3K + P(P+3)/2
+// FMA-class operations and K expf: the bytes, at the forward's B = 1024,
+// T = 500 (4.1 MB, 1.2 us at 3.35 TB/s), and they stay in the 50 MB L2
+// across the LM's iterations; there the practical floor is launch latency
+// and the latency of one pass of dependent loads.  At a ladder rung
+// (B = 10 000, K = 4) the 40 MB and ~145 flop per (t, b) bound it alike;
+// there lm_hgc takes about lm_cost's time plus its FMAs at the issue rate,
+// so its short-lived blocks overlap loads and arithmetic poorly.
 //
-// What bounds it.  Device-memory bandwidth: 8 bytes read per (t, b) for
-// about 3K + P(P+3)/2 FMA-class operations and K expf.  At the forward's
-// size (B = 1024 problems, T = 500 lags) only 1024 threads run and the
-// launch overhead dominates; the (B, P, P) unpack and the P <= 9 Cholesky
-// solve stay in PyTorch, as they stay in XLA on the TPU.
+// Design.  A block takes a tile of TILE = 8 consecutive problems (one
+// 32-byte sector of a lag row) and all lags; its threads are NS lag slices
+// x 8 problems, slice s taking lags s, s + NS, ... in order, so a warp's
+// load covers 4 lag rows x 8 problems = 4 whole sectors and each thread
+// walks T / NS lags instead of T.  At B = 1024 that is 128 blocks for the
+// card's 132 SMs.  dt is staged per TCHUNK lags in shared memory.  The up
+// to 55 sums stay in registers, in f32, templated on (K, s2_free) so every
+// loop unrolls.  Slices reduce in a fixed order -- two xor shuffles inside
+// a warp, then a fixed pairwise tree over the warps in shared memory, no
+// atomics -- so results are bitwise reproducible.  lm_cost is the same
+// template with only the r^2 sum, reduced along the same path, so for
+// equal p its cost equals lm_hgc's bit for bit (the LM's accept gate
+// compares the two).  The epilogue writes H, g and cost straight from the
+// reduction, in the layout the engine consumes.
+//
+// Tiling, chosen on an H100 (times in PERF.md): NS = 32 (256 threads) for
+// K <= 2; NS = 16 (128 threads) for K >= 3, whose up to 55 sums need more
+// registers (ptxas: lm_hgc 58 at K = 2 S2 free, 96 at K = 4 S2 free;
+// lm_cost 40; no spills).  Loads are not software-pipelined: prefetching
+// 2 to 8 lags ahead slowed the forward's shape.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int TBLK = 32;
-constexpr int THREADS = 128;
+constexpr int TILE = 8;       // problems per block
+constexpr int TCHUNK = 1024;  // lags of dt in shared memory at a time
+
+__host__ __device__ constexpr int n_slices(int K) { return K <= 2 ? 32 : 16; }
 
 template <int K, bool S2F>
 struct Model {
   static constexpr int P = 2 * K + (S2F ? 1 : 0);
   static constexpr int NT = P * (P + 1) / 2;
-  static constexpr int NH = NT + P + 1;
 
   // ninv = -1 / tau once per problem: one IEEE division per thread instead
   // of K per lag.
@@ -64,146 +82,162 @@ struct Model {
     }
   }
 
-  // Residual at one lag; E receives the K exponentials.
+  // Residual at one lag; E receives the K exponentials.  The _rn
+  // intrinsics are never contracted, so both kernels round it alike.
   __device__ float residual(float d, float y, float is, float* E) const {
     float m = 0.f;
 #pragma unroll
     for (int k = 0; k < K; ++k) {
-      E[k] = expf(d * ninv[k]);
+      E[k] = expf(__fmul_rn(d, ninv[k]));
       m = fmaf(C[k], E[k], m);
     }
-    return (S2 + m - y) * is;
+    return __fmul_rn(__fsub_rn(__fadd_rn(S2, m), y), is);
   }
 };
 
-template <int K, bool S2F>
-__global__ void __launch_bounds__(THREADS)
-lm_hgc_kernel(const float* __restrict__ p, const float* __restrict__ y,
-              const float* __restrict__ isg, const float* __restrict__ dt,
-              float* __restrict__ out, int T, int B) {
+// FULL: lm_hgc's NT + P + 1 sums; otherwise lm_cost's one.  The r^2 sum is
+// always the last.
+template <int K, bool S2F, bool FULL>
+__global__ void __launch_bounds__(n_slices(K) * TILE)
+lm_kernel(const float* __restrict__ p, const float* __restrict__ y,
+          const float* __restrict__ isg, const float* __restrict__ dt,
+          float* __restrict__ out, int T, int B) {
   using M = Model<K, S2F>;
-  constexpr int P = M::P, NT = M::NT, NH = M::NH;
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  const M mod(p, B, b);
+  constexpr int P = M::P, NT = M::NT;
+  constexpr int NA = FULL ? NT + P + 1 : 1;
+  constexpr int NS = n_slices(K), NTHR = NS * TILE, NW = NTHR / 32;
+  __shared__ float sdt[TCHUNK];
+  __shared__ float red[NW][NA][TILE];
 
-  float tot[NH];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int slice = threadIdx.x / TILE;
+  const int b0 = blockIdx.x * TILE, b = b0 + threadIdx.x % TILE;
+  const bool live = b < B;
+  const M mod(p, B, live ? b : b0);
+
+  float acc[NA];
 #pragma unroll
-  for (int q = 0; q < NH; ++q) tot[q] = 0.f;
-  for (int t0 = 0; t0 < T; t0 += TBLK) {
-    float part[NH];
+  for (int q = 0; q < NA; ++q) acc[q] = 0.f;
+  for (int t0 = 0; t0 < T; t0 += TCHUNK) {
+    const int n = min(TCHUNK, T - t0);
+    __syncthreads();  // the previous chunk's dt is read
+    for (int i = threadIdx.x; i < n; i += NTHR) sdt[i] = __ldg(dt + t0 + i);
+    __syncthreads();
+    if (live) {
+      const float* yc = y + (long long)t0 * B + b;
+      const float* ic = isg + (long long)t0 * B + b;
+#pragma unroll 4
+      for (int t = slice; t < n; t += NS) {
+        const long long o = (long long)t * B;
+        const float d = sdt[t], is = __ldg(ic + o);
+        float E[K];
+        const float r = mod.residual(d, __ldg(yc + o), is, E);
+        if constexpr (FULL) {
+          float jc[P];
 #pragma unroll
-    for (int q = 0; q < NH; ++q) part[q] = 0.f;
-    const int t1 = min(T, t0 + TBLK);
-    for (int t = t0; t < t1; ++t) {
-      const float d = __ldg(dt + t);
-      const long long o = (long long)t * B + b;
-      const float is = __ldg(isg + o);
-      float E[K];
-      const float r = mod.residual(d, __ldg(y + o), is, E);
-      float pl[P];
+          for (int k = 0; k < K; ++k) {
+            jc[k] = (S2F ? E[k] : E[k] - 1.f) * is;
+            jc[K + k] = mod.coef[k] * d * E[k] * is;
+          }
+          if constexpr (S2F) jc[P - 1] = is;
+          int q = 0;
 #pragma unroll
-      for (int k = 0; k < K; ++k) {
-        pl[k] = (S2F ? E[k] : E[k] - 1.f) * is;
-        pl[K + k] = mod.coef[k] * d * E[k] * is;
+          for (int i = 0; i < P; ++i) {
+#pragma unroll
+            for (int j = i; j < P; ++j, ++q) acc[q] = fmaf(jc[i], jc[j], acc[q]);
+          }
+#pragma unroll
+          for (int i = 0; i < P; ++i) acc[NT + i] = fmaf(jc[i], r, acc[NT + i]);
+        }
+        acc[NA - 1] = fmaf(r, r, acc[NA - 1]);
       }
-      if (S2F) pl[P - 1] = is;
-      int q = 0;
-#pragma unroll
-      for (int i = 0; i < P; ++i) {
-#pragma unroll
-        for (int j = i; j < P; ++j, ++q) part[q] = fmaf(pl[i], pl[j], part[q]);
-      }
-#pragma unroll
-      for (int i = 0; i < P; ++i) part[NT + i] = fmaf(pl[i], r, part[NT + i]);
-      part[NT + P] = fmaf(r, r, part[NT + P]);
     }
-#pragma unroll
-    for (int q = 0; q < NH; ++q) tot[q] += part[q];
   }
-  tot[NH - 1] *= 0.5f;
+
+  // Slices -> one sum per problem.  Lanes l, l ^ 8, l ^ 16, l ^ 24 of a warp
+  // hold one problem; after two xor shuffles each holds the same sum.
 #pragma unroll
-  for (int q = 0; q < NH; ++q) out[(long long)q * B + b] = tot[q];
+  for (int q = 0; q < NA; ++q) {
+    float v = acc[q];
+    v += __shfl_xor_sync(0xffffffffu, v, 8);
+    v += __shfl_xor_sync(0xffffffffu, v, 16);
+    if (lane < TILE) red[warp][q][lane] = v;
+  }
+  __syncthreads();
+  // Warps -> the block, by the same fixed pairwise tree for every sum.
+  float* fin = &red[0][0][0];  // fin[q * TILE + problem] once reduced
+  for (int e = threadIdx.x; e < NA * TILE; e += NTHR) {
+    float s[NW];
+#pragma unroll
+    for (int w = 0; w < NW; ++w) s[w] = (&red[w][0][0])[e];
+#pragma unroll
+    for (int h = NW / 2; h > 0; h /= 2) {
+#pragma unroll
+      for (int w = 0; w < h; ++w) s[w] += s[w + h];
+    }
+    fin[e] = s[0];  // only this thread reads column e
+  }
+  __syncthreads();
+
+  const int nb = min(TILE, B - b0);
+  if constexpr (FULL) {
+    float* H = out + (long long)b0 * P * P;
+    for (int e = threadIdx.x; e < nb * P * P; e += NTHR) {
+      const int i = e / P % P, j = e % P;
+      const int lo = min(i, j), hi = max(i, j);  // packed upper-triangle row
+      H[e] = fin[(lo * P - lo * (lo - 1) / 2 + hi - lo) * TILE + e / (P * P)];
+    }
+    float* g = out + (long long)B * P * P + (long long)b0 * P;
+    for (int e = threadIdx.x; e < nb * P; e += NTHR)
+      g[e] = fin[(NT + e % P) * TILE + e / P];
+    out += (long long)B * P * (P + 1);
+  }
+  if (threadIdx.x < nb) out[b0 + threadIdx.x] = 0.5f * fin[(NA - 1) * TILE + threadIdx.x];
 }
 
-template <int K, bool S2F>
-__global__ void __launch_bounds__(THREADS)
-lm_cost_kernel(const float* __restrict__ p, const float* __restrict__ y,
-               const float* __restrict__ isg, const float* __restrict__ dt,
-               float* __restrict__ out, int T, int B) {
-  using M = Model<K, S2F>;
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  const M mod(p, B, b);
-  float tot = 0.f;
-  for (int t0 = 0; t0 < T; t0 += TBLK) {
-    float part = 0.f;
-    const int t1 = min(T, t0 + TBLK);
-    for (int t = t0; t < t1; ++t) {
-      const long long o = (long long)t * B + b;
-      float E[K];
-      const float r = mod.residual(__ldg(dt + t), __ldg(y + o), __ldg(isg + o), E);
-      part = fmaf(r, r, part);
-    }
-    tot += part;
-  }
-  out[b] = 0.5f * tot;
+template <int K, bool S2F, bool FULL>
+void run(const float* p, const float* y, const float* isg, const float* dt,
+         float* out, int T, int B, cudaStream_t s) {
+  lm_kernel<K, S2F, FULL><<<(B + TILE - 1) / TILE, n_slices(K) * TILE, 0, s>>>(
+      p, y, isg, dt, out, T, B);
 }
 
-template <template <int, bool> class Kern>
+template <bool FULL>
 int launch(const float* p, const float* y, const float* isg, const float* dt,
            float* out, int T, int B, int K, int s2_free, cudaStream_t s) {
   if (B <= 0 || T <= 0) return (int)cudaErrorInvalidValue;
-  const dim3 grid((B + THREADS - 1) / THREADS);
   switch (K * 2 + (s2_free ? 1 : 0)) {
-    case 2: Kern<1, false>::run(grid, s, p, y, isg, dt, out, T, B); break;
-    case 3: Kern<1, true>::run(grid, s, p, y, isg, dt, out, T, B); break;
-    case 4: Kern<2, false>::run(grid, s, p, y, isg, dt, out, T, B); break;
-    case 5: Kern<2, true>::run(grid, s, p, y, isg, dt, out, T, B); break;
-    case 6: Kern<3, false>::run(grid, s, p, y, isg, dt, out, T, B); break;
-    case 7: Kern<3, true>::run(grid, s, p, y, isg, dt, out, T, B); break;
-    case 8: Kern<4, false>::run(grid, s, p, y, isg, dt, out, T, B); break;
-    case 9: Kern<4, true>::run(grid, s, p, y, isg, dt, out, T, B); break;
+    case 2: run<1, false, FULL>(p, y, isg, dt, out, T, B, s); break;
+    case 3: run<1, true, FULL>(p, y, isg, dt, out, T, B, s); break;
+    case 4: run<2, false, FULL>(p, y, isg, dt, out, T, B, s); break;
+    case 5: run<2, true, FULL>(p, y, isg, dt, out, T, B, s); break;
+    case 6: run<3, false, FULL>(p, y, isg, dt, out, T, B, s); break;
+    case 7: run<3, true, FULL>(p, y, isg, dt, out, T, B, s); break;
+    case 8: run<4, false, FULL>(p, y, isg, dt, out, T, B, s); break;
+    case 9: run<4, true, FULL>(p, y, isg, dt, out, T, B, s); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }
 
-template <int K, bool S2F>
-struct Hgc {
-  static void run(dim3 g, cudaStream_t s, const float* p, const float* y,
-                  const float* isg, const float* dt, float* out, int T, int B) {
-    lm_hgc_kernel<K, S2F><<<g, THREADS, 0, s>>>(p, y, isg, dt, out, T, B);
-  }
-};
-
-template <int K, bool S2F>
-struct Cost {
-  static void run(dim3 g, cudaStream_t s, const float* p, const float* y,
-                  const float* isg, const float* dt, float* out, int T, int B) {
-    lm_cost_kernel<K, S2F><<<g, THREADS, 0, s>>>(p, y, isg, dt, out, T, B);
-  }
-};
-
 }  // namespace
 
 extern "C" {
 
-// p (2K[+1], B), y/isg (T, B), dt (T,) f32 -> out (P(P+1)/2 + P + 1, B).
-// Returns cudaGetLastError() after the launch.
+// p (2K[+1], B), y/isg (T, B), dt (T,) f32 -> out (B * (P^2 + P + 1),):
+// H (B, P, P), then g (B, P), then cost (B,).  Returns cudaGetLastError()
+// after the launch.
 int lm_hgc_f32(const float* p, const float* y, const float* isg,
                const float* dt, float* out, int T, int B, int K, int s2_free,
                void* stream) {
-  return launch<Hgc>(p, y, isg, dt, out, T, B, K, s2_free,
-                     (cudaStream_t)stream);
+  return launch<true>(p, y, isg, dt, out, T, B, K, s2_free, (cudaStream_t)stream);
 }
 
 // Same operands -> out (B,) = 0.5 ||r||^2.
 int lm_cost_f32(const float* p, const float* y, const float* isg,
                 const float* dt, float* out, int T, int B, int K, int s2_free,
                 void* stream) {
-  return launch<Cost>(p, y, isg, dt, out, T, B, K, s2_free,
-                      (cudaStream_t)stream);
+  return launch<false>(p, y, isg, dt, out, T, B, K, s2_free, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -11,6 +11,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import checked_device
+
 
 def correlated_walk(n_rep: int, n_frames: int, n_res: int,
                     seed: int = 0) -> np.ndarray:
@@ -27,11 +29,13 @@ def correlated_walk(n_rep: int, n_frames: int, n_res: int,
     return v
 
 
-def entry(device="cpu"):
+def entry(device="cuda"):
     """-> (fwd, (vecs,)): the flagship forward step and its example input
-    on ``device``, as ``__graft_entry__.entry()`` builds them in JAX."""
+    on ``device``, as ``__graft_entry__.entry()`` builds them in JAX.
+    Runs on the card unless ``device="cpu"``; raises without one."""
     from .parallel.pipeline import make_forward
 
-    vecs = torch.from_numpy(correlated_walk(4, 64, 16)).to(device)
+    dev = checked_device(device)
+    vecs = torch.from_numpy(correlated_walk(4, 64, 16)).to(dev)
     fwd = make_forward(tau_iso=4242.0, delta_t=1.0, n_components=2)
     return fwd, (vecs,)

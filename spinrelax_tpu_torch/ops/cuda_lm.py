@@ -11,8 +11,15 @@ residual r = (model - y) * isg over T lags:
 Operands are lag-major: p (P, B) constrained parameters (rows C_0..C_{K-1},
 tau_0..tau_{K-1}, (S2)), y and isg (T, B), dt (T,).  Each wrapper launches
 its kernel for CUDA float32 operands (counting the launch) and runs the
-plain PyTorch version for CPU tensors; anything else raises.  The kernel
-emits the packed upper triangle; the unpack to (B, P, P) is plain torch.
+plain PyTorch version for CPU tensors; anything else raises.
+
+On the card the operands' bytes (4.1 MB at the forward's B = 1024, T = 500,
+resident in L2 across the LM's iterations) and launch latency bound both
+kernels.  A block takes 8 problems x all lags, split over 16 or 32 lag
+slices and reduced in a fixed order (no atomics), so results repeat bit for
+bit and kernel C's cost equals kernel B's for equal p.  Kernel B writes H
+whole (B, P, P), g and cost into one buffer; the wrapper returns views of
+it.  See ``csrc/lm_hgc.cu``.
 """
 
 from __future__ import annotations
@@ -94,19 +101,16 @@ def _launch(fn_name, p, y, isg, dt, out, T, B, K, s2_free):
 
 
 def hgc_cuda(p, y, isg, dt, K: int, s2_free: bool):
-    """Kernel B on CUDA float32 operands -> (H, g, cost)."""
+    """Kernel B on CUDA float32 operands -> (H, g, cost), contiguous views
+    of the one buffer the kernel writes."""
     T, B = _check_cuda("hgc", p, y, isg, dt, K, s2_free)
     P = n_par(K, s2_free)
-    n_tri = P * (P + 1) // 2
-    out = torch.empty((n_tri + P + 1, B), dtype=torch.float32, device=y.device)
+    out = torch.empty(B * (P * P + P + 1), dtype=torch.float32, device=y.device)
     _launch("lm_hgc_f32", p, y, isg, dt, out, T, B, K, s2_free)
     hgc_cuda.launches += 1
-    iu, ju = torch.triu_indices(P, P, device=y.device)
-    tri = out[:n_tri].T  # (B, n_tri)
-    H = out.new_empty((B, P, P))
-    H[:, iu, ju] = tri
-    H[:, ju, iu] = tri
-    return H, out[n_tri : n_tri + P].T, out[n_tri + P]
+    n_h, n_g = B * P * P, B * P
+    return (out[:n_h].view(B, P, P), out[n_h : n_h + n_g].view(B, P),
+            out[n_h + n_g :])
 
 
 def cost_cuda(p, y, isg, dt, K: int, s2_free: bool):

@@ -223,7 +223,7 @@ def test_stream_state_carries_over_from_jax(rng):
 
     half = jax_steps((jnp.asarray(zeros),) * 2, data[:2])
     s, s2, count = palmer_state_from_numpy(np.asarray(half[0]), np.asarray(half[1]),
-                                           sum(groups[:2]))
+                                           sum(groups[:2]), device="cpu")
     s, s2 = port_steps((s, s2), data[2:])
     carried = tac.palmer_pooled_stats(s, s2, count + sum(groups[2:]))
 

@@ -54,20 +54,27 @@ def test_acf_kernel_matches_plain(gen, layout, F):
     assert err <= 1e-6, err
 
 
-@pytest.mark.parametrize("K", [1, 2, 3, 4])
-@pytest.mark.parametrize("s2f", [False, True])
-def test_lm_kernels_match_plain(gen, K, s2f):
-    """Kernels B and C against float64 hgc_plain / cost_plain with
-    tests/test_engine.py's tolerances."""
-    B, T = 300, 200
+def _lm_operands(gen, K, s2f, B, T):
+    """Random p, and y = the model at p plus an offset of 0.1 to 0.5 of
+    either sign, so no residual is a cancellation below what float32 can
+    resolve (a near-zero residual has an unbounded relative error even
+    when every operation is rounded correctly)."""
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device="cuda")
+
     dt = torch.arange(1, T + 1, device="cuda", dtype=torch.float32)
-    y = torch.rand((T, B), generator=gen, device="cuda") * 0.7 + 0.3
-    isg = 1.0 / (torch.rand((T, B), generator=gen, device="cuda") * 1.5 + 0.5)
-    rows = [torch.rand((K, B), generator=gen, device="cuda") * 0.39 + 0.01,
-            torch.rand((K, B), generator=gen, device="cuda") * 199 + 1]
-    if s2f:
-        rows.append(torch.rand((1, B), generator=gen, device="cuda") * 0.6 + 0.2)
-    p = torch.cat(rows).contiguous()
+    C, tau = rand(K, B) * 0.39 + 0.01, rand(K, B) * 199 + 1
+    S2 = rand(1, B) * 0.6 + 0.2 if s2f else 1.0 - C.sum(0, keepdim=True)
+    model = S2 + (C[:, None] * torch.exp(-dt[None, :, None] / tau[:, None])).sum(0)
+    y = model + (rand(T, B) * 0.4 + 0.1) * torch.where(rand(T, B) < 0.5, -1.0, 1.0)
+    isg = 1.0 / (rand(T, B) * 1.5 + 0.5)
+    p = torch.cat([C, tau] + ([S2] if s2f else [])).contiguous()
+    return p, y, isg, dt
+
+
+def _assert_lm_matches_plain(p, y, isg, dt, K, s2f):
+    """Kernels B and C against float64 hgc_plain with tests/test_engine.py's
+    tolerances."""
     H, g, c = cuda_lm.hgc(p, y, isg, dt, K, s2f)
     c2 = cuda_lm.cost(p, y, isg, dt, K, s2f)
     Hr, gr, cr = cuda_lm.hgc_plain(p.double(), y.double(), isg.double(), dt.double(), K, s2f)
@@ -75,6 +82,52 @@ def test_lm_kernels_match_plain(gen, K, s2f):
     torch.testing.assert_close(g.double(), gr, rtol=3e-5, atol=1e-3)
     torch.testing.assert_close(c.double(), cr, rtol=1e-5, atol=0)
     torch.testing.assert_close(c2.double(), cr, rtol=1e-5, atol=0)
+    return H, g, c
+
+
+@pytest.mark.parametrize("T", [1, 31, 499])
+@pytest.mark.parametrize("B", [1, 77, 1000, 1025])
+@pytest.mark.parametrize("K", [1, 2, 3, 4])
+@pytest.mark.parametrize("s2f", [False, True])
+def test_lm_kernels_match_plain(gen, K, s2f, B, T):
+    """Kernels B and C against float64 hgc_plain / cost_plain on shapes off
+    the kernels' tile of 8 problems and lag slices, down to B = T = 1."""
+    _assert_lm_matches_plain(*_lm_operands(gen, K, s2f, B, T), K, s2f)
+
+
+@pytest.mark.parametrize("K,s2f", [(1, False), (2, True), (4, True)])
+def test_lm_kernels_isg_zero_lags(gen, K, s2f):
+    """Lags with isg = 0 (scattered, and 20 trailing rows, as the TPU
+    kernels' padding) add nothing: the kernels match the plain version and
+    equal, bit for bit, a run on the operands without the trailing rows."""
+    B, T = 333, 220
+    p, y, isg, dt = _lm_operands(gen, K, s2f, B, T)
+    isg = torch.where(torch.rand((T, B), generator=gen, device="cuda") < 0.3, 0.0, isg)
+    isg[T - 20 :] = 0.0
+    H, g, c = _assert_lm_matches_plain(p, y, isg, dt, K, s2f)
+    cut = (y[: T - 20].contiguous(), isg[: T - 20].contiguous(), dt[: T - 20].contiguous())
+    H2, g2, c2 = cuda_lm.hgc_cuda(p, *cut, K, s2f)
+    assert torch.equal(H, H2) and torch.equal(g, g2) and torch.equal(c, c2)
+    assert torch.equal(cuda_lm.cost_cuda(p, y, isg, dt, K, s2f), cuda_lm.cost_cuda(p, *cut, K, s2f))
+
+
+@pytest.mark.parametrize("K", [1, 2, 3, 4])
+@pytest.mark.parametrize("s2f", [False, True])
+def test_lm_cost_bitwise_equals_hgc_cost(gen, K, s2f):
+    """For equal p, kernel C's cost is kernel B's cost bit for bit: the LM
+    accepts a step when C's cost is below B's."""
+    p, y, isg, dt = _lm_operands(gen, K, s2f, 1025, 499)
+    assert torch.equal(cuda_lm.hgc_cuda(p, y, isg, dt, K, s2f)[2],
+                       cuda_lm.cost_cuda(p, y, isg, dt, K, s2f))
+
+
+@pytest.mark.parametrize("K,s2f", [(2, True), (4, False)])
+def test_lm_kernels_bitwise_reproducible(gen, K, s2f):
+    """Two launches on the same operands give bitwise-equal H, g and cost."""
+    args = (*_lm_operands(gen, K, s2f, 1000, 500), K, s2f)
+    a, b = cuda_lm.hgc_cuda(*args), cuda_lm.hgc_cuda(*args)
+    assert all(torch.equal(x, z) for x, z in zip(a, b))
+    assert torch.equal(cuda_lm.cost_cuda(*args), cuda_lm.cost_cuda(*args))
 
 
 def test_wrappers_raise_instead_of_falling_back(gen):

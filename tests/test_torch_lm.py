@@ -51,14 +51,12 @@ def _t(*arrays):
     return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
 
 
-@pytest.mark.parametrize("K,s2f", [(1, False), (2, True), (4, True)])
-def test_hgc_cost_plain_match_pallas_interpret(rng, K, s2f):
-    """hgc_plain / cost_plain equal the TPU kernels B and C (interpret
-    mode, f32) with test_engine's tolerances: H rtol 3e-5 atol 1e-4,
-    g rtol 3e-5 atol 1e-3, cost rtol 1e-5 (f32 sums in another order).
-    The TPU side runs on padded operands (pad lags carry isg = 0)."""
+def _check_plain_against_pallas_interpret(rng, K, s2f, B, T):
+    """hgc_plain / cost_plain (through the cuda_lm dispatchers, CPU route)
+    on (B, T) against the TPU kernels in interpret mode on operands padded
+    to (T_pad, B_pad): pad lags carry isg = 0, pad lanes are dropped."""
     P = plm.n_par(K, s2f)
-    B, T, T_pad, P_pad = 128, 100, 104, 16
+    T_pad, B_pad, P_pad = -(-T // 8) * 8, -(-B // plm.LANES) * plm.LANES, 16
     dt = np.linspace(1, 100, T).astype(np.float32)
     y = rng.uniform(0.3, 1.0, (B, T)).astype(np.float32)
     sg = rng.uniform(0.5, 2.0, (B, T)).astype(np.float32)
@@ -67,12 +65,13 @@ def test_hgc_cost_plain_match_pallas_interpret(rng, K, s2f):
     S2 = rng.uniform(0.2, 0.8, B)
     p = np.concatenate([C, tau] + ([S2[:, None]] if s2f else []), axis=1).astype(np.float32)
 
-    p_t = np.zeros((P_pad, B), np.float32)
-    p_t[:P] = p.T
-    y_t = np.zeros((T_pad, B), np.float32)
-    y_t[:T] = y.T
-    isg_t = np.zeros((T_pad, B), np.float32)
-    isg_t[:T] = (1.0 / sg).T
+    p_t = np.zeros((P_pad, B_pad), np.float32)
+    p_t[:P, :B] = p.T
+    p_t[:P, B:] = p.T[:, :1]  # pad lanes: any finite parameters
+    y_t = np.zeros((T_pad, B_pad), np.float32)
+    y_t[:T, :B] = y.T
+    isg_t = np.zeros((T_pad, B_pad), np.float32)
+    isg_t[:T, :B] = (1.0 / sg).T
     dt_t = np.zeros((T_pad, plm.LANES), np.float32)
     dt_t[:T] = dt[:, None]
     Hj, gj, cj = plm.hgc(*map(jnp.asarray, (p_t, y_t, isg_t, dt_t)), K, s2f,
@@ -84,11 +83,27 @@ def test_hgc_cost_plain_match_pallas_interpret(rng, K, s2f):
     H, g, c = cuda_lm.hgc(*args, K, s2f)
     c2 = cuda_lm.cost(*args, K, s2f)
     assert H.shape == (B, P, P) and g.shape == (B, P) and c.shape == (B,)
-    np.testing.assert_allclose(H.numpy(), np.asarray(Hj), rtol=3e-5, atol=1e-4)
-    np.testing.assert_allclose(g.numpy(), np.asarray(gj), rtol=3e-5, atol=1e-3)
-    np.testing.assert_allclose(c.numpy(), np.asarray(cj), rtol=1e-5)
-    np.testing.assert_allclose(c2.numpy(), np.asarray(cj2), rtol=1e-5)
+    np.testing.assert_allclose(H.numpy(), np.asarray(Hj)[:B], rtol=3e-5, atol=1e-4)
+    np.testing.assert_allclose(g.numpy(), np.asarray(gj)[:B], rtol=3e-5, atol=1e-3)
+    np.testing.assert_allclose(c.numpy(), np.asarray(cj)[:B], rtol=1e-5)
+    np.testing.assert_allclose(c2.numpy(), np.asarray(cj2)[:B], rtol=1e-5)
     np.testing.assert_allclose(c2.numpy(), c.numpy(), rtol=1e-6)
+
+
+@pytest.mark.parametrize("K,s2f", [(1, False), (2, True), (4, True)])
+def test_hgc_cost_plain_match_pallas_interpret(rng, K, s2f):
+    """hgc_plain / cost_plain equal the TPU kernels B and C (interpret
+    mode, f32) with test_engine's tolerances: H rtol 3e-5 atol 1e-4,
+    g rtol 3e-5 atol 1e-3, cost rtol 1e-5 (f32 sums in another order).
+    The TPU side runs on padded operands (pad lags carry isg = 0)."""
+    _check_plain_against_pallas_interpret(rng, K, s2f, B=128, T=100)
+
+
+@pytest.mark.parametrize("K,s2f,B,T", [(2, True, 77, 31), (3, False, 1, 1)])
+def test_hgc_cost_plain_match_pallas_interpret_ragged(rng, K, s2f, B, T):
+    """... and on ragged shapes (B and T off the TPU's (8, 128) tiling,
+    down to one problem and one lag), same tolerances."""
+    _check_plain_against_pallas_interpret(rng, K, s2f, B, T)
 
 
 @pytest.mark.parametrize("K,s2f", [(1, True), (3, False)])

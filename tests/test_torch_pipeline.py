@@ -109,7 +109,24 @@ def test_forward_kwargs_from_jax():
 
 def test_palmer_state_shape_check():
     with pytest.raises(ValueError):
-        convert.palmer_state_from_numpy(np.zeros((4, 3)), np.zeros((4, 2)), 5)
+        convert.palmer_state_from_numpy(np.zeros((4, 3)), np.zeros((4, 2)), 5,
+                                        device="cpu")
+
+
+def test_entry_points_default_to_the_card():
+    """entry() and palmer_state_from_numpy() place their tensors on the
+    card unless told device="cpu"; with no card they raise instead of
+    running quietly on the CPU."""
+    acc = np.zeros((4, 3))
+    if torch.cuda.is_available():
+        assert entry.entry()[1][0].is_cuda
+        assert convert.palmer_state_from_numpy(acc, acc, 1)[0].is_cuda
+        return
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        entry.entry()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert.palmer_state_from_numpy(acc, acc, 1)
+    assert entry.entry(device="cpu")[1][0].device.type == "cpu"
 
 
 def test_correlated_walk_is_graft_entry_input():
