@@ -7,8 +7,11 @@ Builds the port's CUDA kernels from csrc/ and runs, in order:
 
 1. kernel A (C(t) lag sums) against its plain version in float64 on the
    card, at the forward's (32 x 1024 bonds, 1000 frames) chunk layout, a
-   pretiled (256, 3, 1000, 128) group and ragged shapes; bound 1e-6 max
-   abs on C(t) = -0.5 + 1.5 s / (F - d);
+   pretiled (256, 3, 1000, 128) group, and ragged and edge shapes (bond
+   counts off the kernel's bonds per block in each layout, D = 37,
+   F = 18 000); bound 1e-6 max abs on C(t) = -0.5 + 1.5 s / (F - d); its
+   time at the forward's shape in the chunk, pretiled and contiguous
+   layouts, each with its share of the bound;
 2. kernels B and C (LM H/g/cost) against their plain versions in float64
    on the card at B = 1024, T = 500 for (K, s2_free) in (1, fixed),
    (2, free), (4, free) and on ragged (B, T) down to (1, 1);
@@ -20,7 +23,8 @@ Builds the port's CUDA kernels from csrc/ and runs, in order:
    same forward on the CPU in float64 (C(t), rates, flags, median
    chi-square) and float32 (the fit's chi-square per lane, with
    tests/test_engine.py's criteria); one forward under torch.profiler for
-   the device-busy time and kernels B's and C's time per launch;
+   the device-busy time and kernels A's, B's and C's launches and time
+   per launch;
 4. ten streamed pretiled group steps plus the pooled finish, held to a
    float64 plain route on the card.
 
@@ -151,43 +155,58 @@ def c_err(torch, s, ref, n_frames):
     return float((1.5 * (s.double() - ref) / n[:, None]).abs().max())
 
 
+def acf_bound(n_bonds: int, n_frames: int, n_deltas: int):
+    """bound_ms of kernel A: sum over bonds of sum_{d<=D} (F - d) terms,
+    each a 3-term dot (1 multiply, 2 FMAs) and 1 FMA: 7 flops; the input
+    read once and the (D, B) output written once."""
+    n_terms = n_bonds * (n_deltas * n_frames - n_deltas * (n_deltas + 1) // 2)
+    return bound_ms(4 * n_bonds * (3 * n_frames + n_deltas), 7 * n_terms)
+
+
 def phase_acf(torch, tac, cuda_acf, vecs, gen):
     print("phase 1: kernel A (acf_lag_sums) vs acf_sums_plain, float64 reference",
           flush=True)
     worst = 0.0
-    cases = [("forward chunks (32, 1000, 1024, 3)", vecs),
-             ("ragged B = 3 x 77, odd F = 1001", unit(torch, (3, 1001, 77), gen)),
-             ("F = 64, B = 2 x 200", unit(torch, (2, 64, 200), gen))]
-    for name, v in cases:
-        F = v.shape[1]
-        s = tac.acf_sums(v.transpose(1, 2), F // 2, lag_major=True)
-        ref = tac.acf_sums_plain(v.double().transpose(1, 2), F // 2)
-        err = c_err(torch, s, ref.reshape(-1, F // 2).T, F)
+    grp = unit(torch, (N_REP, N_FRAMES, N_RES), gen)
+    vt = tac.tile_palmer_group(grp).permute(0, 3, 2, 1)  # (256, 128, F, 3) view
+    del grp
+    # (name, (nOuter, nInner, F, 3) view, D); bond counts that are not a
+    # multiple of the kernel's bonds per block in every layout.
+    cases = [("forward chunks (32, 1000, 1024, 3)", vecs.transpose(1, 2), N_DELTAS),
+             ("pretiled (256, 3, 1000, 128)", vt, N_DELTAS),
+             ("ragged B = 3 x 77, odd F = 1001",
+              unit(torch, (3, 1001, 77), gen).transpose(1, 2), 500),
+             ("D = 37, F = 1000, B = 3 x 77",
+              unit(torch, (3, 1000, 77), gen).transpose(1, 2), 37),
+             ("F = 64, B = 2 x 200", unit(torch, (2, 64, 200), gen).transpose(1, 2), 32),
+             ("contiguous (300, 257, 3)", unit(torch, (300, 257), gen)[None], 128),
+             ("pretiled cut to 2 x 77 lanes, F = 257",
+              tac.tile_palmer_group(unit(torch, (2, 257, 100), gen))
+              .permute(0, 3, 2, 1)[:, :77], 128),
+             ("F = 18000, D = 9000, B = 5",
+              unit(torch, (1, 18000, 5), gen).transpose(1, 2), 9000)]
+    for name, v, D in cases:
+        s = cuda_acf.acf_lag_sums(v, D)
+        ref = tac.acf_sums_plain(v.double(), D)
+        err = c_err(torch, s, ref.reshape(-1, D).T, v.shape[2])
         worst = max(worst, err)
         check(err <= ACF_BOUND, f"A {name}: max C(t) err {err:.3e} <= {ACF_BOUND}")
-    flat = unit(torch, (300, 257), gen)  # contiguous (B, F, 3), B % 128 != 0
-    s = tac.acf_sums(flat, 128, lag_major=True)
-    err = c_err(torch, s, tac.acf_sums_plain(flat.double(), 128).T, 257)
-    worst = max(worst, err)
-    check(err <= ACF_BOUND, f"A contiguous (300, 257, 3): max C(t) err {err:.3e}")
-    grp = unit(torch, (N_REP, N_FRAMES, N_RES), gen)
-    vt = tac.tile_palmer_group(grp)
-    del grp
-    s = cuda_acf.acf_lag_sums(vt.permute(0, 3, 2, 1), N_DELTAS)
-    ref = tac.acf_sums_plain(vt.permute(0, 3, 2, 1).double(), N_DELTAS)
-    err = c_err(torch, s, ref.reshape(-1, N_DELTAS).T, N_FRAMES)
-    worst = max(worst, err)
-    check(err <= ACF_BOUND, f"A pretiled (256, 3, 1000, 128): max C(t) err {err:.3e}")
     del ref, s
 
+    bound, by = acf_bound(N_REP * N_RES, N_FRAMES, N_DELTAS)
     v = vecs.transpose(1, 2)
-    ms, plain_ms = paired_ms(torch, lambda: cuda_acf.acf_lag_sums(v, N_DELTAS),
-                             lambda: tac.acf_sums_plain(v, N_DELTAS))
-    ms_t = cuda_ms(torch, lambda: cuda_acf.acf_lag_sums(vt.permute(0, 3, 2, 1), N_DELTAS))
-    print(f"  time A at (32 x 1024 bonds, F 1000, D 500): kernel {ms:.4f} ms, "
-          f"plain f32 FFT {plain_ms:.4f} ms; pretiled layout kernel {ms_t:.4f} ms",
-          flush=True)
-    return worst, ms, plain_ms
+    flat = v.contiguous()  # (32, 1024, F, 3): contiguous (B, F, 3) bonds
+    t = {"bound": bound, "by": by}
+    t["chunks"], t["plain"] = paired_ms(torch, lambda: cuda_acf.acf_lag_sums(v, N_DELTAS),
+                                        lambda: tac.acf_sums_plain(v, N_DELTAS))
+    t["pretiled"] = cuda_ms(torch, lambda: cuda_acf.acf_lag_sums(vt, N_DELTAS))
+    t["contiguous"] = cuda_ms(torch, lambda: cuda_acf.acf_lag_sums(flat, N_DELTAS))
+    del flat
+    print(f"  time A at (32 x 1024 bonds, F 1000, D 500), bound {bound:.4f} ms ({by}); "
+          f"plain f32 FFT {t['plain']:.4f} ms; kernel: "
+          + ", ".join(f"{k} layout {t[k]:.4f} ms ({bound / t[k]:.1%} of bound)"
+                      for k in ("chunks", "pretiled", "contiguous")), flush=True)
+    return worst, t
 
 
 def lm_operands(torch, gen, K, s2f, B, T):
@@ -280,17 +299,20 @@ def device_profile(torch, fn):
     return busy / 1e3, per
 
 
-def lm_kernel_of(name: str):
-    """'B', 'C' or None for a profiled kernel name: lm_kernel<K, s2_free,
-    FULL>, FULL true for kernel B."""
+def kernel_of(name: str):
+    """'A', 'B', 'C' or None for a profiled kernel name: acf_lag_sums_kernel
+    is A; lm_kernel<K, s2_free, FULL> is B with FULL true, else C."""
+    if "acf_lag_sums_kernel" in name:
+        return "A"
     if "lm_kernel<" not in name:
         return None
     full = name.split("lm_kernel<")[1].split(">")[0].split(",")[-1].strip()
     return "B" if full == "true" else "C"
 
 
-def lm_kernel_times(per, kernel_of=lm_kernel_of):
-    """{'B' / 'C': (launches, us per launch)} from device_profile's table."""
+def kernel_times(per, kernel_of=kernel_of):
+    """{'A' / 'B' / 'C': (launches, us per launch)} from device_profile's
+    table."""
     out = {}
     for name, (n, ms) in per.items():
         key = kernel_of(name)
@@ -317,11 +339,11 @@ def phase_forward(torch, tac, counters, make_forward, fit_multiexp, vecs):
           f"(min {walls[0] * 1e3:.2f}, max {walls[-1] * 1e3:.2f})", flush=True)
     busy, per = device_profile(torch, lambda: fwd(vecs))
     n_dev = sum(n for n, _ in per.values())
-    lm = lm_kernel_times(per)
+    per_kernel = kernel_times(per)
     print(f"  profiled forward: {n_dev} device kernels and copies, device busy "
           f"{busy:.2f} ms = {busy / (secs2 * 1e3):.1%} of the median wall; "
           + "; ".join(f"kernel {k} {n} launches, {us:.2f} us each"
-                      for k, (n, us) in sorted(lm.items())), flush=True)
+                      for k, (n, us) in sorted(per_kernel.items())), flush=True)
     t0 = time.perf_counter()
     cpu = fwd(vecs.cpu().double())
     print(f"  CPU float64 forward {time.perf_counter() - t0:.1f} s", flush=True)
@@ -455,7 +477,7 @@ def main() -> int:
           f"({vecs.numel() * 4 / 1e6:.0f} MB) in {time.perf_counter() - t0:.1f} s",
           flush=True)
 
-    a_err, a_ms, a_plain = phase_acf(torch, tac, cuda_acf, vecs, gen)
+    a_err, a_times = phase_acf(torch, tac, cuda_acf, vecs, gen)
     b_err, c_err_, lm_times = phase_lm(torch, cuda_lm, gen)
     counters = (cuda_acf.acf_lag_sums, cuda_lm.hgc_cuda, cuda_lm.cost_cuda)
     launches, fwd_s, busy_ms = phase_forward(torch, tac, counters, make_forward,
@@ -466,7 +488,9 @@ def main() -> int:
           flush=True)
     gpu = gpu_line()
     fwd_t, rung = lm_times["fwd"], lm_times["rung"]
-    print(f"timings on {gpu}: A kernel {a_ms:.4f} ms vs plain {a_plain:.4f} ms; "
+    print(f"timings on {gpu}: A kernel {a_times['chunks']:.4f} ms (pretiled "
+          f"{a_times['pretiled']:.4f}, contiguous {a_times['contiguous']:.4f}) vs plain "
+          f"{a_times['plain']:.4f} ms; "
           f"B {fwd_t['B']:.5f} vs {fwd_t['B_plain']:.5f} ms; "
           f"C {fwd_t['C']:.5f} vs {fwd_t['C_plain']:.5f} ms ({fwd_t['shape']}); "
           f"B {rung['B']:.5f} ms, C {rung['C']:.5f} ms ({rung['shape']}); forward "
@@ -477,16 +501,12 @@ def main() -> int:
               file=sys.stderr)
         return 1
     src = "spinrelax_tpu_torch/csrc/"
-    # Kernel A at the forward's chunks: sum over bonds of sum_{d<=D} (F - d)
-    # terms, each a 3-term dot (1 multiply, 2 FMAs) and 1 FMA: 7 flops.
-    n_terms = N_REP * N_RES * (N_DELTAS * N_FRAMES - N_DELTAS * (N_DELTAS + 1) // 2)
-    a_bound, a_by = bound_ms(4 * (N_REP * N_FRAMES * N_RES * 3 + N_DELTAS * N_REP * N_RES),
-                             7 * n_terms)
     kernels = [
         dict(name="acf_lag_sums", route="cuda", source=src + "acf_lag_sums.cu",
              replaces="spinrelax_tpu/ops/pallas_acf.py:454", launches=launches[0],
              launches_per_forward=launches[0], max_abs_err=a_err, tolerance=ACF_BOUND,
-             ms=a_ms, plain_ms=a_plain, bound_ms=a_bound, bound_by=a_by, library_ms=None),
+             ms=a_times["chunks"], plain_ms=a_times["plain"], bound_ms=a_times["bound"],
+             bound_by=a_times["by"], library_ms=None),
         dict(name="lm_hgc", route="cuda", source=src + "lm_hgc.cu",
              replaces="spinrelax_tpu/ops/pallas_lm.py:127", launches=launches[1],
              launches_per_forward=launches[1], max_abs_err=b_err,

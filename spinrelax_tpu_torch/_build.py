@@ -38,8 +38,9 @@ _L = ctypes.c_longlong
 # argtypes of every C entry point (pointers and the stream as void*,
 # sizes as int, element strides as long long).
 _SIGNATURES = {
-    # v, out, B, F, D, n_inner, s_outer, s_inner, s_t, s_c, stream
-    "acf_lag_sums_f32": (_P, _P, _I, _I, _I, _I, _L, _L, _L, _L, _P),
+    # v, out, B, F, D, n_inner, s_outer, s_inner, s_t, s_c, nb, threads,
+    # smem, stream
+    "acf_lag_sums_f32": (_P, _P, _I, _I, _I, _I, _L, _L, _L, _L, _I, _I, _I, _P),
     # p, y, isg, dt, out, T, B, K, s2_free, stream
     "lm_hgc_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "lm_cost_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),

@@ -2,9 +2,12 @@
 
 Replaces ``spinrelax_tpu/ops/pallas_acf.py:acf_sums_pallas``.  The kernel
 computes s[d, b] = sum_{t < F-d} (v_b(t) . v_b(t+d))^2 for d = 1..D by the
-direct lag sum, one block per bond, in f32 with f64 block accumulation;
-see the source for its design and what bounds it.  Its plain version is
-``ops.autocorr.acf_sums_plain``.
+direct lag sum in f32 with f64 accumulation.  It is bound by FP32 issue (4
+instructions per (t, d) term; 1.283 ms for the forward's 32 x 1024 bonds
+of 1000 frames at D = 500).  A thread owns the lag windows p and nW-1-p of
+one bond, so every thread walks ~2F - D frames; nb bonds share a block,
+staged and stored coalesced.  See the source for the design.  Its plain
+version is ``ops.autocorr.acf_sums_plain``.
 
 The kernel reads a (nOuter, nInner, F, 3) bond view in place from its
 strides, so the chunk layout (nRep, F, nRes, 3) seen as (nRep, nRes, F, 3)
@@ -14,25 +17,76 @@ copy.  Output is lag-major (D, nOuter * nInner).
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from .. import _build
 
-_LAGS, _TBLK = 8, 32  # csrc/acf_lag_sums.cu LAGS, TBLK
+# csrc/acf_lag_sums.cu constexprs
+LAGS, TBLK = 8, 32  # lags per register window, frames per f32 partial sum
+NB_MAX = 4  # bonds per block at most
+MAX_THREADS = 512  # threads per block (the kernel's launch bounds)
 MAX_SMEM_BYTES = 232_448  # dynamic shared memory one H100 block may use
 _INT32_MAX = 2**31 - 1
 
 
-def smem_bytes(n_frames: int) -> int:
-    """Shared memory of one block (csrc/acf_lag_sums.cu smem_bytes)."""
-    n = n_frames + _TBLK + _LAGS
-    return 3 * (n + (n >> 5) + 1) * 4
+class LaunchPlan(NamedTuple):
+    nb: int  # bonds per block
+    threads: int  # threads per block: nb * bond_threads(D)
+    smem_bytes: int  # dynamic shared memory per block
+
+
+def plane_words(n_frames: int) -> int:
+    """Words of one bank-padded plane: frames 0..F+TBLK+LAGS-1, a pad word
+    every 32 (csrc/acf_lag_sums.cu plane_words)."""
+    n = n_frames + TBLK + LAGS
+    return n + (n >> 5) + 1
+
+
+def n_windows(n_deltas: int) -> int:
+    return -(-n_deltas // LAGS)
+
+
+def bond_threads(n_deltas: int) -> int:
+    """Threads per bond: one per window pair, whole warps, at most
+    MAX_THREADS (more pairs are walked in rounds)."""
+    return min(-(-((n_windows(n_deltas) + 1) // 2) // 32) * 32, MAX_THREADS)
+
+
+def launch_plan(n_frames: int, n_deltas: int) -> LaunchPlan | None:
+    """The launch of kernel A for a chunk shape, or None when it does not
+    take it: the most bonds per block (a power of two <= NB_MAX) whose
+    threads and shared memory fit one block."""
+    if not 1 <= n_deltas < n_frames:
+        return None
+    per_bond = 8 + 3 * plane_words(n_frames) * 4
+    threads = bond_threads(n_deltas)
+    nb = NB_MAX
+    while nb >= 1:
+        if nb * threads <= MAX_THREADS and nb * per_bond <= MAX_SMEM_BYTES:
+            return LaunchPlan(nb, nb * threads, nb * per_bond)
+        nb //= 2
+    return None
+
+
+def fold_schedule(n_frames: int, n_deltas: int) -> list[tuple[int, int, tuple[int, ...]]]:
+    """(thread of a bond, round, first lags of its windows) as the kernel
+    deals them: thread j of round r owns window pair p = r * bond_threads
+    + j, i.e. windows p and nW-1-p (one window when they coincide)."""
+    n_w, bt = n_windows(n_deltas), bond_threads(n_deltas)
+    n_p = (n_w + 1) // 2
+    out = []
+    for p in range(n_p):
+        wins = sorted({p, n_w - 1 - p})
+        out.append((p % bt, p // bt, tuple(1 + LAGS * w for w in wins)))
+    return out
 
 
 def supports(n_frames: int, n_deltas: int) -> bool:
-    """True when the kernel takes this chunk shape: 1 <= D < F and the
-    bond's frames fit in one block's shared memory (F up to ~18 000)."""
-    return 1 <= n_deltas < n_frames and smem_bytes(n_frames) <= MAX_SMEM_BYTES
+    """True when the kernel takes this chunk shape: 1 <= D < F and one
+    bond's frames fit in a block's shared memory (F up to ~18 900)."""
+    return launch_plan(n_frames, n_deltas) is not None
 
 
 def acf_lag_sums(v: torch.Tensor, n_deltas: int) -> torch.Tensor:
@@ -47,7 +101,8 @@ def acf_lag_sums(v: torch.Tensor, n_deltas: int) -> torch.Tensor:
     if v.ndim != 4 or v.shape[-1] != 3:
         raise ValueError(f"expected (nOuter, nInner, F, 3), got {tuple(v.shape)}")
     n_outer, n_inner, n_frames, _ = v.shape
-    if not supports(n_frames, n_deltas):
+    plan = launch_plan(n_frames, n_deltas)
+    if plan is None:
         raise ValueError(
             f"acf_lag_sums: unsupported chunk shape F={n_frames}, D={n_deltas}"
         )
@@ -61,7 +116,7 @@ def acf_lag_sums(v: torch.Tensor, n_deltas: int) -> torch.Tensor:
         stream = torch.cuda.current_stream(v.device).cuda_stream
         code = lib.acf_lag_sums_f32(
             v.data_ptr(), out.data_ptr(), n_bonds, n_frames, n_deltas,
-            n_inner, s_outer, s_inner, s_t, s_c, stream,
+            n_inner, s_outer, s_inner, s_t, s_c, *plan, stream,
         )
     _build.check(code, "acf_lag_sums_f32")
     acf_lag_sums.launches += 1

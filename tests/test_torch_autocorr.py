@@ -111,18 +111,50 @@ def test_acf_sums_dispatch_cpu_runs_plain(rng):
 
 
 def test_kernel_shape_guard():
-    """supports(): 1 <= D < F and one bond per block in 227 KB of shared
-    memory; the guard mirrors the C source's LAGS/TBLK."""
+    """supports() reads launch_plan(): 1 <= D < F and one bond's planes in
+    227 KB of shared memory; the plan's constants mirror the C source's."""
     src = open(os.path.join(os.path.dirname(cuda_acf.__file__), "..", "csrc",
                             "acf_lag_sums.cu")).read()
-    assert f"constexpr int LAGS = {cuda_acf._LAGS};" in src
-    assert f"constexpr int TBLK = {cuda_acf._TBLK};" in src
+    assert f"constexpr int LAGS = {cuda_acf.LAGS};" in src
+    assert f"constexpr int TBLK = {cuda_acf.TBLK};" in src
+    assert f"constexpr int NB_MAX = {cuda_acf.NB_MAX};" in src
+    assert f"constexpr int MAX_THREADS = {cuda_acf.MAX_THREADS};" in src
+    assert f"constexpr int MAX_SMEM = {cuda_acf.MAX_SMEM_BYTES};" in src
     assert cuda_acf.supports(1000, 500)
     assert cuda_acf.supports(64, 32)
     assert cuda_acf.supports(18000, 9000)
     assert not cuda_acf.supports(19000, 9500)
     assert not cuda_acf.supports(10, 10)
     assert not cuda_acf.supports(10, 0)
+    # The forward's shape: one warp per bond, 4 bonds per block.
+    assert cuda_acf.launch_plan(1000, 500) == (4, 128, 4 * (8 + 12 * 1073))
+
+
+@pytest.mark.parametrize("F,D", [(2, 1), (64, 32), (101, 50), (1000, 37),
+                                 (1000, 500), (4097, 2048), (18000, 9000)])
+def test_kernel_launch_plan_and_fold(F, D):
+    """The plan fits one block (shared memory, threads in whole warps);
+    the folded schedule gives every lag 1..D to exactly one (thread,
+    window); threads owning two windows walk frame counts (whole TBLK
+    blocks) within 2 x TBLK of each other."""
+    nb, threads, smem = cuda_acf.launch_plan(F, D)
+    assert smem <= cuda_acf.MAX_SMEM_BYTES
+    assert 32 <= threads <= 1024 and threads % 32 == 0
+    assert nb >= 1 and threads % nb == 0 and (threads // nb) % 32 == 0
+    sched = cuda_acf.fold_schedule(F, D)
+    owners = {}
+    for j, r, lag0s in sched:
+        assert j < threads // nb
+        for lag0 in lag0s:
+            for d in range(lag0, min(lag0 + cuda_acf.LAGS, D + 1)):
+                assert d not in owners, (d, owners[d], (j, r))
+                owners[d] = (j, r)
+    assert sorted(owners) == list(range(1, D + 1))
+    tb = cuda_acf.TBLK
+    walks = [sum(-(-(F - lag0) // tb) * tb for lag0 in lag0s)
+             for _, _, lag0s in sched if len(lag0s) == 2]
+    if walks:
+        assert max(walks) - min(walks) <= 2 * tb
 
 
 @pytest.mark.parametrize("n_rep", [1, 3, 6])

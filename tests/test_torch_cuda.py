@@ -33,18 +33,30 @@ def _unit(shape, gen):
     return v / v.norm(dim=-1, keepdim=True)
 
 
-@pytest.mark.parametrize("layout", ["chunks", "contiguous", "pretiled"])
-@pytest.mark.parametrize("F", [64, 101, 1000])
-def test_acf_kernel_matches_plain(gen, layout, F):
-    """Kernel A against the float64 FFT plain version: max abs error on
-    C(t) = -0.5 + 1.5 s / (F - d) <= 1e-6 (the TPU kernel's bound)."""
-    D = F // 2
+def _acf_input(layout, F, gen, n=None):
+    """Kernel A's input in a layout of the main path, its bond count not a
+    multiple of the kernel's bonds per block (but the whole pretiled tile):
+    chunks (R, F, N, 3) seen as (R, N, F, 3); contiguous (B, F, 3); the
+    pretiled (nTiles, 3, F, 128) seen as (nTiles, 128, F, 3), whole or cut
+    to its first lanes (blocks straddle the tile boundary)."""
     if layout == "chunks":
-        v = _unit((3, F, 70), gen).transpose(1, 2)  # (R, N, F, 3) view
-    elif layout == "contiguous":
-        v = _unit((130, F), gen)
-    else:
-        v = tac.tile_palmer_group(_unit((2, F, 100), gen)).permute(0, 3, 2, 1)
+        return _unit((3 if n is None else 1, F, n or 70), gen).transpose(1, 2)
+    if layout == "contiguous":
+        return _unit((n or 130, F), gen)
+    v = tac.tile_palmer_group(_unit((2 if n is None else 1, F, n or 100), gen))
+    v = v.permute(0, 3, 2, 1)
+    return v if layout == "pretiled" else v[:, : n or 77]
+
+
+@pytest.mark.parametrize("layout", ["chunks", "contiguous", "pretiled", "pretiled_cut"])
+@pytest.mark.parametrize("F,D,n", [(64, 32, None), (101, 50, None), (1000, 500, None),
+                                   (2, 1, None), (4097, 2048, None), (1000, 37, None),
+                                   (18000, 9000, 5)])
+def test_acf_kernel_matches_plain(gen, layout, F, D, n):
+    """Kernel A against the float64 FFT plain version: max abs error on
+    C(t) = -0.5 + 1.5 s / (F - d) <= 1e-6 (the TPU kernel's bound), from
+    F = 2 to the largest F the kernel takes (with n bonds)."""
+    v = _acf_input(layout, F, gen, n)
     before = cuda_acf.acf_lag_sums.launches
     s = tac.acf_sums(v, D, lag_major=True)
     assert cuda_acf.acf_lag_sums.launches == before + 1
@@ -52,6 +64,17 @@ def test_acf_kernel_matches_plain(gen, layout, F):
     n = F - torch.arange(1, D + 1, device="cuda", dtype=torch.float64)
     err = (1.5 * (s.double() - ref) / n[:, None]).abs().max().item()
     assert err <= 1e-6, err
+
+
+@pytest.mark.parametrize("layout", ["chunks", "contiguous", "pretiled_cut"])
+def test_acf_kernel_bitwise_reproducible(gen, layout):
+    """Two launches on the same input give bitwise-equal lag sums (every
+    sum is in a fixed order; no atomics)."""
+    v = _acf_input(layout, 1000, gen)
+    before = cuda_acf.acf_lag_sums.launches
+    a, b = (tac.acf_sums(v, 500, lag_major=True) for _ in range(2))
+    assert cuda_acf.acf_lag_sums.launches == before + 2
+    assert torch.equal(a, b)
 
 
 def _lm_operands(gen, K, s2f, B, T):

@@ -49,11 +49,12 @@ smoke = _module("chip_smoke_ab", HERE / "chip_smoke.py")
 def lm_kernel_of(name: str):
     """'B', 'C' or None for a profiled kernel name of either design: the
     one-thread-per-problem lm_hgc_kernel / lm_cost_kernel<K, s2_free>, or
-    lm_kernel<K, s2_free, FULL> (chip_smoke.lm_kernel_of)."""
+    lm_kernel<K, s2_free, FULL> (chip_smoke.kernel_of, which also names
+    kernel A)."""
     for key, old in (("B", "lm_hgc_kernel<"), ("C", "lm_cost_kernel<")):
         if old in name:
             return key
-    return smoke.lm_kernel_of(name)
+    return smoke.kernel_of(name)
 
 
 def forward_run(root: Path) -> dict:
@@ -70,7 +71,7 @@ def forward_run(root: Path) -> dict:
     smoke.wall_s(torch, lambda: fwd(vecs))  # builds the kernels, warms the allocator
     walls = sorted(smoke.wall_s(torch, lambda: fwd(vecs))[1] * 1e3 for _ in range(5))
     busy, per = smoke.device_profile(torch, lambda: fwd(vecs))
-    lm = smoke.lm_kernel_times(per, lm_kernel_of)
+    lm = smoke.kernel_times(per, lm_kernel_of)
     return {"wall_ms": walls, "median_ms": walls[2], "busy_ms": busy,
             "device_events": sum(n for n, _ in per.values()),
             "lm": {k: {"launches": n, "us": us} for k, (n, us) in lm.items()}}
