@@ -26,7 +26,23 @@ Builds the port's CUDA kernels from csrc/ and runs, in order:
    the device-busy time and kernels A's, B's and C's launches and time
    per launch;
 4. ten streamed pretiled group steps plus the pooled finish, held to a
-   float64 plain route on the card.
+   float64 plain route on the card (each residue's bond wobbles around
+   its own axis: the forward's correlated walk, rolled over residues
+   from group to group);
+5. the DoF ladder (fit_ct_ladder: default ladder, warm retry, 8-start
+   escalation) on tests/test_walk.py's cohort mix at B = 10 000 residues
+   x T = 500 lags, float32, weighted: median wall of 3 calls, rows and
+   kernel B/C launches per LM call, device busy, and on a 1024-row
+   subset the rung selected on the card against the port's CPU float32
+   ladder (>= 98 % equal) and CPU float64 ladder (printed);
+6. the streamed finish (run_finish: ladder -> axisymmetric J(omega) with
+   64 weighted PAF samples -> ensemble rates) on phase 4's accumulators,
+   held to the same finish on the CPU in float64 (median relative gap of
+   every rate < 1e-4).
+
+Kernel A also runs a chunk past one block's shared memory (F = 20 000,
+the slab plan) and kernels B and C K = 5 and 8 (the runtime-K variant),
+each held to its plain version and timed against its bound.
 
 Prints ptxas' register report of the build, timing lines (kernel vs
 plain, CUDA events, in turns), the card's name and power limit, one
@@ -42,6 +58,7 @@ is not beside the script, or any check fails.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -50,6 +67,8 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 N_REP, N_FRAMES, N_RES = 32, 1000, 1024
 N_DELTAS = N_FRAMES // 2
+LONG_F, LONG_BONDS = 20_000, 64  # kernel A past one block's shared memory
+LADDER_B, LADDER_T, SUBSET = 10_000, 500, 1024  # phase 5
 ACF_BOUND = 1e-6  # max abs error on C(t) against float64
 LM_TOL = dict(H=(3e-5, 1e-4), g=(3e-5, 1e-3), cost=(1e-5, 0.0))  # (rtol, atol)
 HBM_BYTES_S, FP32_FLOP_S = 3.35e12, 67e12  # H100 SXM peaks at 700 W
@@ -184,7 +203,12 @@ def phase_acf(torch, tac, cuda_acf, vecs, gen):
               tac.tile_palmer_group(unit(torch, (2, 257, 100), gen))
               .permute(0, 3, 2, 1)[:, :77], 128),
              ("F = 18000, D = 9000, B = 5",
-              unit(torch, (1, 18000, 5), gen).transpose(1, 2), 9000)]
+              unit(torch, (1, 18000, 5), gen).transpose(1, 2), 9000),
+             ("slab plan: F = 20000, D = 10000, B = 64 (chunk layout)",
+              unit(torch, (1, LONG_F, LONG_BONDS), gen).transpose(1, 2), LONG_F // 2),
+             ("slab plan: pretiled cut to 3 lanes, F = 18744",
+              tac.tile_palmer_group(unit(torch, (1, 18744, 3), gen))
+              .permute(0, 3, 2, 1)[:, :3], 9372)]
     for name, v, D in cases:
         s = cuda_acf.acf_lag_sums(v, D)
         ref = tac.acf_sums_plain(v.double(), D)
@@ -206,6 +230,14 @@ def phase_acf(torch, tac, cuda_acf, vecs, gen):
           f"plain f32 FFT {t['plain']:.4f} ms; kernel: "
           + ", ".join(f"{k} layout {t[k]:.4f} ms ({bound / t[k]:.1%} of bound)"
                       for k in ("chunks", "pretiled", "contiguous")), flush=True)
+    vl = unit(torch, (1, LONG_F, LONG_BONDS), gen).transpose(1, 2)
+    t["long_bound"], t["long_by"] = acf_bound(LONG_BONDS, LONG_F, LONG_F // 2)
+    t["long"], t["long_plain"] = paired_ms(torch, lambda: cuda_acf.acf_lag_sums(vl, LONG_F // 2),
+                                           lambda: tac.acf_sums_plain(vl, LONG_F // 2), reps=3)
+    print(f"  time A slab plan at ({LONG_BONDS} bonds, F {LONG_F}, D {LONG_F // 2}): kernel "
+          f"{t['long']:.4f} ms, plain f32 FFT {t['long_plain']:.4f} ms, bound "
+          f"{t['long_bound']:.4f} ms ({t['long_by']}), {t['long_bound'] / t['long']:.1%} of bound",
+          flush=True)
     return worst, t
 
 
@@ -232,7 +264,8 @@ def phase_lm(torch, cuda_lm, gen):
     worst_b = worst_c = 0.0
     cases = [(1, False, 1024, 500), (2, True, 1024, 500), (4, True, 1024, 500),
              (2, True, 1, 1), (3, False, 77, 31), (4, False, 1025, 499),
-             (2, True, 10_000, 500)]
+             (2, True, 10_000, 500), (5, True, 10_000, 500), (8, True, 10_000, 500),
+             (6, False, 77, 31), (16, True, 1025, 499)]
     for K, s2f, B, T in cases:
         args = (*lm_operands(torch, gen, K, s2f, B, T), K, s2f)
         got = cuda_lm.hgc_cuda(*args)
@@ -257,7 +290,9 @@ def phase_lm(torch, cuda_lm, gen):
 
     times = {}
     for key, (K, s2f, B, T), reps in (("fwd", (2, True, 1024, 500), 50),
-                                      ("rung", (4, True, 10_000, 500), 20)):
+                                      ("rung", (4, True, 10_000, 500), 20),
+                                      ("k5", (5, True, 10_000, 500), 10),
+                                      ("k8", (8, True, 10_000, 500), 10)):
         args = (*lm_operands(torch, gen, K, s2f, B, T), K, s2f)
         t = times[key] = {"shape": f"B {B}, T {T}, K {K}, S2 {'free' if s2f else 'fixed'}"}
         t["B"], t["B_plain"] = paired_ms(
@@ -301,13 +336,14 @@ def device_profile(torch, fn):
 
 def kernel_of(name: str):
     """'A', 'B', 'C' or None for a profiled kernel name: acf_lag_sums_kernel
-    is A; lm_kernel<K, s2_free, FULL> is B with FULL true, else C."""
-    if "acf_lag_sums_kernel" in name:
+    and acf_lag_sums_slab_kernel are A; lm_kernel<K, s2_free, FULL> and
+    lm_kernel_wide<FULL> are B with FULL true, else C."""
+    if "acf_lag_sums" in name:
         return "A"
-    if "lm_kernel<" not in name:
+    m = re.search(r"lm_kernel(?:_wide)?<([^>]*)>", name)
+    if m is None:
         return None
-    full = name.split("lm_kernel<")[1].split(">")[0].split(",")[-1].strip()
-    return "B" if full == "true" else "C"
+    return "B" if m.group(1).split(",")[-1].strip() == "true" else "C"
 
 
 def kernel_times(per, kernel_of=kernel_of):
@@ -402,18 +438,23 @@ def phase_forward(torch, tac, counters, make_forward, fit_multiexp, vecs):
     return launches, secs2, busy
 
 
-def phase_stream(torch, tac, cuda_acf, gen):
+def phase_stream(torch, tac, cuda_acf, vecs, gen):
     print("phase 4: 10 streamed pretiled group steps + pooled finish vs a float64 "
           "plain route on the card", flush=True)
     n_groups = 10
+    # Each residue's bond wobbles around its own axis (S2 > 0, as in a
+    # folded protein): the forward's walk, rolled over residues per group.
+    axis = unit(torch, (1, 1, N_RES), gen)
     acc = (torch.zeros((N_DELTAS, N_RES), device="cuda"),) * 2
     ref = (torch.zeros((N_DELTAS, N_RES), device="cuda", dtype=torch.float64),) * 2
     n_vals = N_FRAMES - torch.arange(1, N_DELTAS + 1, device="cuda", dtype=torch.float64)
     b = N_REP * N_RES
     cuda_acf.acf_lag_sums.launches = 0
     step_ms = []
-    for _ in range(n_groups):
-        vt = tac.tile_palmer_group(unit(torch, (N_REP, N_FRAMES, N_RES), gen))
+    for g in range(n_groups):
+        grp = torch.nn.functional.normalize(axis + 0.6 * vecs.roll(g, dims=2), dim=-1)
+        vt = tac.tile_palmer_group(grp)
+        del grp
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         acc = tac.palmer_group_update_pretiled(vt, *acc, N_REP, N_RES)
@@ -440,7 +481,133 @@ def phase_stream(torch, tac, cuda_acf, gen):
     print(f"  group step (kernel A + statistics) median {med:.4f} ms over "
           f"{n_groups - 1} steps; {N_REP * N_FRAMES * N_RES / (med * 1e-3):.4e} "
           f"frames*vectors/s", flush=True)
-    return med
+    return med, acc, n_groups * N_REP
+
+
+def hetero_cohort(B: int, T: int, seed: int = 0, noise: float = 2e-3):
+    """tests/test_walk.py's _hetero mix at (B, T): 1 to 3 components per
+    row (row b has b % 3 + 1), tau 3-600, S2 0.5-0.9, Gaussian noise;
+    float64 numpy (dt, y, dy)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    dt = np.arange(1, T + 1, dtype=float)
+    y = np.empty((B, T))
+    for b in range(B):
+        k = b % 3 + 1
+        S2 = rng.uniform(0.5, 0.9)
+        C = rng.uniform(0.03, 0.15, k)
+        C *= (1 - S2) / max(C.sum(), 1e-9) * rng.uniform(0.5, 1.0)
+        tau = np.sort(rng.uniform(3, 600, k))
+        y[b] = S2 + (C[:, None] * np.exp(-dt / tau[:, None])).sum(0)
+    y += rng.normal(scale=noise, size=y.shape)
+    return dt, y, np.full_like(y, noise)
+
+
+def rung_of(cts):
+    """Selected rung of each row as (number of components, S2 free)."""
+    return cts.mask.sum(1).cpu() * 2 + cts.s2fast.cpu()
+
+
+def phase_ladder(torch, counters, engine, fit_ct_ladder):
+    print(f"phase 5: DoF ladder (B {LADDER_B} x T {LADDER_T}, f32, weighted, warm retry, "
+          f"8-start escalation) on the card", flush=True)
+    dt, y, dy = hetero_cohort(LADDER_B, LADDER_T)
+    names = [str(i) for i in range(LADDER_B)]
+    yc = torch.tensor(y, dtype=torch.float32, device="cuda")
+    dyc = torch.tensor(dy, dtype=torch.float32, device="cuda")
+
+    def run(n=LADDER_B):
+        return fit_ct_ladder(names[:n], dt, yc[:n], dyc[:n])
+
+    run()  # warm-up (allocator, kernel library)
+    walls = sorted(wall_s(torch, run)[1] for _ in range(3))
+    # One more call with every LM call logged: its rows, starts and the
+    # launches of kernels B and C it made (the counters, read around it).
+    calls, orig = [], engine.fit_multiexp_engine
+
+    def logged(dt_, decay, sigma, K, s2_free, n_starts=1, skip=None, max_iter=60, init=None):
+        before = [c.launches for c in counters[1:]]
+        out = orig(dt_, decay, sigma, K, s2_free, n_starts=n_starts, skip=skip,
+                   max_iter=max_iter, init=init)
+        calls.append((K, s2_free, decay.shape[0], n_starts, init is not None,
+                      *(c.launches - n for c, n in zip(counters[1:], before))))
+        return out
+
+    for c in counters:
+        c.launches = 0
+    engine.fit_multiexp_engine = logged
+    try:
+        cts = run()
+        torch.cuda.synchronize()
+    finally:
+        engine.fit_multiexp_engine = orig
+    launches = [c.launches for c in counters]
+    for K, s2f, rows, starts, warm, nb, nc in calls:
+        kind = "warm retry" if warm else (f"{starts}-start" if starts > 1 else "cold")
+        print(f"  LM call K={K} S2 {'free' if s2f else 'fixed'} {kind}: {rows} rows, "
+              f"kernel B {nb} launches, kernel C {nc}", flush=True)
+    check(launches[1] > 0 and launches[2] > 0,
+          f"ladder launched kernels B/C {launches[1]}/{launches[2]} times (A {launches[0]})")
+    check(sum(c[5] for c in calls) == launches[1] and sum(c[6] for c in calls) == launches[2],
+          "every launch of B and C on the ladder came from a logged LM call")
+    ok = all(bool(torch.isfinite(getattr(cts, f)).all()) for f in ("S2", "C", "tau", "chisq"))
+    check(ok and bool((cts.mask.sum(1) >= 1).all()), "ladder model finite, >= 1 component a row")
+    busy, per = device_profile(torch, run)
+    kt = kernel_times(per)
+    print(f"  ladder wall median {walls[1]:.3f} s over 3 calls (min {walls[0]:.3f}, max "
+          f"{walls[2]:.3f}); profiled call: device busy {busy:.2f} ms = "
+          f"{busy / (walls[1] * 1e3):.1%} of the median wall; "
+          + "; ".join(f"kernel {k} {n} launches, {us:.2f} us each"
+                      for k, (n, us) in sorted(kt.items())), flush=True)
+    # The rung selected on the card against the port's CPU ladders, on the
+    # first SUBSET rows (all three run on the same subset).
+    t0 = time.perf_counter()
+    card = rung_of(run(SUBSET))
+    cpu32 = rung_of(fit_ct_ladder(names[:SUBSET], dt,
+                                  *(torch.tensor(a[:SUBSET], dtype=torch.float32)
+                                    for a in (y, dy))))
+    cpu64 = rung_of(fit_ct_ladder(names[:SUBSET], dt, y[:SUBSET], dy[:SUBSET], device="cpu"))
+    share32 = float((card == cpu32).double().mean())
+    share64 = float((card == cpu64).double().mean())
+    check(share32 >= 0.98, f"rung equal to the CPU float32 ladder's on {share32:.4f} of "
+                           f"{SUBSET} rows (>= 0.98)")
+    print(f"  rung equal to the CPU float64 ladder's on {share64:.4f} of {SUBSET} rows "
+          f"(CPU float32 vs float64: {float((cpu32 == cpu64).double().mean()):.4f}); "
+          f"subset ladders {time.perf_counter() - t0:.1f} s", flush=True)
+    return dict(wall=walls[1], launches=launches, busy=busy, kernels=kt,
+                share32=share32, share64=share64)
+
+
+def phase_finish(torch, counters, run_finish, Diffusion, paf_ensemble, acc, count):
+    print("phase 6: streamed finish (ladder -> axisymmetric J -> 64 weighted PAF samples "
+          "-> ensemble rates) on phase 4's accumulators vs the CPU in float64", flush=True)
+    vecs, weights = paf_ensemble(N_RES, 64, seed=1)
+    kw = dict(n_res=N_RES, delta_t=1.0, diffusion=Diffusion.axisymmetric(tau=4242.0, aniso=1.3),
+              vecs=vecs, weights=weights)
+    for c in counters:
+        c.launches = 0
+    out, secs = wall_s(torch, lambda: run_finish(*acc, count, **kw))
+    launches = [c.launches for c in counters]
+    check(launches[1] > 0 and launches[2] > 0,
+          f"finish launched kernels B/C {launches[1]}/{launches[2]} times")
+    t0 = time.perf_counter()
+    ref = run_finish(acc[0].double().cpu(), acc[1].double().cpu(), count, **kw)
+    cpu_s = time.perf_counter() - t0
+    for f in ("R1", "R2", "NOE", "rho", "dR1", "dR2", "dNOE", "drho"):
+        a = getattr(out, f)
+        check(bool(torch.isfinite(a).all()) and a.shape == (N_RES,), f"finish {f} finite, ({N_RES},)")
+    for f in ("R1", "R2", "NOE", "rho"):
+        med = float(rel_gap(getattr(out, f).cpu(), getattr(ref, f)).median())
+        check(med < 1e-4, f"finish {f} median relative gap to CPU float64 {med:.3e} < 1e-4")
+    share = float((rung_of(out.cts) == rung_of(ref.cts)).double().mean())
+    busy, per = device_profile(torch, lambda: run_finish(*acc, count, **kw))
+    print(f"  finish wall {secs:.3f} s on the card (CPU float64 {cpu_s:.1f} s); rung equal to "
+          f"CPU float64 on {share:.4f} of {N_RES} residues; profiled call: device busy "
+          f"{busy:.2f} ms = {busy / (secs * 1e3):.1%} of the wall; "
+          + "; ".join(f"kernel {k} {n} launches, {us:.2f} us each"
+                      for k, (n, us) in sorted(kernel_times(per).items())), flush=True)
+    return dict(wall=secs, launches=launches, busy=busy)
 
 
 def main() -> int:
@@ -459,11 +626,15 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     from spinrelax_tpu_torch import _build
-    from spinrelax_tpu_torch.entry import correlated_walk
+    from spinrelax_tpu_torch.entry import correlated_walk, paf_ensemble
+    from spinrelax_tpu_torch.fit import engine
+    from spinrelax_tpu_torch.fit.expfit import fit_ct_ladder
     from spinrelax_tpu_torch.fit.lm import fit_multiexp
+    from spinrelax_tpu_torch.models.diffusion import Diffusion
     from spinrelax_tpu_torch.ops import autocorr as tac
     from spinrelax_tpu_torch.ops import cuda_acf, cuda_lm
     from spinrelax_tpu_torch.parallel.pipeline import make_forward
+    from spinrelax_tpu_torch.parallel.streamed import run_finish
 
     t_start = t0 = time.perf_counter()
     _build.load(verbose=True)  # ptxas: registers, shared memory, spills
@@ -482,7 +653,10 @@ def main() -> int:
     counters = (cuda_acf.acf_lag_sums, cuda_lm.hgc_cuda, cuda_lm.cost_cuda)
     launches, fwd_s, busy_ms = phase_forward(torch, tac, counters, make_forward,
                                               fit_multiexp, vecs)
-    step_ms = phase_stream(torch, tac, cuda_acf, gen)
+    step_ms, acc, count = phase_stream(torch, tac, cuda_acf, vecs, gen)
+    del vecs
+    ladder = phase_ladder(torch, counters, engine, fit_ct_ladder)
+    finish = phase_finish(torch, counters, run_finish, Diffusion, paf_ensemble, acc, count)
 
     print(f"chip_smoke phases took {time.perf_counter() - t_start:.1f} s, build included",
           flush=True)
@@ -495,29 +669,43 @@ def main() -> int:
           f"C {fwd_t['C']:.5f} vs {fwd_t['C_plain']:.5f} ms ({fwd_t['shape']}); "
           f"B {rung['B']:.5f} ms, C {rung['C']:.5f} ms ({rung['shape']}); forward "
           f"{fwd_s * 1e3:.2f} ms, device busy {busy_ms:.2f} ms; group step "
-          f"{step_ms:.4f} ms", flush=True)
+          f"{step_ms:.4f} ms; A slab plan {a_times['long']:.4f} ms; B/C at K 5 "
+          f"{lm_times['k5']['B']:.5f}/{lm_times['k5']['C']:.5f} ms, K 8 "
+          f"{lm_times['k8']['B']:.5f}/{lm_times['k8']['C']:.5f} ms; ladder "
+          f"{ladder['wall']:.3f} s, device busy {ladder['busy']:.2f} ms; finish "
+          f"{finish['wall']:.3f} s", flush=True)
     if failures:
         print(f"chip_smoke FAILED ({len(failures)}):", *failures, sep="\n  ",
               file=sys.stderr)
         return 1
     src = "spinrelax_tpu_torch/csrc/"
+    k5, k8 = lm_times["k5"], lm_times["k8"]
     kernels = [
         dict(name="acf_lag_sums", route="cuda", source=src + "acf_lag_sums.cu",
              replaces="spinrelax_tpu/ops/pallas_acf.py:454", launches=launches[0],
              launches_per_forward=launches[0], max_abs_err=a_err, tolerance=ACF_BOUND,
              ms=a_times["chunks"], plain_ms=a_times["plain"], bound_ms=a_times["bound"],
-             bound_by=a_times["by"], library_ms=None),
+             bound_by=a_times["by"], library_ms=None, launches_ladder=ladder["launches"][0],
+             launches_finish=finish["launches"][0], slab_plan_ms=a_times["long"],
+             slab_plan_plain_ms=a_times["long_plain"], slab_plan_bound_ms=a_times["long_bound"],
+             slab_plan_bound_by=a_times["long_by"]),
         dict(name="lm_hgc", route="cuda", source=src + "lm_hgc.cu",
              replaces="spinrelax_tpu/ops/pallas_lm.py:127", launches=launches[1],
              launches_per_forward=launches[1], max_abs_err=b_err,
              tolerance="rtol 3e-5 + atol 1e-4 (H), 1e-3 (g); rtol 1e-5 (cost)",
              ms=fwd_t["B"], plain_ms=fwd_t["B_plain"], bound_ms=fwd_t["B_bound"],
-             bound_by=fwd_t["B_by"], library_ms=None),
+             bound_by=fwd_t["B_by"], library_ms=None, launches_ladder=ladder["launches"][1],
+             launches_finish=finish["launches"][1],
+             **{f"{k}_{f}": t[x] for k, t in (("k5", k5), ("k8", k8))
+                for f, x in (("ms", "B"), ("plain_ms", "B_plain"), ("bound_ms", "B_bound"))}),
         dict(name="lm_cost", route="cuda", source=src + "lm_hgc.cu",
              replaces="spinrelax_tpu/ops/pallas_lm.py:169", launches=launches[2],
              launches_per_forward=launches[2], max_abs_err=c_err_, tolerance="rtol 1e-5",
              ms=fwd_t["C"], plain_ms=fwd_t["C_plain"], bound_ms=fwd_t["C_bound"],
-             bound_by=fwd_t["C_by"], library_ms=None),
+             bound_by=fwd_t["C_by"], library_ms=None, launches_ladder=ladder["launches"][2],
+             launches_finish=finish["launches"][2],
+             **{f"{k}_{f}": t[x] for k, t in (("k5", k5), ("k8", k8))
+                for f, x in (("ms", "C"), ("plain_ms", "C_plain"), ("bound_ms", "C_bound"))}),
     ]
     print(gpu)
     print(json.dumps({"kernels": kernels}))

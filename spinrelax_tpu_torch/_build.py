@@ -41,6 +41,8 @@ _SIGNATURES = {
     # v, out, B, F, D, n_inner, s_outer, s_inner, s_t, s_c, nb, threads,
     # smem, stream
     "acf_lag_sums_f32": (_P, _P, _I, _I, _I, _I, _L, _L, _L, _L, _I, _I, _I, _P),
+    # ... slab plan: threads, slab, smem in place of nb, threads, smem
+    "acf_lag_sums_slab_f32": (_P, _P, _I, _I, _I, _I, _L, _L, _L, _L, _I, _I, _I, _P),
     # p, y, isg, dt, out, T, B, K, s2_free, stream
     "lm_hgc_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "lm_cost_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),

@@ -1,9 +1,10 @@
 """Carry state from the JAX package into the port.
 
 This system has no weights.  What a run carries is (1) the physical
-constants the forward step closes over and (2) the streamed Palmer
+constants the forward step closes over, (2) the streamed Palmer
 accumulators, so a stream started with ``spinrelax_tpu`` can continue in
-the port and finish there.
+the port and finish there, and (3) fitted C(t) models and diffusion
+tensors, so a model fitted in one package can be rated in the other.
 """
 
 from __future__ import annotations
@@ -12,8 +13,12 @@ from typing import Optional
 
 import torch
 
+import numpy as np
+
 from . import checked_device
 from .constants import NucleusPair
+from .models.ctmodel import CtModelSet
+from .models.diffusion import Diffusion
 
 
 def forward_kwargs_from_jax(pair: Optional[NucleusPair] = None,
@@ -51,3 +56,35 @@ def palmer_state_from_numpy(acc_s, acc_s2, count, device="cuda"):
             f"{tuple(s.shape)} and {tuple(s2.shape)}"
         )
     return s, s2, int(count)
+
+
+def ctmodel_from_numpy(S2, C, tau, mask, zeta=1.0, s2fast=None, dS2=None, dC=None,
+                       dtau=None, chisq=None, names=(), device="cuda") -> CtModelSet:
+    """A JAX ``CtModelSet``'s arrays (as numpy) -> the port's float64
+    CtModelSet, values copied as they are (no sorting or padding).  On the
+    card unless ``device="cpu"``; raises without one."""
+    dev = checked_device(device)
+
+    def t(a):
+        return None if a is None else torch.tensor(np.asarray(a, dtype=float),
+                                                    dtype=torch.float64, device=dev)
+
+    if s2fast is None:
+        s2fast = np.zeros(np.shape(S2))
+    return CtModelSet(S2=t(S2), C=t(C), tau=t(tau), mask=t(mask), zeta=t(zeta),
+                      s2fast=t(s2fast), dS2=t(dS2), dC=t(dC), dtau=t(dtau),
+                      chisq=t(chisq), names=[str(x) for x in names])
+
+
+def diffusion_from_numpy(kind: str, diso=None, aniso=1.0, dxyz=None) -> Diffusion:
+    """A JAX ``Diffusion``'s kind and values (diso, aniso, dxyz) -> the
+    port's Diffusion (float64 CPU scalars, moved where they are used)."""
+    if kind == "isotropic":
+        return Diffusion.isotropic(diso=float(diso))
+    if kind == "axisymmetric":
+        return Diffusion.axisymmetric(diso=float(diso), aniso=float(aniso))
+    if kind == "ellipsoid":
+        return Diffusion.ellipsoid(np.asarray(dxyz, dtype=float))
+    if kind == "direct":
+        return Diffusion.direct()
+    raise ValueError(f"unknown diffusion kind {kind!r}")

@@ -55,6 +55,18 @@
 //
 // The launch plan (nb, threads, shared bytes) is computed by
 // spinrelax_tpu_torch/ops/cuda_acf.py:launch_plan and checked here.
+//
+// Long chunks (the slab plan).  A bond whose three planes do not fit in
+// one block's shared memory (F > 18 743 at D = F / 2) goes to
+// acf_lag_sums_slab_kernel instead: a block owns one bond and one block of
+// SLAB_LAGS lags d0..d0+SLAB_LAGS-1 (LAGS per thread, register windows as
+// above), and walks the frames in slabs of SLAB: for each slab t0 it
+// stages frames [t0, t0 + SLAB) and the partners [t0 + d0, t0 + d0 + SLAB
+// + SLAB_LAGS) (zero past F), then every thread adds its terms.  Partial
+// sums are the same TBLK-frame f32 blocks into f64, added slab after slab
+// in one fixed order, so launches repeat bit for bit here too.  This plan
+// is written to be right for any 1 <= D < F, not fast: it reads each
+// bond's frames once per lag block.
 
 #include <cuda_runtime.h>
 
@@ -68,6 +80,9 @@ constexpr int NB_MAX = 4;         // bonds per block at most (4 timed fastest of
 constexpr int MAX_THREADS = 512;  // threads per block (launch bounds: <= 128 registers)
 constexpr int MAX_SMEM = 232448;  // dynamic shared memory one block may use
 constexpr int STAGE_UNROLL = 8;   // independent staging loads per thread
+constexpr int SLAB_THREADS = 128; // slab plan: threads per block
+constexpr int SLAB = 512;         // slab plan: frames per slab (a multiple of TBLK)
+constexpr int SLAB_LAGS = LAGS * SLAB_THREADS;  // slab plan: lags per block
 
 __host__ __device__ inline int phys(int a) { return a + (a >> 5); }
 
@@ -271,6 +286,97 @@ __global__ void __launch_bounds__(MAX_THREADS)
   }
 }
 
+// Slab plan: words of the partner planes (frames t0 + d0 .. t0 + d0 + SLAB
+// + SLAB_LAGS - 1, bank padded) and the block's dynamic shared memory (three
+// unpadded SLAB-frame planes, then three partner planes).
+__host__ __device__ inline int slab_partner_words() {
+  return phys(SLAB + SLAB_LAGS) + 1;
+}
+
+inline long long slab_smem_bytes() {
+  return 3LL * (SLAB + slab_partner_words()) * (long long)sizeof(float);
+}
+
+__global__ void __launch_bounds__(SLAB_THREADS)
+    acf_lag_sums_slab_kernel(const float* __restrict__ v, float* __restrict__ out,
+                             int B, int F, int D, int n_inner, long long s_outer,
+                             long long s_inner, long long s_t, long long s_c) {
+  extern __shared__ float slab_smem[];
+  const int pw = slab_partner_words();
+  float* a_planes = slab_smem;               // 3 x SLAB: v(t0 + u)
+  float* b_planes = slab_smem + 3 * SLAB;    // 3 x pw: v(t0 + d0 + u), padded
+  const int tid = threadIdx.x;
+  const int b = blockIdx.x;
+  const int d0 = 1 + blockIdx.y * SLAB_LAGS;  // first lag of the block
+  const int off = LAGS * tid;                 // thread's first lag is d0 + off
+  const int lag0 = d0 + off;
+  const long long base =
+      (long long)(b / n_inner) * s_outer + (long long)(b % n_inner) * s_inner;
+  const int t_end = F - d0;  // frames t with a partner t + d0 < F
+  constexpr int NB = SLAB + SLAB_LAGS;
+
+  double acc[LAGS];
+#pragma unroll
+  for (int k = 0; k < LAGS; ++k) acc[k] = 0.0;
+  for (int t0 = 0; t0 < t_end; t0 += SLAB) {
+    __syncthreads();  // the previous slab is read
+    for (int e = tid; e < 3 * SLAB; e += SLAB_THREADS) {
+      const int c = e / SLAB, u = e % SLAB, t = t0 + u;
+      a_planes[e] = t < F ? __ldg(v + base + (long long)t * s_t + (long long)c * s_c) : 0.f;
+    }
+    for (int e = tid; e < 3 * NB; e += SLAB_THREADS) {
+      const int c = e / NB, u = e % NB;
+      const long long t = (long long)t0 + d0 + u;
+      b_planes[c * pw + phys(u)] =
+          t < F ? __ldg(v + base + t * s_t + (long long)c * s_c) : 0.f;
+    }
+    __syncthreads();
+    if (lag0 > D) continue;
+    // TBLK blocks of this slab that hold frames t < F - lag0 (the thread's
+    // first lag); later lags of the window read zero partners past F.
+    const int n_left = F - lag0 - t0;
+    const int n_blk = min(SLAB / TBLK, max(0, (n_left + TBLK - 1) / TBLK));
+    const float* sx = b_planes;
+    const float* sy = sx + pw;
+    const float* sz = sy + pw;
+    float wx[LAGS], wy[LAGS], wz[LAGS];
+    load_window(sx, sy, sz, off, wx, wy, wz);
+    for (int kb = 0; kb < n_blk; ++kb) {
+      float part[LAGS];
+#pragma unroll
+      for (int k = 0; k < LAGS; ++k) part[k] = 0.f;
+#pragma unroll
+      for (int u = 0; u < TBLK; ++u) {
+        const int uu = kb * TBLK + u;
+        const float ax = a_planes[uu], ay = a_planes[SLAB + uu],
+                    az = a_planes[2 * SLAB + uu];
+#pragma unroll
+        for (int k = 0; k < LAGS; ++k) {
+          float d = ax * wx[k];
+          d = fmaf(ay, wy[k], d);
+          d = fmaf(az, wz[k], d);
+          part[k] = fmaf(d, d, part[k]);
+        }
+#pragma unroll
+        for (int k = 0; k < LAGS - 1; ++k) {
+          wx[k] = wx[k + 1];
+          wy[k] = wy[k + 1];
+          wz[k] = wz[k + 1];
+        }
+        const int qn = phys(uu + off + LAGS);
+        wx[LAGS - 1] = sx[qn];
+        wy[LAGS - 1] = sy[qn];
+        wz[LAGS - 1] = sz[qn];
+      }
+#pragma unroll
+      for (int k = 0; k < LAGS; ++k) acc[k] += (double)part[k];
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < LAGS; ++k)
+    if (lag0 + k <= D) out[(long long)(lag0 + k - 1) * B + b] = (float)acc[k];
+}
+
 }  // namespace
 
 extern "C" {
@@ -305,6 +411,23 @@ int acf_lag_sums_f32(const float* v, float* out, int B, int F, int D,
   const int blocks = (B + nb - 1) / nb;
   acf_lag_sums_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
       v, out, B, F, D, n_inner, s_outer, s_inner, s_t, s_c, nb, pos[0], pos[1]);
+  return (int)cudaGetLastError();
+}
+
+// The slab plan for chunks whose planes do not fit one block: same operands;
+// (threads, slab, smem): ops/cuda_acf.py:launch_plan's SlabPlan, checked.
+int acf_lag_sums_slab_f32(const float* v, float* out, int B, int F, int D,
+                          int n_inner, long long s_outer, long long s_inner,
+                          long long s_t, long long s_c, int threads, int slab,
+                          int smem, void* stream) {
+  const long long n_lag_blocks = ((long long)D + SLAB_LAGS - 1) / SLAB_LAGS;
+  if (B <= 0 || D <= 0 || D >= F || n_inner <= 0 || threads != SLAB_THREADS ||
+      slab != SLAB || smem != slab_smem_bytes() || n_lag_blocks > 65535 ||
+      (long long)F + SLAB + SLAB_LAGS > 2147483647LL)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)B, (unsigned)n_lag_blocks);
+  acf_lag_sums_slab_kernel<<<grid, SLAB_THREADS, smem, (cudaStream_t)stream>>>(
+      v, out, B, F, D, n_inner, s_outer, s_inner, s_t, s_c);
   return (int)cudaGetLastError();
 }
 

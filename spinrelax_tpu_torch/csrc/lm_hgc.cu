@@ -46,6 +46,19 @@
 // registers (ptxas: lm_hgc 58 at K = 2 S2 free, 96 at K = 4 S2 free;
 // lm_cost 40; no spills).  Loads are not software-pipelined: prefetching
 // 2 to 8 lags ahead slowed the forward's shape.
+//
+// K = 5..K_MAX (lm_kernel_wide).  Up to P = 33 parameters give 595 sums
+// per problem: no thread can hold them in registers.  A block still takes
+// TILE problems, and walks the lags in chunks of WCHUNK: first each thread
+// evaluates one (lag, problem) -- residual and Jacobian row, the same
+// arithmetic as Model -- into a shared-memory tile J[lag][column][problem]
+// (column P is r), then each thread adds its share of the packed upper
+// triangle of the (P + 1) x (P + 1) products -- J^T J, J^T r and r.r --
+// over the chunk's lags, in lag order, into f64 registers (a product of
+// two floats is exact in f64).  Every sum has one owner thread and one
+// order: no reduction across threads, bitwise reproducible, and lm_cost's
+// wide variant sums r.r in the same order, so its cost equals lm_hgc's bit
+// for bit.  It is the simple layout, not a tuned one (times in PERF.md).
 
 #include <cuda_runtime.h>
 
@@ -53,6 +66,10 @@ namespace {
 
 constexpr int TILE = 8;       // problems per block
 constexpr int TCHUNK = 1024;  // lags of dt in shared memory at a time
+constexpr int K_NARROW = 4;   // lm_kernel instantiated for K = 1..K_NARROW
+constexpr int K_MAX = 16;     // lm_kernel_wide takes K = K_NARROW+1..K_MAX
+constexpr int WTHREADS = 256;  // lm_kernel_wide: threads per block
+constexpr int WCHUNK = WTHREADS / TILE;  // lm_kernel_wide: lags per chunk
 
 __host__ __device__ constexpr int n_slices(int K) { return K <= 2 ? 32 : 16; }
 
@@ -195,6 +212,124 @@ lm_kernel(const float* __restrict__ p, const float* __restrict__ y,
   if (threadIdx.x < nb) out[b0 + threadIdx.x] = 0.5f * fin[(NA - 1) * TILE + threadIdx.x];
 }
 
+// Columns of lm_kernel_wide's Jacobian tile: P + 1 (r last), rounded up to
+// odd, so the tile writes of a warp (4 lags x 8 problems) hit 32 banks.
+__host__ __device__ constexpr int wide_cols(int P) { return (P + 1) | 1; }
+constexpr int P_MAX = 2 * K_MAX + 1;
+constexpr int NQ_MAX = (P_MAX + 1) * (P_MAX + 2) / 2;  // packed (P+1)^2 triangle
+constexpr int WSUMS = (NQ_MAX * TILE + WTHREADS - 1) / WTHREADS;  // sums a thread owns
+
+// K = K_NARROW+1..K_MAX, S2 free or fixed, at run time (see the header).
+// FULL: lm_hgc's sums; otherwise lm_cost's r.r alone.
+template <bool FULL>
+__global__ void __launch_bounds__(WTHREADS)
+lm_kernel_wide(const float* __restrict__ p, const float* __restrict__ y,
+               const float* __restrict__ isg, const float* __restrict__ dt,
+               float* __restrict__ out, int T, int B, int K, bool s2f) {
+  constexpr int NCOL = FULL ? wide_cols(P_MAX) : 1;
+  constexpr int NS = FULL ? WSUMS : 1;
+  __shared__ float J[WCHUNK * NCOL * TILE];  // J[(lag * ncol + column) * TILE + problem]
+  __shared__ float sC[K_MAX][TILE], sninv[K_MAX][TILE], scoef[K_MAX][TILE], sS2[TILE];
+  const int P = 2 * K + (s2f ? 1 : 0);
+  const int ncol = FULL ? wide_cols(P) : 1;
+  const int rcol = FULL ? P : 0;  // the residual's column
+  const int tid = threadIdx.x;
+  const int b0 = blockIdx.x * TILE;
+
+  // The tile's parameters, as Model computes them (a problem past B reads
+  // the tile's first, and its sums are not written).
+  if (tid < TILE) {
+    const int b = min(b0 + tid, B - 1);
+    float S2 = 1.f;
+    for (int k = 0; k < K; ++k) {
+      const float C = p[(long long)k * B + b];
+      const float tau = p[(long long)(K + k) * B + b];
+      sC[k][tid] = C;
+      sninv[k][tid] = -1.f / tau;
+      scoef[k][tid] = C / (tau * tau);
+      S2 -= C;
+    }
+    sS2[tid] = s2f ? p[(long long)(2 * K) * B + b] : S2;
+  }
+
+  // The sums this thread owns: item e = tid + m * WTHREADS is problem
+  // e % TILE and entry e / TILE of the packed upper triangle over columns
+  // 0..rcol, held as the two tile offsets (i * TILE + problem, j * TILE +
+  // problem) packed into one int; -1 for none.
+  const int nq = FULL ? (P + 1) * (P + 2) / 2 : 1;
+  int offs[NS];
+  double acc[NS];
+#pragma unroll
+  for (int m = 0; m < NS; ++m) {
+    const int e = tid + m * WTHREADS;
+    acc[m] = 0.0;
+    offs[m] = -1;
+    if (e < nq * TILE) {
+      const int pr = e % TILE;
+      int q = e / TILE, i = 0;
+      while (q >= rcol + 1 - i) {
+        q -= rcol + 1 - i;
+        ++i;
+      }
+      offs[m] = (i * TILE + pr) | (((i + q) * TILE + pr) << 16);
+    }
+  }
+
+  for (int t0 = 0; t0 < T; t0 += WCHUNK) {
+    __syncthreads();  // parameters staged; the previous chunk is summed
+    {
+      const int l = tid / TILE, pr = tid % TILE, t = t0 + l, b = b0 + pr;
+      float* row = J + l * ncol * TILE + pr;
+      if (t < T && b < B) {
+        const float d = __ldg(dt + t);
+        const float is = __ldg(isg + (long long)t * B + b);
+        const float yv = __ldg(y + (long long)t * B + b);
+        float m = 0.f;
+        for (int k = 0; k < K; ++k) {
+          const float E = expf(__fmul_rn(d, sninv[k][pr]));
+          m = fmaf(sC[k][pr], E, m);
+          if (FULL) {
+            row[k * TILE] = (s2f ? E : E - 1.f) * is;
+            row[(K + k) * TILE] = scoef[k][pr] * d * E * is;
+          }
+        }
+        if (FULL && s2f) row[(P - 1) * TILE] = is;
+        row[rcol * TILE] = __fmul_rn(__fsub_rn(__fadd_rn(sS2[pr], m), yv), is);
+      } else {
+        for (int c = 0; c <= rcol; ++c) row[c * TILE] = 0.f;
+      }
+    }
+    __syncthreads();
+    const int n = min(WCHUNK, T - t0);
+    for (int l = 0; l < n; ++l) {
+      const float* row = J + l * ncol * TILE;
+#pragma unroll
+      for (int m = 0; m < NS; ++m)
+        if (offs[m] >= 0)
+          acc[m] = fma((double)row[offs[m] & 0xffff], (double)row[offs[m] >> 16], acc[m]);
+    }
+  }
+
+  // Each owned sum straight out: H both halves, g, cost.
+#pragma unroll
+  for (int m = 0; m < NS; ++m) {
+    if (offs[m] < 0) continue;
+    const int pr = (offs[m] & 0xffff) % TILE, b = b0 + pr;
+    if (b >= B) continue;
+    const int i = (offs[m] & 0xffff) / TILE, j = (offs[m] >> 16) / TILE;
+    if (!FULL) {
+      out[b] = (float)(0.5 * acc[m]);
+    } else if (j < P) {
+      out[(long long)b * P * P + i * P + j] = (float)acc[m];
+      out[(long long)b * P * P + j * P + i] = (float)acc[m];
+    } else if (i < P) {
+      out[(long long)B * P * P + (long long)b * P + i] = (float)acc[m];
+    } else {
+      out[(long long)B * P * (P + 1) + b] = (float)(0.5 * acc[m]);
+    }
+  }
+}
+
 template <int K, bool S2F, bool FULL>
 void run(const float* p, const float* y, const float* isg, const float* dt,
          float* out, int T, int B, cudaStream_t s) {
@@ -205,7 +340,12 @@ void run(const float* p, const float* y, const float* isg, const float* dt,
 template <bool FULL>
 int launch(const float* p, const float* y, const float* isg, const float* dt,
            float* out, int T, int B, int K, int s2_free, cudaStream_t s) {
-  if (B <= 0 || T <= 0) return (int)cudaErrorInvalidValue;
+  if (B <= 0 || T <= 0 || K < 1 || K > K_MAX) return (int)cudaErrorInvalidValue;
+  if (K > K_NARROW) {
+    lm_kernel_wide<FULL><<<(B + TILE - 1) / TILE, WTHREADS, 0, s>>>(
+        p, y, isg, dt, out, T, B, K, s2_free != 0);
+    return (int)cudaGetLastError();
+  }
   switch (K * 2 + (s2_free ? 1 : 0)) {
     case 2: run<1, false, FULL>(p, y, isg, dt, out, T, B, s); break;
     case 3: run<1, true, FULL>(p, y, isg, dt, out, T, B, s); break;

@@ -44,12 +44,16 @@ def _bounds(K: int, s2_free: bool, tau_max, dtype, device):
 
 def fit_multiexp_engine(dt, decay, sigma, K: int, s2_free: bool,
                         n_starts: int = 1, skip=None,
-                        max_iter: int = 60) -> MultiExpFit:
+                        max_iter: int = 60, init=None) -> MultiExpFit:
     """Batched bounded multi-exp fit (see module docstring).
 
     dt (T,), decay and sigma (B, T), all on one device in one dtype.
     skip : optional (B,) bool -- lanes created already done (their
         returned values are the projected initial guess).
+    init : optional per-row start (C0 (B, K), tau0 (B, K), S20 (B,)) in
+        place of the reference's cold initialiser (one start only); the
+        pre-fit sum > 1 gate then reads these C0 and S20, as the JAX
+        package's ``fit_multiexp_warm`` does.
     """
     dev, f = decay.device, decay.dtype
     dt = torch.as_tensor(dt, dtype=f, device=dev).contiguous()
@@ -59,7 +63,15 @@ def fit_multiexp_engine(dt, decay, sigma, K: int, s2_free: bool,
     tau_max = dt[-1] * 10.0
 
     # --- initialisation ------------------------------------------------
-    C0, tau0_shared, S20 = _init_multiexp(dt, decay, K, s2_free)
+    # starts: (S, K) taus shared by every lane, or (1, B, K) per-row taus
+    if init is not None:
+        if n_starts != 1:
+            raise ValueError("init gives one start per row: n_starts must be 1")
+        C0, tau0_rows, S20 = (torch.as_tensor(a, dtype=f, device=dev) for a in init)
+        starts = tau0_rows[None]
+    else:
+        C0, tau0_shared, S20 = _init_multiexp(dt, decay, K, s2_free)
+        starts = tau0_shared[None]
     if n_starts > 1:
         # Deterministic extra starts drawn in float64 numpy, independent
         # of dtype and device (same draws as the JAX package).
@@ -70,9 +82,7 @@ def fit_multiexp_engine(dt, decay, sigma, K: int, s2_free: bool,
         step = torch.mean(dt[1:] - dt[:-1])
         lo_l, hi_l = torch.log(step * 0.5), torch.log(dt[-1] * 2.0)
         extra = torch.sort(torch.exp(lo_l + u * (hi_l - lo_l)), dim=1).values
-        starts = torch.cat([tau0_shared[None], extra], dim=0)
-    else:
-        starts = tau0_shared[None]
+        starts = torch.cat([starts, extra], dim=0)
     S = starts.shape[0]
     BS = B * S
     # start-major stacking: lane b, start s -> row s * B + b
@@ -80,7 +90,7 @@ def fit_multiexp_engine(dt, decay, sigma, K: int, s2_free: bool,
     sig_s = sigma.repeat(S, 1)
     C0_s = C0.repeat(S, 1)
     S20_s = S20.repeat(S)
-    tau0_s = starts.repeat_interleave(B, dim=0)  # (BS, K)
+    tau0_s = starts[0] if init is not None else starts.repeat_interleave(B, dim=0)
     if skip is None:
         done = torch.zeros(BS, dtype=torch.bool, device=dev)
     else:

@@ -1,5 +1,5 @@
-"""Batched bounded multi-exponential fits (port of ``spinrelax_tpu/fit/lm.py``,
-main-path subset).
+"""Batched bounded multi-exponential fits (port of ``spinrelax_tpu/fit/lm.py``:
+the cold, multi-start and warm-started fits).
 
 Box constraints use the sigmoid reparameterisation; uncertainties come
 from inv(J^T J) * reduced chi-square in the original parameter space
@@ -188,3 +188,16 @@ def fit_multiexp(dt, decay, sigma, K: int, s2_free: bool,
     from .engine import fit_multiexp_engine
 
     return fit_multiexp_engine(dt, decay, sigma, K, s2_free, n_starts=n_starts)
+
+
+def fit_multiexp_warm(dt, decay, sigma, C0, tau0, S20, K: int,
+                      s2_free: bool) -> MultiExpFit:
+    """:func:`fit_multiexp` from caller-given PER-ROW initial parameters
+    instead of the reference's cold initialiser: the DoF ladder's warm
+    retry (``fit.expfit``).  C0, tau0 (B, K), S20 (B,).  Bounds and gates
+    are fit_multiexp's; the pre-fit sum > 1 gate reads these C0 and S20,
+    as the cold path reads its own guesses.  Runs ``fit.engine``, so on
+    the card every iteration is kernels B and C."""
+    from .engine import fit_multiexp_engine
+
+    return fit_multiexp_engine(dt, decay, sigma, K, s2_free, init=(C0, tau0, S20))

@@ -13,6 +13,11 @@ The kernel reads a (nOuter, nInner, F, 3) bond view in place from its
 strides, so the chunk layout (nRep, F, nRes, 3) seen as (nRep, nRes, F, 3)
 and the pretiled (nTiles, 3, F, 128) seen as (nTiles, 128, F, 3) need no
 copy.  Output is lag-major (D, nOuter * nInner).
+
+A chunk whose bond planes do not fit one block's shared memory (F above
+~18 700) takes the slab plan: one block per (bond, block of SLAB_LAGS
+lags), walking the frames in slabs of SLAB (:class:`SlabPlan`).  Every
+1 <= D < F within int32 indexing has a plan.
 """
 
 from __future__ import annotations
@@ -28,13 +33,26 @@ LAGS, TBLK = 8, 32  # lags per register window, frames per f32 partial sum
 NB_MAX = 4  # bonds per block at most
 MAX_THREADS = 512  # threads per block (the kernel's launch bounds)
 MAX_SMEM_BYTES = 232_448  # dynamic shared memory one H100 block may use
+SLAB_THREADS, SLAB = 128, 512  # slab plan: threads per block, frames per slab
+SLAB_LAGS = LAGS * SLAB_THREADS  # slab plan: lags per block
 _INT32_MAX = 2**31 - 1
+_GRID_Y_MAX = 65_535
 
 
 class LaunchPlan(NamedTuple):
+    """A block holds nb bonds' whole planes in shared memory."""
+
     nb: int  # bonds per block
     threads: int  # threads per block: nb * bond_threads(D)
     smem_bytes: int  # dynamic shared memory per block
+
+
+class SlabPlan(NamedTuple):
+    """A block holds one bond's frame slab and its partners (long chunks)."""
+
+    threads: int
+    slab: int  # frames per slab
+    smem_bytes: int
 
 
 def plane_words(n_frames: int) -> int:
@@ -54,10 +72,18 @@ def bond_threads(n_deltas: int) -> int:
     return min(-(-((n_windows(n_deltas) + 1) // 2) // 32) * 32, MAX_THREADS)
 
 
-def launch_plan(n_frames: int, n_deltas: int) -> LaunchPlan | None:
-    """The launch of kernel A for a chunk shape, or None when it does not
-    take it: the most bonds per block (a power of two <= NB_MAX) whose
-    threads and shared memory fit one block."""
+def slab_partner_words() -> int:
+    """Words of one bank-padded partner plane of the slab plan
+    (csrc/acf_lag_sums.cu slab_partner_words)."""
+    n = SLAB + SLAB_LAGS
+    return n + (n >> 5) + 1
+
+
+def launch_plan(n_frames: int, n_deltas: int) -> LaunchPlan | SlabPlan | None:
+    """The launch of kernel A for a chunk shape: the most bonds per block (a
+    power of two <= NB_MAX) whose threads and shared memory fit one block,
+    else the slab plan; None only when 1 <= D < F fails or the shape
+    leaves int32 indexing."""
     if not 1 <= n_deltas < n_frames:
         return None
     per_bond = 8 + 3 * plane_words(n_frames) * 4
@@ -67,7 +93,10 @@ def launch_plan(n_frames: int, n_deltas: int) -> LaunchPlan | None:
         if nb * threads <= MAX_THREADS and nb * per_bond <= MAX_SMEM_BYTES:
             return LaunchPlan(nb, nb * threads, nb * per_bond)
         nb //= 2
-    return None
+    if (n_frames + SLAB + SLAB_LAGS > _INT32_MAX
+            or -(-n_deltas // SLAB_LAGS) > _GRID_Y_MAX):
+        return None
+    return SlabPlan(SLAB_THREADS, SLAB, 3 * (SLAB + slab_partner_words()) * 4)
 
 
 def fold_schedule(n_frames: int, n_deltas: int) -> list[tuple[int, int, tuple[int, ...]]]:
@@ -84,8 +113,8 @@ def fold_schedule(n_frames: int, n_deltas: int) -> list[tuple[int, int, tuple[in
 
 
 def supports(n_frames: int, n_deltas: int) -> bool:
-    """True when the kernel takes this chunk shape: 1 <= D < F and one
-    bond's frames fit in a block's shared memory (F up to ~18 900)."""
+    """True when the kernel takes this chunk shape: 1 <= D < F within
+    int32 indexing (long chunks through the slab plan)."""
     return launch_plan(n_frames, n_deltas) is not None
 
 
@@ -111,14 +140,15 @@ def acf_lag_sums(v: torch.Tensor, n_deltas: int) -> torch.Tensor:
         raise ValueError(f"acf_lag_sums: unsupported bond count {n_bonds}")
     s_outer, s_inner, s_t, s_c = v.stride()
     out = torch.empty((n_deltas, n_bonds), dtype=torch.float32, device=v.device)
+    name = "acf_lag_sums_slab_f32" if isinstance(plan, SlabPlan) else "acf_lag_sums_f32"
     lib = _build.load()
     with torch.cuda.device(v.device):
         stream = torch.cuda.current_stream(v.device).cuda_stream
-        code = lib.acf_lag_sums_f32(
+        code = getattr(lib, name)(
             v.data_ptr(), out.data_ptr(), n_bonds, n_frames, n_deltas,
             n_inner, s_outer, s_inner, s_t, s_c, *plan, stream,
         )
-    _build.check(code, "acf_lag_sums_f32")
+    _build.check(code, name)
     acf_lag_sums.launches += 1
     return out
 

@@ -19,7 +19,10 @@ kernels.  A block takes 8 problems x all lags, split over 16 or 32 lag
 slices and reduced in a fixed order (no atomics), so results repeat bit for
 bit and kernel C's cost equals kernel B's for equal p.  Kernel B writes H
 whole (B, P, P), g and cost into one buffer; the wrapper returns views of
-it.  See ``csrc/lm_hgc.cu``.
+it.  K = 1..K_NARROW run those templates; K_NARROW < K <= K_MAX run one
+runtime-K variant that keeps a tile's Jacobian rows in shared memory (P up
+to 33 gives 595 sums a problem, too many for one thread's registers).  See
+``csrc/lm_hgc.cu``.
 """
 
 from __future__ import annotations
@@ -28,7 +31,8 @@ import torch
 
 from .. import _build
 
-K_MAX = 4  # the kernels are instantiated for K = 1..4, S2 free or fixed
+K_NARROW = 4  # K = 1..4: templates per (K, S2 free or fixed)
+K_MAX = 16  # K = 5..16: the runtime-K variant (P <= 33)
 
 
 def n_par(K: int, s2_free: bool) -> int:
@@ -68,16 +72,11 @@ def cost_plain(p, y, isg, dt, K: int, s2_free: bool):
     return 0.5 * torch.sum(r * r, dim=0)
 
 
-def _check_cuda(name, p, y, isg, dt, K, s2_free):
-    for t in (p, y, isg, dt):
-        if not t.is_cuda:
-            raise ValueError(f"{name}: operands must all be on the GPU")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} takes float32, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: operands must be contiguous")
+def check_shapes(name, p, y, isg, dt, K, s2_free):
+    """(T, B) of operands the kernels take at this K; raises otherwise
+    (the device and dtype checks are :func:`_check_cuda`'s)."""
     if not 1 <= K <= K_MAX:
-        raise ValueError(f"{name}: kernel built for K = 1..{K_MAX}, got {K}")
+        raise ValueError(f"{name}: kernels take K = 1..{K_MAX}, got {K}")
     T, B = y.shape
     if (p.shape != (n_par(K, s2_free), B) or isg.shape != (T, B)
             or dt.shape != (T,) or B < 1 or T < 1 or T * B >= 2**62):
@@ -87,6 +86,17 @@ def _check_cuda(name, p, y, isg, dt, K, s2_free):
             f"K={K}, s2_free={s2_free}"
         )
     return T, B
+
+
+def _check_cuda(name, p, y, isg, dt, K, s2_free):
+    for t in (p, y, isg, dt):
+        if not t.is_cuda:
+            raise ValueError(f"{name}: operands must all be on the GPU")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} takes float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: operands must be contiguous")
+    return check_shapes(name, p, y, isg, dt, K, s2_free)
 
 
 def _launch(fn_name, p, y, isg, dt, out, T, B, K, s2_free):

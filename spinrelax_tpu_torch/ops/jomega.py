@@ -1,5 +1,9 @@
-"""Spectral densities J(omega) (port of ``spinrelax_tpu/ops/jomega.py``,
-main-path subset).  omega is (nOm,); every return has a trailing nOm axis.
+"""Spectral densities J(omega) (port of ``spinrelax_tpu/ops/jomega.py``).
+
+omega is (nOm,); every return has a trailing nOm axis.  vecs (..., 3) are
+unit vectors in the diffusion frame; S2 (...,), C/tau/comp_mask (..., K).
+Scalars (dpar, dperp, Diso, ...) may be Python floats or tensors; they
+follow the dtype and device of the tensor they meet.
 """
 
 from __future__ import annotations
@@ -7,16 +11,150 @@ from __future__ import annotations
 import torch
 
 
+def _like(x, ref):
+    """``x`` as a tensor of ``ref``'s dtype on ``ref``'s device."""
+    return torch.as_tensor(x, dtype=ref.dtype, device=ref.device)
+
+
+def _t(x):
+    """A tensor as it is; a Python or numpy number or array as float64."""
+    return x if torch.is_tensor(x) else torch.as_tensor(x, dtype=torch.float64)
+
+
+# ---------------------------------------------------------------------------
+# D / A coefficients (spectral_densities.py:1874-1959)
+# ---------------------------------------------------------------------------
+
+def d_coefficients_symmtop(dpar, dperp):
+    """3 axisymmetric D-coefficients (spectral_densities.py:1874-1884)."""
+    dpar = _t(dpar)
+    dperp = _like(dperp, dpar)
+    return torch.stack(
+        [5.0 * dperp + dpar, 2.0 * dperp + 4.0 * dpar, 6.0 * dperp], dim=-1)
+
+
+def a_coefficients_symmtop(v, prolate=True):
+    """3 axisymmetric A-coefficients from unit vectors (..., 3)
+    (spectral_densities.py:1886-1906).  ``prolate`` selects the unique
+    axis: z when Daniso > 1, x when Daniso < 1 (Dx <= Dy <= Dz)."""
+    v = _t(v)
+    prolate = torch.as_tensor(prolate, device=v.device)
+    z2 = torch.where(prolate, v[..., 2], v[..., 0]) ** 2
+    onemz2 = 1.0 - z2
+    A0 = 3.0 * z2 * onemz2
+    A1 = 0.75 * onemz2**2
+    A2 = 0.25 * (3.0 * z2 - 1.0) ** 2
+    return torch.stack([A0, A1, A2], dim=-1)
+
+
+def d_coefficients_ellipsoid(D):
+    """5 fully-anisotropic D-coefficients and the delta of the
+    A-coefficients (spectral_densities.py:1914-1932); D = (Dx, Dy, Dz),
+    Dx <= Dy <= Dz.  The reference's fact1 = sqrt(Diso^2 - D2^2) mixes
+    orders of D (:1921-1922) and is kept; its argument clamps at 0 where
+    the reference gives NaN, so pass D in ps^-1."""
+    D = _t(D)
+    Diso = torch.mean(D, dim=-1)
+    D2 = (D[..., 0] * D[..., 1] + D[..., 0] * D[..., 2] + D[..., 1] * D[..., 2]) / 3.0
+    fact1 = torch.sqrt(torch.clamp(Diso**2 - D2**2, min=0.0))
+    D_J = torch.stack(
+        [
+            4 * D[..., 0] + D[..., 1] + D[..., 2],
+            D[..., 0] + 4 * D[..., 1] + D[..., 2],
+            D[..., 0] + D[..., 1] + 4 * D[..., 2],
+            6 * Diso + 6 * fact1,
+            6 * Diso - 6 * fact1,
+        ],
+        dim=-1,
+    )
+    safe = torch.where(fact1 > 0, fact1, torch.ones_like(fact1))
+    delta = (D - Diso[..., None]) / safe[..., None]
+    return D_J, delta
+
+
+def a_coefficients_ellipsoid(v, delta):
+    """5 fully-anisotropic A-coefficients (spectral_densities.py:1934-1959);
+    v (..., 3), delta (..., 3) from :func:`d_coefficients_ellipsoid`."""
+    v = _t(v)
+    delta = _like(delta, v)
+    v2 = v**2
+    v4 = v2**2
+    fact2 = 0.25 * (3.0 * torch.sum(v4, dim=-1) - 1.0)
+    fact3 = (1.0 / 12.0) * (
+        delta[..., 0] * (3 * v4[..., 0] + 6 * v2[..., 1] * v2[..., 2] - 1)
+        + delta[..., 1] * (3 * v4[..., 1] + 6 * v2[..., 0] * v2[..., 2] - 1)
+        + delta[..., 2] * (3 * v4[..., 2] + 6 * v2[..., 0] * v2[..., 1] - 1)
+    )
+    return torch.stack(
+        [
+            3 * v2[..., 1] * v2[..., 2],
+            3 * v2[..., 0] * v2[..., 2],
+            3 * v2[..., 0] * v2[..., 1],
+            fact2 - fact3,
+            fact2 + fact3,
+        ],
+        dim=-1,
+    )
+
+
 def jsum(omega, A_J, D_J):
     """J_k = sum_j A_j D_j / (D_j^2 + om_k^2).
 
     omega (nOm,), A_J (..., J), D_J broadcastable to A_J -> (..., nOm).
     """
-    D_J = torch.broadcast_to(torch.as_tensor(D_J, dtype=A_J.dtype,
-                                             device=A_J.device), A_J.shape)
+    omega = _like(omega, A_J)
+    D_J = torch.broadcast_to(_like(D_J, A_J), A_J.shape)
     lor = D_J[..., None] / (D_J[..., None] ** 2 + omega**2)  # (..., J, nOm)
     return torch.sum(A_J[..., None] * lor, dim=-2)
 
+
+# ---------------------------------------------------------------------------
+# Rigid-body J (spectral_densities.py:1977-2000)
+# ---------------------------------------------------------------------------
+
+def j_rigid_sphere_D(omega, Diso):
+    Diso = _t(Diso)
+    omega = _like(omega, Diso)
+    return 6.0 * Diso / ((6.0 * Diso) ** 2 + omega**2)
+
+
+def j_rigid_sphere_tau(omega, tau_c):
+    tau_c = _t(tau_c)
+    omega = _like(omega, tau_c)
+    return tau_c / (1.0 + (omega * tau_c) ** 2)
+
+
+def j_rigid_symmtop(omega, v, dpar, dperp):
+    v = _t(v)
+    dpar, dperp = _like(dpar, v), _like(dperp, v)
+    D_J = d_coefficients_symmtop(dpar, dperp)
+    A_J = a_coefficients_symmtop(v, prolate=dpar > dperp)
+    return jsum(omega, A_J, D_J)
+
+
+def j_rigid_ellipsoid(omega, v, D):
+    v = _t(v)
+    D_J, delta = d_coefficients_ellipsoid(_like(D, v))
+    A_J = a_coefficients_ellipsoid(v, delta)
+    return jsum(omega, A_J, D_J)
+
+
+def j_direct_transform(omega, C, tau, comp_mask=None):
+    """J = sum_i C_i tau_i / (1 + (tau_i w)^2): no global tumbling
+    (spectral_densities.py:2024-2033).  C, tau (..., K)."""
+    C = _t(C)
+    tau = _like(tau, C)
+    omega = _like(omega, C)
+    term = C[..., None] * tau[..., None] / (1.0 + (tau[..., None] * omega) ** 2)
+    if comp_mask is not None:
+        term = term * comp_mask[..., None]
+    return torch.sum(term, dim=-2)
+
+
+# ---------------------------------------------------------------------------
+# Global tumbling combined with a local multi-exponential C(t)
+# (spectral_densities.py:2038-2105)
+# ---------------------------------------------------------------------------
 
 def j_combine_isotropic(omega, tau_iso, S2, C, tau, comp_mask=None, zeta=1.0):
     """Isotropic tumbling combined with a local multi-exponential
@@ -31,3 +169,43 @@ def j_combine_isotropic(omega, tau_iso, S2, C, tau, comp_mask=None, zeta=1.0):
     if comp_mask is not None:
         term = term * comp_mask[..., None]
     return zeta * (J + torch.sum(term, dim=-2))
+
+
+def j_combine_symmtop(omega, v, dpar, dperp, S2, C, tau, comp_mask=None, zeta=1.0):
+    """Axisymmetric tumbling combined with a local multi-exponential C(t)
+    (spectral_densities.py:2057-2077); v in the diffusion frame.
+    v (..., 3), S2 (...,), C/tau (..., K) -> (..., nOm)."""
+    v = _t(v)
+    dpar, dperp = _like(dpar, v), _like(dperp, v)
+    D_J = d_coefficients_symmtop(dpar, dperp)  # (3,)
+    A_J = a_coefficients_symmtop(v, prolate=dpar > dperp)  # (..., 3)
+    safe_tau = torch.where(tau > 0, tau, torch.ones_like(tau))
+    J = jsum(omega, S2[..., None] * A_J, D_J)
+    Dk = D_J + 1.0 / safe_tau[..., None]  # (..., K, 3)
+    Ak = C[..., None] * A_J[..., None, :]  # (..., K, 3)
+    term = jsum(omega, Ak, Dk)  # (..., K, nOm)
+    if comp_mask is not None:
+        term = term * comp_mask[..., None]
+    return zeta * (J + torch.sum(term, dim=-2))
+
+
+def j_combine_ellipsoid(omega, v, D, S2, C, tau, comp_mask=None, zeta=1.0):
+    """Fully anisotropic tumbling combined with a local C(t)
+    (spectral_densities.py:2094-2105).  D = (Dx, Dy, Dz), Dx <= Dy <= Dz."""
+    v = _t(v)
+    D_J, delta = d_coefficients_ellipsoid(_like(D, v))  # (5,), (3,)
+    A_J = a_coefficients_ellipsoid(v, delta)  # (..., 5)
+    safe_tau = torch.where(tau > 0, tau, torch.ones_like(tau))
+    J = jsum(omega, S2[..., None] * A_J, D_J)
+    Dk = D_J + 1.0 / safe_tau[..., None]  # (..., K, 5)
+    Ak = C[..., None] * A_J[..., None, :]  # (..., K, 5)
+    term = jsum(omega, Ak, Dk)
+    if comp_mask is not None:
+        term = term * comp_mask[..., None]
+    return zeta * (J + torch.sum(term, dim=-2))
+
+
+def symmtop_from_diso_aniso(diso, aniso):
+    """(Diso, Daniso) -> (Dpar, Dperp) (spectral_densities.py:535-540)."""
+    dperp = 3.0 * diso / (2.0 + aniso)
+    return aniso * dperp, dperp

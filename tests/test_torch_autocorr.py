@@ -111,8 +111,9 @@ def test_acf_sums_dispatch_cpu_runs_plain(rng):
 
 
 def test_kernel_shape_guard():
-    """supports() reads launch_plan(): 1 <= D < F and one bond's planes in
-    227 KB of shared memory; the plan's constants mirror the C source's."""
+    """supports() reads launch_plan(): 1 <= D < F; one bond's planes in
+    227 KB of shared memory take the block plan, longer chunks the slab
+    plan; the plans' constants mirror the C source's."""
     src = open(os.path.join(os.path.dirname(cuda_acf.__file__), "..", "csrc",
                             "acf_lag_sums.cu")).read()
     assert f"constexpr int LAGS = {cuda_acf.LAGS};" in src
@@ -120,14 +121,64 @@ def test_kernel_shape_guard():
     assert f"constexpr int NB_MAX = {cuda_acf.NB_MAX};" in src
     assert f"constexpr int MAX_THREADS = {cuda_acf.MAX_THREADS};" in src
     assert f"constexpr int MAX_SMEM = {cuda_acf.MAX_SMEM_BYTES};" in src
+    assert f"constexpr int SLAB_THREADS = {cuda_acf.SLAB_THREADS};" in src
+    assert f"constexpr int SLAB = {cuda_acf.SLAB};" in src
     assert cuda_acf.supports(1000, 500)
     assert cuda_acf.supports(64, 32)
     assert cuda_acf.supports(18000, 9000)
-    assert not cuda_acf.supports(19000, 9500)
+    assert isinstance(cuda_acf.launch_plan(18743, 9371), cuda_acf.LaunchPlan)
+    assert isinstance(cuda_acf.launch_plan(19000, 9500), cuda_acf.SlabPlan)
+    assert cuda_acf.supports(19000, 9500)
     assert not cuda_acf.supports(10, 10)
     assert not cuda_acf.supports(10, 0)
     # The forward's shape: one warp per bond, 4 bonds per block.
     assert cuda_acf.launch_plan(1000, 500) == (4, 128, 4 * (8 + 12 * 1073))
+
+
+@pytest.mark.parametrize("F,D", [(18744, 9372), (20000, 10000), (40001, 20000),
+                                 (100000, 50000), (20000, 37), (30000, 29999)])
+def test_slab_plan_takes_long_chunks(F, D):
+    """Past one block's shared memory every 1 <= D < F still has a plan
+    (the slab plan), within the grid's 65 535 lag blocks; the plan's
+    shared bytes and partner words mirror the C source's formulas."""
+    plan = cuda_acf.launch_plan(F, D)
+    assert isinstance(plan, cuda_acf.SlabPlan) and cuda_acf.supports(F, D)
+    n = cuda_acf.SLAB + cuda_acf.SLAB_LAGS
+    assert cuda_acf.slab_partner_words() == n + n // 32 + 1
+    assert plan == (cuda_acf.SLAB_THREADS, cuda_acf.SLAB,
+                    3 * (cuda_acf.SLAB + cuda_acf.slab_partner_words()) * 4)
+    assert plan.smem_bytes <= 48 * 1024  # no opt-in attribute needed
+    assert -(-D // cuda_acf.SLAB_LAGS) <= 65_535
+    assert cuda_acf.SLAB % cuda_acf.TBLK == 0
+
+
+def test_slab_plan_index_model(rng):
+    """An index-exact numpy model of the slab kernel's reads (slabs of SLAB
+    frames, partner slab from t0 + d0, register windows of LAGS lags,
+    zero past F) gives the lag sums of the direct definition, at shrunken
+    constants that force several slabs and lag blocks."""
+    SLAB, LAGS, NT = 16, 4, 3  # frames per slab, lags per thread, threads
+    F, D = 70, 40
+    v = unit_vecs(rng, (F,))
+    out = np.zeros(D)
+    for d0 in range(1, D + 1, LAGS * NT):
+        for t0 in range(0, F - d0, SLAB):
+            a = np.zeros((SLAB, 3))
+            part = v[t0 : t0 + SLAB]
+            a[: len(part)] = part
+            bpl = np.zeros((SLAB + LAGS * NT, 3))
+            part = v[t0 + d0 : t0 + d0 + SLAB + LAGS * NT]
+            bpl[: len(part)] = part
+            for tid in range(NT):
+                for k in range(LAGS):
+                    lag = d0 + LAGS * tid + k
+                    if lag <= D:
+                        off = LAGS * tid + k
+                        out[lag - 1] += np.sum(
+                            np.einsum("uc,uc->u", a, bpl[off : off + SLAB]) ** 2)
+    ref = np.array([np.sum(np.einsum("tc,tc->t", v[: F - d], v[d:]) ** 2)
+                    for d in range(1, D + 1)])
+    np.testing.assert_allclose(out, ref, rtol=1e-12)
 
 
 @pytest.mark.parametrize("F,D", [(2, 1), (64, 32), (101, 50), (1000, 37),

@@ -10,7 +10,8 @@ import numpy as np
 import pytest
 import torch
 
-from spinrelax_tpu_torch.entry import correlated_walk
+from spinrelax_tpu_torch.entry import correlated_walk, finish_entry
+from spinrelax_tpu_torch.fit.expfit import fit_ct_ladder
 from spinrelax_tpu_torch.fit.lm import fit_multiexp
 from spinrelax_tpu_torch.ops import autocorr as tac
 from spinrelax_tpu_torch.ops import cuda_acf, cuda_lm
@@ -77,6 +78,41 @@ def test_acf_kernel_bitwise_reproducible(gen, layout):
     assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("layout", ["chunks", "pretiled"])
+@pytest.mark.parametrize("F", [18744, 20000, 40001])
+def test_acf_slab_plan_matches_plain(gen, layout, F):
+    """Chunks past one block's shared memory (the slab plan) against the
+    float64 plain version to the same 1e-6 on C(t), D = F // 2, and a
+    second launch equal to the first bit for bit."""
+    D = F // 2
+    if layout == "chunks":
+        v = _unit((2, F, 3), gen).transpose(1, 2)
+    else:
+        v = tac.tile_palmer_group(_unit((1, F, 3), gen)).permute(0, 3, 2, 1)[:, :3]
+    assert isinstance(cuda_acf.launch_plan(F, D), cuda_acf.SlabPlan)
+    before = cuda_acf.acf_lag_sums.launches
+    s = tac.acf_sums(v, D, lag_major=True)
+    again = tac.acf_sums(v, D, lag_major=True)
+    assert cuda_acf.acf_lag_sums.launches == before + 2
+    assert torch.equal(s, again)
+    ref = tac.acf_sums_plain(v.double(), D).reshape(-1, D).T
+    n = F - torch.arange(1, D + 1, device="cuda", dtype=torch.float64)
+    err = (1.5 * (s.double() - ref) / n[:, None]).abs().max().item()
+    assert err <= 1e-6, err
+
+
+def test_ct_palmer_long_chunk_on_card(gen):
+    """ct_palmer on a (2, 20 000, 4, 3) float32 chunk (a 20 ns memory time
+    at 1 ps) runs kernel A and agrees with float64 to 1e-6."""
+    v = _unit((2, 20000, 4), gen)
+    before = cuda_acf.acf_lag_sums.launches
+    Ct, dCt = tac.ct_palmer(v)
+    assert cuda_acf.acf_lag_sums.launches == before + 1
+    Ct64, _ = tac.ct_palmer(v.double().cpu())
+    assert (Ct.double().cpu() - Ct64).abs().max().item() <= 1e-6
+    assert torch.isfinite(dCt).all()
+
+
 def _lm_operands(gen, K, s2f, B, T):
     """Random p, and y = the model at p plus an offset of 0.1 to 0.5 of
     either sign, so no residual is a cancellation below what float32 can
@@ -86,7 +122,9 @@ def _lm_operands(gen, K, s2f, B, T):
         return torch.rand(shape, generator=gen, device="cuda")
 
     dt = torch.arange(1, T + 1, device="cuda", dtype=torch.float32)
-    C, tau = rand(K, B) * 0.39 + 0.01, rand(K, B) * 199 + 1
+    # C scaled so S2 + sum C stays near 1 at any K: the model, and so the
+    # cancellation in its residual, keeps the size it has at K <= 4.
+    C, tau = (rand(K, B) * 0.39 + 0.01) * min(1.0, 4 / K), rand(K, B) * 199 + 1
     S2 = rand(1, B) * 0.6 + 0.2 if s2f else 1.0 - C.sum(0, keepdim=True)
     model = S2 + (C[:, None] * torch.exp(-dt[None, :, None] / tau[:, None])).sum(0)
     y = model + (rand(T, B) * 0.4 + 0.1) * torch.where(rand(T, B) < 0.5, -1.0, 1.0)
@@ -118,7 +156,21 @@ def test_lm_kernels_match_plain(gen, K, s2f, B, T):
     _assert_lm_matches_plain(*_lm_operands(gen, K, s2f, B, T), K, s2f)
 
 
-@pytest.mark.parametrize("K,s2f", [(1, False), (2, True), (4, True)])
+@pytest.mark.parametrize("T", [1, 31, 499])
+@pytest.mark.parametrize("B", [1, 77, 1025])
+@pytest.mark.parametrize("K", [5, 6, 8, 16])
+@pytest.mark.parametrize("s2f", [False, True])
+def test_lm_wide_kernels_match_plain(gen, K, s2f, B, T):
+    """K > 4 (the runtime-K variant, P up to 33) against float64 hgc_plain
+    / cost_plain at the same tolerances, on the same ragged grid; C's cost
+    equals B's bit for bit and a relaunch repeats bit for bit."""
+    args = (*_lm_operands(gen, K, s2f, B, T), K, s2f)
+    H, g, c = _assert_lm_matches_plain(*args)
+    assert torch.equal(c, cuda_lm.cost_cuda(*args))
+    assert all(torch.equal(x, z) for x, z in zip((H, g, c), cuda_lm.hgc_cuda(*args)))
+
+
+@pytest.mark.parametrize("K,s2f", [(1, False), (2, True), (4, True), (6, True)])
 def test_lm_kernels_isg_zero_lags(gen, K, s2f):
     """Lags with isg = 0 (scattered, and 20 trailing rows, as the TPU
     kernels' padding) add nothing: the kernels match the plain version and
@@ -162,8 +214,10 @@ def test_wrappers_raise_instead_of_falling_back(gen):
     T, B = 10, 4
     y = torch.zeros((T, B), device="cuda")
     dt = torch.ones(T, device="cuda")
+    with pytest.raises(ValueError, match="K = 1..16"):
+        cuda_lm.hgc(torch.zeros((35, B), device="cuda"), y, y, dt, 17, True)
     with pytest.raises(ValueError):
-        cuda_lm.hgc(torch.zeros((11, B), device="cuda"), y, y, dt, 5, True)
+        cuda_lm.hgc(torch.zeros((10, B), device="cuda"), y, y, dt, 5, True)
     with pytest.raises(ValueError):
         cuda_lm.cost(torch.zeros((B, 5), device="cuda").T, y, y, dt, 2, True)
     with pytest.raises(TypeError):
@@ -193,3 +247,78 @@ def test_forward_on_card_matches_cpu(gen):
     fa, fb = fit(a), fit(b)
     rel = ((fa.chisq.cpu() - fb.chisq).abs() / fb.chisq).numpy()
     assert np.median(rel) < 1e-4 and np.mean(rel < 1e-2) > 0.95
+
+
+@pytest.mark.parametrize("K", [5, 16])
+def test_fit_beyond_k4_runs_on_kernels(gen, K):
+    """fit_multiexp at K > 4 on the card runs kernels B and C (no
+    ValueError, no plain route) and gives finite parameters."""
+    v = torch.from_numpy(correlated_walk(4, 256, 16)).cuda()
+    Ct, dCt = tac.ct_palmer(v)
+    dt = torch.arange(Ct.shape[0], dtype=Ct.dtype, device="cuda") + 1.0
+    before = (cuda_lm.hgc_cuda.launches, cuda_lm.cost_cuda.launches)
+    f = fit_multiexp(dt, Ct.T.contiguous(), torch.ones_like(Ct.T), K=K, s2_free=True)
+    assert cuda_lm.hgc_cuda.launches > before[0] and cuda_lm.cost_cuda.launches > before[1]
+    assert f.C.shape == (16, K) and torch.isfinite(f.C).all() and torch.isfinite(f.tau).all()
+
+
+def test_forward_n_components_5_on_card(gen):
+    """make_forward(n_components=5) on entry.correlated_walk(4, 64, 16): all
+    three kernels launch and the rates are finite."""
+    v = torch.from_numpy(correlated_walk(4, 64, 16)).cuda()
+    counters = (cuda_acf.acf_lag_sums, cuda_lm.hgc_cuda, cuda_lm.cost_cuda)
+    before = [c.launches for c in counters]
+    out = make_forward(n_components=5)(v)
+    assert all(c.launches > n for c, n in zip(counters, before))
+    assert out.C.shape == (16, 5)
+    for x in (out.R1, out.R2, out.NOE, out.rho):
+        assert torch.isfinite(x).all()
+
+
+def _hetero(B, T=400, seed=0, noise=2e-3):
+    """tests/test_walk.py's cohort mix (1 to 3 components a row)."""
+    rng = np.random.default_rng(seed)
+    dt = np.arange(1, T + 1, dtype=float)
+    y = np.empty((B, T))
+    for b in range(B):
+        k = b % 3 + 1
+        S2 = rng.uniform(0.5, 0.9)
+        C = rng.uniform(0.03, 0.15, k)
+        C *= (1 - S2) / max(C.sum(), 1e-9) * rng.uniform(0.5, 1.0)
+        tau = np.sort(rng.uniform(3, 600, k))
+        y[b] = S2 + (C[:, None] * np.exp(-dt / tau[:, None])).sum(0)
+    y += rng.normal(scale=noise, size=y.shape)
+    return dt, y, np.full_like(y, noise)
+
+
+def test_ladder_on_card_matches_cpu_f32(gen):
+    """fit_ct_ladder on the card (kernels B and C every iteration) on a
+    256-row cohort against the port's CPU float32 ladder: the rung equal on
+    >= 98 % of rows, chisq within 1e-2 on >= 95 % (the float32 LM's
+    gates, tests/test_engine.py)."""
+    dt, y, dy = _hetero(256)
+    names = [str(i) for i in range(256)]
+    before = (cuda_lm.hgc_cuda.launches, cuda_lm.cost_cuda.launches)
+    a = fit_ct_ladder(names, dt, y, dy)  # numpy in: the card, float32
+    assert cuda_lm.hgc_cuda.launches > before[0] and cuda_lm.cost_cuda.launches > before[1]
+    b = fit_ct_ladder(names, dt, *(torch.tensor(a, dtype=torch.float32) for a in (y, dy)))
+    assert a.S2.is_cuda
+    rung_a = a.mask.sum(1).cpu() * 2 + a.s2fast.cpu()
+    rung_b = b.mask.sum(1) * 2 + b.s2fast
+    assert (rung_a == rung_b).double().mean() >= 0.98
+    rel = ((a.chisq.cpu() - b.chisq).abs() / b.chisq).numpy()
+    assert np.mean(rel < 1e-2) >= 0.95
+
+
+def test_run_finish_on_card_matches_cpu(gen):
+    """entry.finish_entry's finish on the card against the same finish on
+    the CPU: kernels B and C launch; rates within 1e-4 in median relative
+    gap, all finite."""
+    before = (cuda_lm.hgc_cuda.launches, cuda_lm.cost_cuda.launches)
+    a = finish_entry()
+    assert cuda_lm.hgc_cuda.launches > before[0] and cuda_lm.cost_cuda.launches > before[1]
+    b = finish_entry(device="cpu")
+    for f in ("R1", "R2", "NOE", "rho"):
+        x, y = getattr(a, f).cpu(), getattr(b, f)
+        assert torch.isfinite(x).all()
+        assert float(((x - y).abs() / y.abs()).median()) < 1e-4, f

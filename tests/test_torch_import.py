@@ -19,6 +19,10 @@ MODULES = [
     "spinrelax_tpu_torch.ops.cuda_lm", "spinrelax_tpu_torch.ops.jomega",
     "spinrelax_tpu_torch.ops.relaxation", "spinrelax_tpu_torch.fit.lm",
     "spinrelax_tpu_torch.fit.engine", "spinrelax_tpu_torch.parallel.pipeline",
+    "spinrelax_tpu_torch.core.stats", "spinrelax_tpu_torch.models.ctmodel",
+    "spinrelax_tpu_torch.models.diffusion", "spinrelax_tpu_torch.ops.observables",
+    "spinrelax_tpu_torch.fit.walk", "spinrelax_tpu_torch.fit.expfit",
+    "spinrelax_tpu_torch.parallel.streamed",
 ]
 
 
@@ -32,7 +36,8 @@ def test_every_module_is_listed():
                 name = rel.replace(os.sep, ".").removesuffix(".__init__")
                 found.add(name)
     assert found - {"spinrelax_tpu_torch.ops", "spinrelax_tpu_torch.fit",
-                    "spinrelax_tpu_torch.parallel"} == set(MODULES)
+                    "spinrelax_tpu_torch.parallel", "spinrelax_tpu_torch.core",
+                    "spinrelax_tpu_torch.models"} == set(MODULES)
 
 
 def test_import_leaves_out_jax_and_toolchain():
