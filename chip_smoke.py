@@ -30,11 +30,12 @@ Builds the port's CUDA kernels from csrc/ and runs, in order:
    its own axis: the forward's correlated walk, rolled over residues
    from group to group);
 5. the DoF ladder (fit_ct_ladder: default ladder, warm retry, 8-start
-   escalation) on tests/test_walk.py's cohort mix at B = 10 000 residues
-   x T = 500 lags, float32, weighted: median wall of 3 calls, rows and
-   kernel B/C launches per LM call, device busy, and on a 1024-row
-   subset the rung selected on the card against the port's CPU float32
-   ladder (>= 98 % equal) and CPU float64 ladder (printed);
+   escalation) on entry.hetero_cohort (tests/test_walk.py's cohort mix)
+   at B = 10 000 residues x T = 500 lags, float32, weighted: median wall
+   of 3 calls, rows and kernel B/C launches per LM call (the ladder's
+   trace), device busy, and on a 1024-row subset the rung selected on
+   the card against the port's CPU float32 ladder (>= 98 % equal) and
+   CPU float64 ladder (printed);
 6. the streamed finish (run_finish: ladder -> axisymmetric J(omega) with
    64 weighted PAF samples -> ensemble rates) on phase 4's accumulators,
    held to the same finish on the CPU in float64 (median relative gap of
@@ -50,7 +51,9 @@ plain, CUDA events, in turns), the card's name and power limit, one
 Each kernel's ``bound_ms`` is the larger of its bytes (each input read
 once, each output written once) over 3.35 TB/s and its float32 operations
 (an FMA counts 2, a multiply, add or exp 1) over 67 TFLOP/s, the H100
-SXM's published peaks, computed from this run's shapes.
+SXM's published peaks, computed from this run's shapes; kernel A's
+operations are the fewer of the direct lag sum's and an FFT
+autocorrelation's (``acf_bound``).
 Exits non-zero, without the last line, when there is no GPU, the package
 is not beside the script, or any check fails.
 """
@@ -175,11 +178,19 @@ def c_err(torch, s, ref, n_frames):
 
 
 def acf_bound(n_bonds: int, n_frames: int, n_deltas: int):
-    """bound_ms of kernel A: sum over bonds of sum_{d<=D} (F - d) terms,
-    each a 3-term dot (1 multiply, 2 FMAs) and 1 FMA: 7 flops; the input
-    read once and the (D, B) output written once."""
-    n_terms = n_bonds * (n_deltas * n_frames - n_deltas * (n_deltas + 1) // 2)
-    return bound_ms(4 * n_bonds * (3 * n_frames + n_deltas), 7 * n_terms)
+    """bound_ms of kernel A: the input read once and the (D, B) output
+    written once, and the fewer flops of two ways to the same sums.  The
+    direct sum: sum_{d<=D} (F - d) terms a bond, each a 3-term dot (1
+    multiply, 2 FMAs) and 1 FMA, 7 flops.  By FFT: s[d] = sum_{i<=j} w_ij
+    autocorr(v_i v_j)[d] over the 6 component products (6F multiplies),
+    each autocorrelation a real FFT and its inverse at N = the power of two
+    >= F + D (2 x 2.5 N log2 N) and its power spectrum (1.5 N), and the
+    weighted sum of the 6 (6 FMAs a lag)."""
+    direct = 7 * (n_deltas * n_frames - n_deltas * (n_deltas + 1) // 2)
+    n = 1 << (n_frames + n_deltas - 1).bit_length()
+    log2n = n.bit_length() - 1
+    fft = 6 * n_frames + 6 * (5 * n * log2n + 1.5 * n) + 12 * n_deltas
+    return bound_ms(4 * n_bonds * (3 * n_frames + n_deltas), n_bonds * min(direct, fft))
 
 
 def phase_acf(torch, tac, cuda_acf, vecs, gen):
@@ -484,32 +495,12 @@ def phase_stream(torch, tac, cuda_acf, vecs, gen):
     return med, acc, n_groups * N_REP
 
 
-def hetero_cohort(B: int, T: int, seed: int = 0, noise: float = 2e-3):
-    """tests/test_walk.py's _hetero mix at (B, T): 1 to 3 components per
-    row (row b has b % 3 + 1), tau 3-600, S2 0.5-0.9, Gaussian noise;
-    float64 numpy (dt, y, dy)."""
-    import numpy as np
-
-    rng = np.random.default_rng(seed)
-    dt = np.arange(1, T + 1, dtype=float)
-    y = np.empty((B, T))
-    for b in range(B):
-        k = b % 3 + 1
-        S2 = rng.uniform(0.5, 0.9)
-        C = rng.uniform(0.03, 0.15, k)
-        C *= (1 - S2) / max(C.sum(), 1e-9) * rng.uniform(0.5, 1.0)
-        tau = np.sort(rng.uniform(3, 600, k))
-        y[b] = S2 + (C[:, None] * np.exp(-dt / tau[:, None])).sum(0)
-    y += rng.normal(scale=noise, size=y.shape)
-    return dt, y, np.full_like(y, noise)
-
-
 def rung_of(cts):
     """Selected rung of each row as (number of components, S2 free)."""
     return cts.mask.sum(1).cpu() * 2 + cts.s2fast.cpu()
 
 
-def phase_ladder(torch, counters, engine, fit_ct_ladder):
+def phase_ladder(torch, counters, hetero_cohort, fit_ct_ladder):
     print(f"phase 5: DoF ladder (B {LADDER_B} x T {LADDER_T}, f32, weighted, warm retry, "
           f"8-start escalation) on the card", flush=True)
     dt, y, dy = hetero_cohort(LADDER_B, LADDER_T)
@@ -517,40 +508,28 @@ def phase_ladder(torch, counters, engine, fit_ct_ladder):
     yc = torch.tensor(y, dtype=torch.float32, device="cuda")
     dyc = torch.tensor(dy, dtype=torch.float32, device="cuda")
 
-    def run(n=LADDER_B):
-        return fit_ct_ladder(names[:n], dt, yc[:n], dyc[:n])
+    def run(n=LADDER_B, trace=None):
+        return fit_ct_ladder(names[:n], dt, yc[:n], dyc[:n], trace=trace)
 
     run()  # warm-up (allocator, kernel library)
     walls = sorted(wall_s(torch, run)[1] for _ in range(3))
-    # One more call with every LM call logged: its rows, starts and the
-    # launches of kernels B and C it made (the counters, read around it).
-    calls, orig = [], engine.fit_multiexp_engine
-
-    def logged(dt_, decay, sigma, K, s2_free, n_starts=1, skip=None, max_iter=60, init=None):
-        before = [c.launches for c in counters[1:]]
-        out = orig(dt_, decay, sigma, K, s2_free, n_starts=n_starts, skip=skip,
-                   max_iter=max_iter, init=init)
-        calls.append((K, s2_free, decay.shape[0], n_starts, init is not None,
-                      *(c.launches - n for c, n in zip(counters[1:], before))))
-        return out
-
+    # One more call with its LM calls traced: rows, starts and the launches
+    # of kernels B and C each made (their counters, read around it).
+    calls = []
     for c in counters:
         c.launches = 0
-    engine.fit_multiexp_engine = logged
-    try:
-        cts = run()
-        torch.cuda.synchronize()
-    finally:
-        engine.fit_multiexp_engine = orig
+    cts = run(trace=calls)
+    torch.cuda.synchronize()
     launches = [c.launches for c in counters]
-    for K, s2f, rows, starts, warm, nb, nc in calls:
-        kind = "warm retry" if warm else (f"{starts}-start" if starts > 1 else "cold")
-        print(f"  LM call K={K} S2 {'free' if s2f else 'fixed'} {kind}: {rows} rows, "
-              f"kernel B {nb} launches, kernel C {nc}", flush=True)
+    for c in calls:
+        print(f"  LM call {c['stage']} K={c['K']} S2 {'free' if c['s2_free'] else 'fixed'}, "
+              f"{c['starts']} start(s): {c['rows']} rows, kernel B {c['launches_B']} "
+              f"launches, kernel C {c['launches_C']}", flush=True)
     check(launches[1] > 0 and launches[2] > 0,
           f"ladder launched kernels B/C {launches[1]}/{launches[2]} times (A {launches[0]})")
-    check(sum(c[5] for c in calls) == launches[1] and sum(c[6] for c in calls) == launches[2],
-          "every launch of B and C on the ladder came from a logged LM call")
+    check(sum(c["launches_B"] for c in calls) == launches[1]
+          and sum(c["launches_C"] for c in calls) == launches[2],
+          "every launch of B and C on the ladder came from a traced LM call")
     ok = all(bool(torch.isfinite(getattr(cts, f)).all()) for f in ("S2", "C", "tau", "chisq"))
     check(ok and bool((cts.mask.sum(1) >= 1).all()), "ladder model finite, >= 1 component a row")
     busy, per = device_profile(torch, run)
@@ -626,8 +605,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     from spinrelax_tpu_torch import _build
-    from spinrelax_tpu_torch.entry import correlated_walk, paf_ensemble
-    from spinrelax_tpu_torch.fit import engine
+    from spinrelax_tpu_torch.entry import correlated_walk, hetero_cohort, paf_ensemble
     from spinrelax_tpu_torch.fit.expfit import fit_ct_ladder
     from spinrelax_tpu_torch.fit.lm import fit_multiexp
     from spinrelax_tpu_torch.models.diffusion import Diffusion
@@ -655,7 +633,7 @@ def main() -> int:
                                               fit_multiexp, vecs)
     step_ms, acc, count = phase_stream(torch, tac, cuda_acf, vecs, gen)
     del vecs
-    ladder = phase_ladder(torch, counters, engine, fit_ct_ladder)
+    ladder = phase_ladder(torch, counters, hetero_cohort, fit_ct_ladder)
     finish = phase_finish(torch, counters, run_finish, Diffusion, paf_ensemble, acc, count)
 
     print(f"chip_smoke phases took {time.perf_counter() - t_start:.1f} s, build included",

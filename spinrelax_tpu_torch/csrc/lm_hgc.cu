@@ -47,18 +47,23 @@
 // lm_cost 40; no spills).  Loads are not software-pipelined: prefetching
 // 2 to 8 lags ahead slowed the forward's shape.
 //
-// K = 5..K_MAX (lm_kernel_wide).  Up to P = 33 parameters give 595 sums
+// K = 5..K_MAX (lm_kernel_wide).  Up to P = 33 parameters give 594 sums
 // per problem: no thread can hold them in registers.  A block still takes
-// TILE problems, and walks the lags in chunks of WCHUNK: first each thread
-// evaluates one (lag, problem) -- residual and Jacobian row, the same
-// arithmetic as Model -- into a shared-memory tile J[lag][column][problem]
-// (column P is r), then each thread adds its share of the packed upper
-// triangle of the (P + 1) x (P + 1) products -- J^T J, J^T r and r.r --
-// over the chunk's lags, in lag order, into f64 registers (a product of
-// two floats is exact in f64).  Every sum has one owner thread and one
-// order: no reduction across threads, bitwise reproducible, and lm_cost's
-// wide variant sums r.r in the same order, so its cost equals lm_hgc's bit
-// for bit.  It is the simple layout, not a tuned one (times in PERF.md).
+// TILE problems and 32 lag slices (256 threads), and walks the lags in
+// chunks of WCHUNK = 32: each thread evaluates one (lag, problem) --
+// residual and Jacobian row, the same arithmetic as Model -- adds r^2 to
+// its own f32 sum, and writes the row, widened to f64, into a
+// shared-memory tile J[lag][column][problem] (column P is r).  Then each
+// thread adds its slots of the packed upper triangle of J^T J and J^T r
+// over the chunk's lags, in lag order, in f64 (a product of two floats is
+// exact there); a thread runs only the ns = ceil(sums x TILE / 256) slots
+// that are live at this P (3 at K = 5), the same count for every thread.
+// Every H and g sum has one owner thread and one order; the r^2 sums
+// reduce across slices by the narrow template's fixed path, and lm_cost's
+// wide variant is the same code without the tile, so its cost equals
+// lm_hgc's bit for bit and relaunches repeat bit for bit.  The tile takes
+// 2 KB a column (up to 70 KB at P = 33, dynamic shared memory).  Times in
+// PERF.md.
 
 #include <cuda_runtime.h>
 
@@ -213,11 +218,17 @@ lm_kernel(const float* __restrict__ p, const float* __restrict__ y,
 }
 
 // Columns of lm_kernel_wide's Jacobian tile: P + 1 (r last), rounded up to
-// odd, so the tile writes of a warp (4 lags x 8 problems) hit 32 banks.
+// odd, so a warp's tile writes (4 lags x 8 problems) spread over the banks.
 __host__ __device__ constexpr int wide_cols(int P) { return (P + 1) | 1; }
+// Bytes of that f64 tile: WCHUNK lags x wide_cols(P) columns x TILE problems.
+__host__ __device__ constexpr int wide_smem(int P) {
+  return WCHUNK * wide_cols(P) * TILE * (int)sizeof(double);
+}
 constexpr int P_MAX = 2 * K_MAX + 1;
-constexpr int NQ_MAX = (P_MAX + 1) * (P_MAX + 2) / 2;  // packed (P+1)^2 triangle
-constexpr int WSUMS = (NQ_MAX * TILE + WTHREADS - 1) / WTHREADS;  // sums a thread owns
+// J^T J's packed upper triangle and J^T r (r.r is summed apart).
+__host__ __device__ constexpr int wide_sums(int P) { return (P + 1) * (P + 2) / 2 - 1; }
+constexpr int WSUMS = (wide_sums(P_MAX) * TILE + WTHREADS - 1) / WTHREADS;  // slots a thread has
+constexpr int WWARPS = WTHREADS / 32;
 
 // K = K_NARROW+1..K_MAX, S2 free or fixed, at run time (see the header).
 // FULL: lm_hgc's sums; otherwise lm_cost's r.r alone.
@@ -226,14 +237,12 @@ __global__ void __launch_bounds__(WTHREADS)
 lm_kernel_wide(const float* __restrict__ p, const float* __restrict__ y,
                const float* __restrict__ isg, const float* __restrict__ dt,
                float* __restrict__ out, int T, int B, int K, bool s2f) {
-  constexpr int NCOL = FULL ? wide_cols(P_MAX) : 1;
-  constexpr int NS = FULL ? WSUMS : 1;
-  __shared__ float J[WCHUNK * NCOL * TILE];  // J[(lag * ncol + column) * TILE + problem]
+  extern __shared__ double J[];  // FULL: J[(lag * ncol + column) * TILE + problem]
   __shared__ float sC[K_MAX][TILE], sninv[K_MAX][TILE], scoef[K_MAX][TILE], sS2[TILE];
+  __shared__ float red[WWARPS][TILE];
   const int P = 2 * K + (s2f ? 1 : 0);
-  const int ncol = FULL ? wide_cols(P) : 1;
-  const int rcol = FULL ? P : 0;  // the residual's column
-  const int tid = threadIdx.x;
+  const int ncol = wide_cols(P);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int b0 = blockIdx.x * TILE;
 
   // The tile's parameters, as Model computes them (a problem past B reads
@@ -252,80 +261,111 @@ lm_kernel_wide(const float* __restrict__ p, const float* __restrict__ y,
     sS2[tid] = s2f ? p[(long long)(2 * K) * B + b] : S2;
   }
 
-  // The sums this thread owns: item e = tid + m * WTHREADS is problem
+  // FULL: the slots of this thread.  Item e = tid + m * WTHREADS is problem
   // e % TILE and entry e / TILE of the packed upper triangle over columns
-  // 0..rcol, held as the two tile offsets (i * TILE + problem, j * TILE +
-  // problem) packed into one int; -1 for none.
-  const int nq = FULL ? (P + 1) * (P + 2) / 2 : 1;
-  int offs[NS];
-  double acc[NS];
+  // 0..P less (P, P), held as the two tile offsets (i * TILE + problem,
+  // j * TILE + problem) packed into one int.  Only the first ns slots are
+  // live (ns is the same for every thread, so the loops below leave in
+  // step); items past the triangle read offset 0 and are not written.
+  const int nq = wide_sums(P) * TILE;
+  const int ns = FULL ? (nq + WTHREADS - 1) / WTHREADS : 0;
+  int offs[WSUMS];
+  double acc[WSUMS];
 #pragma unroll
-  for (int m = 0; m < NS; ++m) {
+  for (int m = 0; m < WSUMS; ++m) {
     const int e = tid + m * WTHREADS;
     acc[m] = 0.0;
-    offs[m] = -1;
-    if (e < nq * TILE) {
+    offs[m] = 0;
+    if (m < ns && e < nq) {
       const int pr = e % TILE;
       int q = e / TILE, i = 0;
-      while (q >= rcol + 1 - i) {
-        q -= rcol + 1 - i;
+      while (q >= P + 1 - i) {
+        q -= P + 1 - i;
         ++i;
       }
       offs[m] = (i * TILE + pr) | (((i + q) * TILE + pr) << 16);
     }
   }
 
+  // Thread (lag slice l, problem pr) evaluates lags l, l + WCHUNK, ... in
+  // order: its r^2 sum (the cost, in both kernels alike) and, FULL, the
+  // chunk's Jacobian row into the tile.
+  const int l = tid / TILE, pr = tid % TILE, b = b0 + pr;
+  float rr = 0.f;
   for (int t0 = 0; t0 < T; t0 += WCHUNK) {
-    __syncthreads();  // parameters staged; the previous chunk is summed
-    {
-      const int l = tid / TILE, pr = tid % TILE, t = t0 + l, b = b0 + pr;
-      float* row = J + l * ncol * TILE + pr;
-      if (t < T && b < B) {
-        const float d = __ldg(dt + t);
-        const float is = __ldg(isg + (long long)t * B + b);
-        const float yv = __ldg(y + (long long)t * B + b);
-        float m = 0.f;
-        for (int k = 0; k < K; ++k) {
-          const float E = expf(__fmul_rn(d, sninv[k][pr]));
-          m = fmaf(sC[k][pr], E, m);
-          if (FULL) {
-            row[k * TILE] = (s2f ? E : E - 1.f) * is;
-            row[(K + k) * TILE] = scoef[k][pr] * d * E * is;
-          }
+    if (FULL || t0 == 0) __syncthreads();  // parameters staged; the last chunk summed
+    const int t = t0 + l;
+    double* row = J + l * ncol * TILE + pr;
+    if (t < T && b < B) {
+      const float d = __ldg(dt + t);
+      const float is = __ldg(isg + (long long)t * B + b);
+      const float yv = __ldg(y + (long long)t * B + b);
+      float m = 0.f;
+      for (int k = 0; k < K; ++k) {
+        const float E = expf(__fmul_rn(d, sninv[k][pr]));
+        m = fmaf(sC[k][pr], E, m);
+        if (FULL) {
+          row[k * TILE] = (s2f ? E : E - 1.f) * is;
+          row[(K + k) * TILE] = scoef[k][pr] * d * E * is;
         }
-        if (FULL && s2f) row[(P - 1) * TILE] = is;
-        row[rcol * TILE] = __fmul_rn(__fsub_rn(__fadd_rn(sS2[pr], m), yv), is);
-      } else {
-        for (int c = 0; c <= rcol; ++c) row[c * TILE] = 0.f;
       }
+      const float r = __fmul_rn(__fsub_rn(__fadd_rn(sS2[pr], m), yv), is);
+      rr = fmaf(r, r, rr);
+      if (FULL) {
+        if (s2f) row[(P - 1) * TILE] = is;
+        row[P * TILE] = r;
+      }
+    } else if (FULL) {
+      for (int c = 0; c <= P; ++c) row[c * TILE] = 0.0;
     }
-    __syncthreads();
-    const int n = min(WCHUNK, T - t0);
-    for (int l = 0; l < n; ++l) {
-      const float* row = J + l * ncol * TILE;
+    if (FULL) {
+      __syncthreads();
+      const int n = min(WCHUNK, T - t0);
+      for (int u = 0; u < n; ++u) {
+        const double* ru = J + u * ncol * TILE;
 #pragma unroll
-      for (int m = 0; m < NS; ++m)
-        if (offs[m] >= 0)
-          acc[m] = fma((double)row[offs[m] & 0xffff], (double)row[offs[m] >> 16], acc[m]);
+        for (int m = 0; m < WSUMS; ++m) {
+          if (m >= ns) break;
+          acc[m] = fma(ru[offs[m] & 0xffff], ru[offs[m] >> 16], acc[m]);
+        }
+      }
     }
   }
 
-  // Each owned sum straight out: H both halves, g, cost.
+  // The cost: lag slices -> one sum per problem, by the narrow template's
+  // path (two xor shuffles, then a fixed pairwise tree over the warps).
+  float v = rr;
+  v += __shfl_xor_sync(0xffffffffu, v, 8);
+  v += __shfl_xor_sync(0xffffffffu, v, 16);
+  if (lane < TILE) red[warp][lane] = v;
+  __syncthreads();
+  if (tid < TILE && b0 + tid < B) {
+    float s[WWARPS];
 #pragma unroll
-  for (int m = 0; m < NS; ++m) {
-    if (offs[m] < 0) continue;
-    const int pr = (offs[m] & 0xffff) % TILE, b = b0 + pr;
-    if (b >= B) continue;
-    const int i = (offs[m] & 0xffff) / TILE, j = (offs[m] >> 16) / TILE;
-    if (!FULL) {
-      out[b] = (float)(0.5 * acc[m]);
-    } else if (j < P) {
-      out[(long long)b * P * P + i * P + j] = (float)acc[m];
-      out[(long long)b * P * P + j * P + i] = (float)acc[m];
-    } else if (i < P) {
-      out[(long long)B * P * P + (long long)b * P + i] = (float)acc[m];
-    } else {
-      out[(long long)B * P * (P + 1) + b] = (float)(0.5 * acc[m]);
+    for (int w = 0; w < WWARPS; ++w) s[w] = red[w][tid];
+#pragma unroll
+    for (int h = WWARPS / 2; h > 0; h /= 2) {
+#pragma unroll
+      for (int w = 0; w < h; ++w) s[w] += s[w + h];
+    }
+    out[(FULL ? (long long)B * P * (P + 1) : 0) + b0 + tid] = 0.5f * s[0];
+  }
+
+  // Each owned sum straight out: H both halves, g.
+  if constexpr (FULL) {
+#pragma unroll
+    for (int m = 0; m < WSUMS; ++m) {
+      if (m >= ns) break;
+      const int e = tid + m * WTHREADS;
+      const int bo = b0 + e % TILE;
+      if (e >= nq || bo >= B) continue;
+      const int i = (offs[m] & 0xffff) / TILE, j = (offs[m] >> 16) / TILE;
+      if (j < P) {
+        out[(long long)bo * P * P + i * P + j] = (float)acc[m];
+        out[(long long)bo * P * P + j * P + i] = (float)acc[m];
+      } else {
+        out[(long long)B * P * P + (long long)bo * P + i] = (float)acc[m];
+      }
     }
   }
 }
@@ -342,7 +382,13 @@ int launch(const float* p, const float* y, const float* isg, const float* dt,
            float* out, int T, int B, int K, int s2_free, cudaStream_t s) {
   if (B <= 0 || T <= 0 || K < 1 || K > K_MAX) return (int)cudaErrorInvalidValue;
   if (K > K_NARROW) {
-    lm_kernel_wide<FULL><<<(B + TILE - 1) / TILE, WTHREADS, 0, s>>>(
+    const int smem = FULL ? wide_smem(2 * K + (s2_free ? 1 : 0)) : 0;
+    if (smem > 48 * 1024) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          lm_kernel_wide<FULL>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (e != cudaSuccess) return (int)e;
+    }
+    lm_kernel_wide<FULL><<<(B + TILE - 1) / TILE, WTHREADS, smem, s>>>(
         p, y, isg, dt, out, T, B, K, s2_free != 0);
     return (int)cudaGetLastError();
   }

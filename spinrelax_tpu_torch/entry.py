@@ -54,6 +54,26 @@ def paf_ensemble(n_res: int, n_samp: int, seed: int = 0):
     return v, rng.uniform(0.5, 2.0, (n_res, n_samp))
 
 
+def hetero_cohort(B: int, T: int, rng=0, noise: float = 2e-3):
+    """A heterogeneous cohort of C(t) decays for the DoF ladder: row b has
+    b % 3 + 1 components (tau 3-600, amplitudes within 1 - S2, S2
+    0.5-0.9) plus Gaussian noise.  ``rng`` is a seed or a numpy Generator
+    (drawn from in place).  Returns float64 numpy (dt (T,), y (B, T),
+    dy (B, T) = noise)."""
+    rng = np.random.default_rng(rng)
+    dt = np.arange(1, T + 1, dtype=float)
+    y = np.empty((B, T))
+    for b in range(B):
+        k = b % 3 + 1
+        S2 = rng.uniform(0.5, 0.9)
+        C = rng.uniform(0.03, 0.15, k)
+        C *= (1 - S2) / max(C.sum(), 1e-9) * rng.uniform(0.5, 1.0)
+        tau = np.sort(rng.uniform(3, 600, k))
+        y[b] = S2 + (C[:, None] * np.exp(-dt / tau[:, None])).sum(0)
+    y += rng.normal(scale=noise, size=y.shape)
+    return dt, y, np.full_like(y, noise)
+
+
 def finish_entry(device="cuda"):
     """The streamed finish on ``device``: the Palmer accumulators of a
     seeded stream (8 chunks of 200 frames x 32 residues of

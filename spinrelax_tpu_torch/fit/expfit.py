@@ -21,8 +21,7 @@ import torch
 
 from .. import checked_device
 from ..models.ctmodel import CtModelSet
-from . import lm
-from .walk import fit_ct_walk
+from .walk import fit_ct_walk, traced_fit
 
 LADDER_WITH_FAST = (2, 3, 5, 7, 9)
 LADDER_NO_FAST = (2, 4, 6, 8)
@@ -109,6 +108,7 @@ def fit_ct_ladder(
     retry_starts: int = 8,
     pipeline_rungs: bool = False,
     device="cuda",
+    trace: Optional[list] = None,
 ) -> CtModelSet:
     """Fit all residues' C(t) and select each residue's model complexity
     (the JAX package's ``fit_ct_ladder``; see its docstring for every
@@ -119,7 +119,10 @@ def fit_ct_ladder(
     components (``--nc``).  warm_retry, retry_starts and n_starts are the
     JAX package's escalation and multi-start options.  The JAX package's
     early_stop and in_graph choose between paths whose results are equal;
-    here every rung is fitted over the rows still walking.
+    here every rung is fitted over the rows still walking.  ``trace``, a
+    list, receives one record per LM call: its stage (rung, warm, multistart,
+    resume, outlier), K, S2 freedom, rows, starts and kernel B/C launches
+    (:func:`fit.walk.traced_fit`).
 
     Tensor inputs stay on their device and dtype; numpy inputs go to
     ``device`` (the card unless ``device="cpu"``), in float32 on the card
@@ -163,7 +166,7 @@ def fit_ct_ladder(
     Kmax = max(K for K, _ in specs)
     R = len(specs)
 
-    w = fit_ct_walk(dt_t, dec, sig, chisq_threshold, specs, Kmax, n_starts)
+    w = fit_ct_walk(dt_t, dec, sig, chisq_threshold, specs, Kmax, n_starts, trace)
     sel_idx, sel_chi = w["sel_idx"], w["sel_chi"]
     selected = {k: w[k] for k in ("C", "tau", "dC", "dtau", "mask", "S2", "dS2",
                                   "chisq", "s2fast")}
@@ -197,12 +200,12 @@ def fit_ct_ladder(
             K, s2f = specs[i]
             C0, tau0, S20 = _warm_p0(selected, retry, specs[i - 1][0], K, s2f,
                                      beg_mean, step)
-            resc = lm.fit_multiexp_warm(dt_t, dec[retry], sig[retry], C0, tau0, S20,
-                                        K, s2f)._asdict()
+            resc = traced_fit(trace, "warm", dt_t, dec[retry], sig[retry], K, s2f,
+                              init=(C0, tau0, S20))._asdict()
             ok_r = _ok(resc)
             if escalate:
-                m = lm.fit_multiexp(dt_t, dec[retry], sig[retry], K, s2f,
-                                    n_starts=retry_starts)._asdict()
+                m = traced_fit(trace, "multistart", dt_t, dec[retry], sig[retry], K, s2f,
+                               n_starts=retry_starts)._asdict()
                 use_m = _ok(m) & (~ok_r | (m["chisq"] < resc["chisq"]))
                 for k in resc:
                     u = use_m[:, None] if resc[k].ndim == 2 else use_m
@@ -219,8 +222,8 @@ def fit_ct_ladder(
             cont_fail = none
             if cont.numel():
                 # Rows adopted by an earlier retry walk on: rung i's cold fit.
-                c = lm.fit_multiexp(dt_t, dec[cont], sig[cont], K, s2f,
-                                    n_starts=n_starts)._asdict()
+                c = traced_fit(trace, "resume", dt_t, dec[cont], sig[cont], K, s2f,
+                               n_starts=n_starts)._asdict()
                 ok_c = _ok(c)
                 brk_c = ~ok_c | (c["chisq"] >= sel_chi[cont] * chisq_threshold)
                 take_c = ok_c & ~brk_c
@@ -248,8 +251,8 @@ def fit_ct_ladder(
             rows = torch.as_tensor(np.nonzero(flagged & (idx_np == i))[0], device=dev)
             if rows.numel() == 0:
                 continue
-            m = lm.fit_multiexp(dt_t, dec[rows], sig[rows], K, s2f,
-                                n_starts=retry_starts)._asdict()
+            m = traced_fit(trace, "outlier", dt_t, dec[rows], sig[rows], K, s2f,
+                           n_starts=retry_starts)._asdict()
             better = _ok(m) & (m["chisq"] < sel_chi[rows])
             if bool(better.any()):
                 rows_b = rows[better]

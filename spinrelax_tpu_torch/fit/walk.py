@@ -23,18 +23,41 @@ from __future__ import annotations
 
 import torch
 
+from ..ops import cuda_lm
 from . import lm
 
-__all__ = ["fit_ct_walk"]
+__all__ = ["fit_ct_walk", "traced_fit"]
 
 _MODEL = ("C", "tau", "dC", "dtau", "mask", "S2", "dS2", "chisq", "s2fast")
 
 
+def traced_fit(trace, stage: str, dt, decays, sigma, K: int, s2_free: bool,
+               n_starts: int = 1, init=None):
+    """One LM call of the ladder: ``lm.fit_multiexp`` over (B, T) decays,
+    or ``lm.fit_multiexp_warm`` from ``init`` = (C0, tau0, S20).  With a
+    ``trace`` list, appends {stage, K, s2_free, rows, starts, launches_B,
+    launches_C}: the launches of kernels B and C this call made, read from
+    their counters around it (0 on the CPU)."""
+    before = (cuda_lm.hgc_cuda.launches, cuda_lm.cost_cuda.launches)
+    if init is None:
+        out = lm.fit_multiexp(dt, decays, sigma, K, s2_free, n_starts=n_starts)
+    else:
+        out = lm.fit_multiexp_warm(dt, decays, sigma, *init, K, s2_free)
+    if trace is not None:
+        trace.append(dict(stage=stage, K=K, s2_free=s2_free, rows=decays.shape[0],
+                          starts=n_starts,
+                          launches_B=cuda_lm.hgc_cuda.launches - before[0],
+                          launches_C=cuda_lm.cost_cuda.launches - before[1]))
+    return out
+
+
 def fit_ct_walk(dt, decays, sigma, chisq_threshold: float, specs, Kmax: int,
-                n_starts: int = 1) -> dict:
+                n_starts: int = 1, trace=None) -> dict:
     """Run the ladder walk over (B, T) ``decays`` / ``sigma``.
 
     specs : (K, s2_free) per rung, in walk order; Kmax : max K of specs.
+    trace : optional list; each rung's LM call appends its record
+        (:func:`traced_fit`).
 
     Returns a dict of tensors on the decays' device:
       C, tau, dC, dtau, mask (B, Kmax)  the selected model (tau pads 1,
@@ -73,7 +96,8 @@ def fit_ct_walk(dt, decays, sigma, chisq_threshold: float, specs, Kmax: int,
         ok = torch.zeros(B, dtype=torch.bool, device=dev)
         rows = torch.nonzero(act).squeeze(1)
         if rows.numel():
-            fit = lm.fit_multiexp(dt, decays[rows], sigma[rows], K, s2f, n_starts=n_starts)
+            fit = traced_fit(trace, "rung", dt, decays[rows], sigma[rows], K, s2f,
+                             n_starts=n_starts)
             for k in ("C", "tau", "dC", "dtau"):
                 rung[k][rows, :K] = getattr(fit, k)
             for k in ("S2", "dS2", "chisq"):

@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from spinrelax_tpu_torch.entry import correlated_walk, finish_entry
+from spinrelax_tpu_torch.entry import correlated_walk, finish_entry, hetero_cohort
 from spinrelax_tpu_torch.fit.expfit import fit_ct_ladder
 from spinrelax_tpu_torch.fit.lm import fit_multiexp
 from spinrelax_tpu_torch.ops import autocorr as tac
@@ -196,7 +196,7 @@ def test_lm_cost_bitwise_equals_hgc_cost(gen, K, s2f):
                        cuda_lm.cost_cuda(p, y, isg, dt, K, s2f))
 
 
-@pytest.mark.parametrize("K,s2f", [(2, True), (4, False)])
+@pytest.mark.parametrize("K,s2f", [(2, True), (4, False), (5, True), (11, False)])
 def test_lm_kernels_bitwise_reproducible(gen, K, s2f):
     """Two launches on the same operands give bitwise-equal H, g and cost."""
     args = (*_lm_operands(gen, K, s2f, 1000, 500), K, s2f)
@@ -275,28 +275,12 @@ def test_forward_n_components_5_on_card(gen):
         assert torch.isfinite(x).all()
 
 
-def _hetero(B, T=400, seed=0, noise=2e-3):
-    """tests/test_walk.py's cohort mix (1 to 3 components a row)."""
-    rng = np.random.default_rng(seed)
-    dt = np.arange(1, T + 1, dtype=float)
-    y = np.empty((B, T))
-    for b in range(B):
-        k = b % 3 + 1
-        S2 = rng.uniform(0.5, 0.9)
-        C = rng.uniform(0.03, 0.15, k)
-        C *= (1 - S2) / max(C.sum(), 1e-9) * rng.uniform(0.5, 1.0)
-        tau = np.sort(rng.uniform(3, 600, k))
-        y[b] = S2 + (C[:, None] * np.exp(-dt / tau[:, None])).sum(0)
-    y += rng.normal(scale=noise, size=y.shape)
-    return dt, y, np.full_like(y, noise)
-
-
 def test_ladder_on_card_matches_cpu_f32(gen):
     """fit_ct_ladder on the card (kernels B and C every iteration) on a
-    256-row cohort against the port's CPU float32 ladder: the rung equal on
-    >= 98 % of rows, chisq within 1e-2 on >= 95 % (the float32 LM's
-    gates, tests/test_engine.py)."""
-    dt, y, dy = _hetero(256)
+    256-row entry.hetero_cohort against the port's CPU float32 ladder: the
+    rung equal on >= 98 % of rows, chisq within 1e-2 on >= 95 % (the
+    float32 LM's gates, tests/test_engine.py)."""
+    dt, y, dy = hetero_cohort(256, 400)
     names = [str(i) for i in range(256)]
     before = (cuda_lm.hgc_cuda.launches, cuda_lm.cost_cuda.launches)
     a = fit_ct_ladder(names, dt, y, dy)  # numpy in: the card, float32

@@ -18,9 +18,13 @@ import torch
 
 from spinrelax_tpu.fit import lm as jlm
 from spinrelax_tpu.fit.expfit import fit_ct_ladder as jax_ladder
+from spinrelax_tpu_torch.entry import hetero_cohort
 from spinrelax_tpu_torch.fit import lm as tlm
 from spinrelax_tpu_torch.fit.expfit import LADDER_NO_FAST, LADDER_WITH_FAST, fit_ct_ladder
 from spinrelax_tpu_torch.ops import cuda_lm
+
+B, T = 96, 400  # tests/test_walk.py's _hetero cohort size
+OUTLIER_ROWS = [14, 17, 20, 26]  # the escalation cohort's shrunk-sigma rows
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -32,19 +36,45 @@ def _fresh_jit_state():
         torch.set_num_threads(2)
 
 
-def _hetero(rng, B=96, T=400, noise=2e-3):
-    """tests/test_walk.py's cohort: 1 to 3 components per row, tau 3-600."""
-    dt = np.arange(1, T + 1, dtype=float)
-    y = np.empty((B, T))
-    for b in range(B):
-        k = b % 3 + 1
-        S2 = rng.uniform(0.5, 0.9)
-        C = rng.uniform(0.03, 0.15, k)
-        C *= (1 - S2) / max(C.sum(), 1e-9) * rng.uniform(0.5, 1.0)
-        tau = np.sort(rng.uniform(3, 600, k))
-        y[b] = S2 + (C[:, None] * np.exp(-dt / tau[:, None])).sum(0)
-    y += rng.normal(scale=noise, size=y.shape)
-    return dt, y, np.full_like(y, noise)
+def _escalation_cohort():
+    """entry.hetero_cohort (seed 0) with two kinds of rows the ladder's
+    escalation targets.  Rows 0-11: 4 low-noise components at tau ~ 1, 3,
+    9, 27, whose cold K = 4 fit collapses components and fails the quality
+    gates, so the warm retry from the K = 3 fit can rescue them.  The
+    OUTLIER_ROWS: sigmas shrunk 20x, so their chisq is a > 5x-median
+    outlier for the multi-start refit."""
+    rng = np.random.default_rng(0)
+    dt, y, dy = hetero_cohort(B, T, rng)
+    for b in range(12):
+        tau = np.array([1.0, 3.0, 9.0, 27.0]) * rng.uniform(0.9, 1.1, 4)
+        y[b] = 0.55 + (0.1 * np.exp(-dt / tau[:, None])).sum(0) \
+            + rng.normal(scale=1e-5, size=dt.size)
+        dy[b] = 1e-5
+    dy[OUTLIER_ROWS] /= 20.0
+    return dt, y, dy
+
+
+_COHORTS = {"hetero": lambda: hetero_cohort(B, T), "escalation": _escalation_cohort}
+
+
+@pytest.fixture(scope="module")
+def ladders():
+    """ladders(cohort, port_only=False, weighted=False, **options) ->
+    (JAX ladder or None, port ladder, dt), each computed once per module,
+    so the flag-surface cases and the adoption checks share them."""
+    cache = {}
+
+    def get(cohort, port_only=False, weighted=False, **kw):
+        key = (cohort, port_only, weighted, tuple(sorted(kw.items())))
+        if key not in cache:
+            dt, y, dy = _COHORTS[cohort]()
+            sig = dy if weighted else None
+            names = [str(i) for i in range(y.shape[0])]
+            j = None if port_only else jax_ladder(names, dt, y, sig, **kw)
+            cache[key] = (j, fit_ct_ladder(names, dt, y, sig, device="cpu", **kw), dt)
+        return cache[key]
+
+    return get
 
 
 def _np(cts, f):
@@ -89,12 +119,6 @@ def _determined(C, tau, S2, dC, dtau, dS2, real, dt):
     return seen.all(1) & gate
 
 
-def _both(dt, y, dy, **kw):
-    names = [str(i) for i in range(y.shape[0])]
-    return (jax_ladder(names, dt, y, dy, **kw),
-            fit_ct_ladder(names, dt, y, dy, device="cpu", **kw))
-
-
 @pytest.mark.parametrize("kw", [
     dict(),
     dict(weighted=True),
@@ -105,66 +129,75 @@ def _both(dt, y, dy, **kw):
     dict(weighted=True, n_components=2),
     dict(weighted=True, n_components=5),
 ])
-def test_ladder_matches_jax(kw):
-    """tests/test_walk.py's _hetero cohort (B = 96, T = 400) across its
-    flag surface, plus n_components = 5 (K = 5: past the K <= 4 the card
-    kernels took before): the port selects the JAX rung on every row.
+def test_ladder_matches_jax(ladders, kw):
+    """entry.hetero_cohort, tests/test_walk.py's _hetero cohort (B = 96,
+    T = 400), across its flag surface, plus n_components = 5 (K = 5: past
+    the K <= 4 the card kernels took before): the port selects the JAX
+    rung on every row.
 
     The cohort's seed is pinned (0), not the suite's: at the suite's seed
-    one row (23, use_s2fast=False) holds a component faster than the
-    first lag whose fitted tau either underflows exp(-t / tau) to exactly
-    0 (a dead Jacobian column: zero variance, gate passed) or stops just
-    above it (huge variance, gate failed), and JAX alone already decides
-    it both ways: its 8-start refit of that row fails the gate in a batch
-    of 1 or 2 lanes and passes in a batch of 96 or 256."""
-    kw = dict(kw)
-    dt, y, dy = _hetero(np.random.default_rng(0))
-    j, t = _both(dt, y, dy if kw.pop("weighted", False) else None, **kw)
+    one row (23, use_s2fast=False) is decided by JAX's batch size, not by
+    the data (test_suite_seed_row_23_gate_depends_on_jax_batch)."""
+    j, t, dt = ladders("hetero", **kw)
     rows = _assert_ladders_agree(j, t, dt)
     if "n_components" not in kw:  # a forced K overfits most of this cohort
         assert rows.mean() > 0.5
     assert t.C.dtype == torch.float64 and t.C.device.type == "cpu"
 
 
-def _four_timescale_cohort():
-    """The _hetero cohort with 12 low-noise rows of 4 components at tau
-    ~ 1, 3, 9, 27: their cold K = 4 fit collapses components and fails
-    the quality gates, and the warm retry from the K = 3 fit rescues
-    some of them."""
-    rng = np.random.default_rng(0)
-    dt, y, dy = _hetero(rng)
-    for b in range(12):
-        tau = np.array([1.0, 3.0, 9.0, 27.0]) * rng.uniform(0.9, 1.1, 4)
-        y[b] = 0.55 + (0.1 * np.exp(-dt / tau[:, None])).sum(0) \
-            + rng.normal(scale=1e-5, size=dt.size)
-        dy[b] = 1e-5
-    return dt, y, dy
+def _cold_escalation(ladders):
+    """The port's escalation-cohort ladder with no escalation at all."""
+    return ladders("escalation", port_only=True, weighted=True, warm_retry=False,
+                   retry_starts=1)[1]
 
 
-def test_warm_retry_adoption_matches_jax():
-    """A cohort where the warm retry is adopted (asserted: the port's
-    ladder with it differs from the ladder without it), held to JAX."""
-    dt, y, dy = _four_timescale_cohort()
-    j, t = _both(dt, y, dy, warm_retry=True, retry_starts=1)
-    names = [str(i) for i in range(y.shape[0])]
-    cold = fit_ct_ladder(names, dt, y, dy, device="cpu", warm_retry=False, retry_starts=1)
-    assert (t.chisq != cold.chisq).sum() >= 1
+def test_warm_retry_adoption_matches_jax(ladders):
+    """The escalation cohort with the warm retry alone (retry_starts=1):
+    the retry is adopted (asserted: the port's ladder selects another rung
+    on some row than the same ladder without escalation), held to JAX."""
+    j, t, dt = ladders("escalation", weighted=True, warm_retry=True, retry_starts=1)
+    assert (t.mask.sum(1) != _cold_escalation(ladders).mask.sum(1)).sum() >= 1
     _assert_ladders_agree(j, t, dt)
 
 
-def test_chisq_outlier_refit_matches_jax():
-    """A cohort where the chisq-outlier multi-start refit is adopted
-    (asserted): four rows' sigmas shrunk 20x make their chisq a > 5x-median
-    outlier, and the 8-start refit lowers it at the same rung."""
-    rng = np.random.default_rng(0)
-    dt, y, dy = _hetero(rng)
-    dy[2:12:3] /= 20.0
-    j, t = _both(dt, y, dy, warm_retry=False, retry_starts=8)
-    names = [str(i) for i in range(y.shape[0])]
-    cold = fit_ct_ladder(names, dt, y, dy, device="cpu", warm_retry=False, retry_starts=1)
-    assert (t.chisq < cold.chisq).sum() >= 1
+def test_chisq_outlier_refit_matches_jax(ladders):
+    """The escalation cohort with the chisq-outlier 8-start refit alone
+    (warm_retry=False): the refit is adopted on its OUTLIER_ROWS
+    (asserted against the ladder without escalation: lower chisq, and no
+    row's rung changes), held to JAX."""
+    j, t, dt = ladders("escalation", weighted=True, warm_retry=False, retry_starts=8)
+    cold = _cold_escalation(ladders)
     assert torch.equal(t.mask, cold.mask)  # the refit never changes selection
+    assert (t.chisq[OUTLIER_ROWS] < cold.chisq[OUTLIER_ROWS]).sum() >= 1
     _assert_ladders_agree(j, t, dt)
+
+
+def test_suite_seed_row_23_gate_depends_on_jax_batch():
+    """Why test_ladder_matches_jax pins its cohort's seed.  At the suite's
+    seed (tests/conftest.py), row 23 of the cohort, at the use_s2fast=False
+    ladder's K = 3 rung, holds a component faster than the first lag.  Its
+    8-start fit either drives that tau low enough that exp(-t / tau)
+    underflows to exactly 0 (a dead Jacobian column: zero variance, gate
+    passed) or stops just above (a huge variance, gate failed).  JAX
+    decides it both ways with the batch the row is fitted in: alone, the
+    gate fails; inside the cohort's 96 lanes, it passes.  The port's
+    escalation fits only the rows it targets (here one or two), and its
+    fit of the row alone fails the gate as JAX's does."""
+    dt, y, dy = hetero_cohort(B, T, np.random.default_rng(20260816))
+    r = 23
+
+    def gate(f, i):
+        return bool(np.asarray(f.ok_fit[i] & f.ok_err[i] & f.ok_sum[i]))
+
+    alone = jlm.fit_multiexp(dt, y[r:r + 1], dy[r:r + 1], K=3, s2_free=False, n_starts=8)
+    batch = jlm.fit_multiexp(dt, y, dy, K=3, s2_free=False, n_starts=8)
+    assert not gate(alone, 0) and gate(batch, r)
+    # the two solutions fit the data alike; they differ in the dead tau
+    np.testing.assert_allclose(float(alone.chisq[0]), float(batch.chisq[r]), rtol=1e-6)
+    port = tlm.fit_multiexp(*(torch.from_numpy(a) for a in (dt, y[r:r + 1], dy[r:r + 1])),
+                            K=3, s2_free=False, n_starts=8)
+    assert not gate(port, 0)
+    np.testing.assert_allclose(float(port.chisq[0]), float(alone.chisq[0]), rtol=1e-6)
 
 
 def test_warm_fit_matches_jax(rng):
@@ -220,6 +253,23 @@ def test_ladder_refuses_unported_options():
             fit_ct_ladder(["0", "1"], dt, y, device="cpu", **kw)
     with pytest.raises(ValueError, match="unknown optimiser"):
         fit_ct_ladder(["0", "1"], dt, y, device="cpu", optimiser="bfgs")
+
+
+def test_ladder_trace_records_every_lm_call():
+    """fit_ct_ladder(trace=[]) records each LM call in order: one per rung
+    over the rows still walking (the first over all rows, none growing),
+    then the escalation's calls; on the CPU no kernel launches."""
+    dt, y, dy = hetero_cohort(12, 60)
+    trace = []
+    fit_ct_ladder([str(i) for i in range(12)], dt, y, dy, device="cpu", trace=trace)
+    rungs = [c for c in trace if c["stage"] == "rung"]
+    assert [(c["K"], c["s2_free"]) for c in rungs] == [(1, False), (1, True), (2, True),
+                                                       (3, True), (4, True)][:len(rungs)]
+    assert rungs[0]["rows"] == 12
+    assert all(a["rows"] >= b["rows"] for a, b in zip(rungs, rungs[1:]))
+    assert trace[:len(rungs)] == rungs
+    assert {c["stage"] for c in trace} <= {"rung", "warm", "multistart", "resume", "outlier"}
+    assert all(c["launches_B"] == c["launches_C"] == 0 for c in trace)
 
 
 def test_ladder_numpy_input_defaults_to_the_card():
