@@ -60,6 +60,8 @@ is not beside the script, or any check fails.
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import json
 import re
 import subprocess
@@ -345,6 +347,25 @@ def device_profile(torch, fn):
     return busy / 1e3, per
 
 
+@contextlib.contextmanager
+def eager_loop(engine):
+    """Inside, every LM of the port runs its steps one by one from the host
+    (the engine's test-only ``_eager``) instead of replaying a CUDA graph:
+    the loop the graph loop is held to, bit for bit, and timed against."""
+    graph_fit = engine.fit_multiexp_engine
+    engine.fit_multiexp_engine = functools.partial(graph_fit, _eager=True)
+    try:
+        yield
+    finally:
+        engine.fit_multiexp_engine = graph_fit
+
+
+def same_bits(torch, a, b) -> bool:
+    """Tensors equal bit for bit, NaN equal to NaN."""
+    return a.dtype == b.dtype and torch.equal(torch.nan_to_num(a.double(), nan=-7.0),
+                                              torch.nan_to_num(b.double(), nan=-7.0))
+
+
 def kernel_of(name: str):
     """'A', 'B', 'C' or None for a profiled kernel name: acf_lag_sums_kernel
     and acf_lag_sums_slab_kernel are A; lm_kernel<K, s2_free, FULL> and
@@ -369,7 +390,7 @@ def kernel_times(per, kernel_of=kernel_of):
     return {k: (n, tot * 1e3 / n) for k, (n, tot) in out.items()}
 
 
-def phase_forward(torch, tac, counters, make_forward, fit_multiexp, vecs):
+def phase_forward(torch, tac, counters, engine, make_forward, fit_multiexp, vecs):
     print("phase 3: full-width forward (32 x 1000 x 1024, f32) on the card vs the "
           "port on the CPU in f64 and f32", flush=True)
     fwd = make_forward(tau_iso=4242.0, delta_t=1.0, n_components=2)
@@ -379,18 +400,44 @@ def phase_forward(torch, tac, counters, make_forward, fit_multiexp, vecs):
     launches = [c.launches for c in counters]
     print(f"  forward wall {secs:.3f} s (first call); launches A/B/C {launches}",
           flush=True)
-    # The LM loop is host-bound, so one call's wall time is noisy: median of 5.
-    walls = sorted(wall_s(torch, lambda: fwd(vecs))[1] for _ in range(5))
-    secs2 = walls[2]
-    print(f"  forward wall median {secs2 * 1e3:.2f} ms over 5 calls "
-          f"(min {walls[0] * 1e3:.2f}, max {walls[-1] * 1e3:.2f})", flush=True)
-    busy, per = device_profile(torch, lambda: fwd(vecs))
-    n_dev = sum(n for n, _ in per.values())
-    per_kernel = kernel_times(per)
-    print(f"  profiled forward: {n_dev} device kernels and copies, device busy "
-          f"{busy:.2f} ms = {busy / (secs2 * 1e3):.1%} of the median wall; "
-          + "; ".join(f"kernel {k} {n} launches, {us:.2f} us each"
-                      for k, (n, us) in sorted(per_kernel.items())), flush=True)
+    # The graph loop (one captured LM step, replayed) against the eager
+    # loop (every step issued by the host), in turns in this process: the
+    # median wall of 5 calls each, one profiled call each, outputs equal
+    # bit for bit.
+    def walls_of():
+        w = sorted(wall_s(torch, lambda: fwd(vecs))[1] for _ in range(5))
+        print(f"    wall median {w[2] * 1e3:.2f} ms over 5 calls (min {w[0] * 1e3:.2f}, "
+              f"max {w[-1] * 1e3:.2f})", flush=True)
+        return w[2]
+
+    def profile_of(secs):
+        for c in counters:
+            c.launches = 0
+        busy, per = device_profile(torch, lambda: fwd(vecs))
+        per_kernel = kernel_times(per)
+        print(f"    profiled: {sum(n for n, _ in per.values())} device kernels and copies, "
+              f"device busy {busy:.2f} ms, idle share {1 - busy / (secs * 1e3):.1%} of the "
+              f"median wall; " + "; ".join(f"kernel {k} {n} launches, {us:.2f} us each"
+                                           for k, (n, us) in sorted(per_kernel.items())),
+              flush=True)
+        return busy, per_kernel
+
+    print("  graph loop:", flush=True)
+    secs2 = walls_of()
+    busy, per_kernel = profile_of(secs2)
+    for c, k in zip(counters, "ABC"):
+        check(per_kernel.get(k, (0,))[0] == c.launches,
+              f"profiler saw kernel {k} {per_kernel.get(k, (0,))[0]} times = the wrapper's "
+              f"count {c.launches} (the steps run)")
+    print("  eager loop:", flush=True)
+    with eager_loop(engine):
+        eager = fwd(vecs)
+        secs_e = walls_of()
+        busy_e, _ = profile_of(secs_e)
+    check(all(same_bits(torch, a, b) for a, b in zip(gpu, eager)),
+          "forward outputs of the graph loop equal the eager loop's bit for bit")
+    print(f"  forward: graph loop {secs2 * 1e3:.2f} ms wall, {busy:.2f} ms busy; eager loop "
+          f"{secs_e * 1e3:.2f} ms wall, {busy_e:.2f} ms busy", flush=True)
     t0 = time.perf_counter()
     cpu = fwd(vecs.cpu().double())
     print(f"  CPU float64 forward {time.perf_counter() - t0:.1f} s", flush=True)
@@ -446,7 +493,7 @@ def phase_forward(torch, tac, counters, make_forward, fit_multiexp, vecs):
     fit_t = wall_s(torch, lambda: fit_of(gpu.Ct, gpu.dCt))[1]
     print(f"  breakdown: ct_palmer {Ct_t * 1e3:.2f} ms, fit {fit_t * 1e3:.2f} ms, "
           f"whole forward {secs2 * 1e3:.2f} ms", flush=True)
-    return launches, secs2, busy
+    return launches, secs2, busy, secs_e, busy_e
 
 
 def phase_stream(torch, tac, cuda_acf, vecs, gen):
@@ -500,7 +547,7 @@ def rung_of(cts):
     return cts.mask.sum(1).cpu() * 2 + cts.s2fast.cpu()
 
 
-def phase_ladder(torch, counters, hetero_cohort, fit_ct_ladder):
+def phase_ladder(torch, counters, engine, hetero_cohort, fit_ct_ladder):
     print(f"phase 5: DoF ladder (B {LADDER_B} x T {LADDER_T}, f32, weighted, warm retry, "
           f"8-start escalation) on the card", flush=True)
     dt, y, dy = hetero_cohort(LADDER_B, LADDER_T)
@@ -512,7 +559,16 @@ def phase_ladder(torch, counters, hetero_cohort, fit_ct_ladder):
         return fit_ct_ladder(names[:n], dt, yc[:n], dyc[:n], trace=trace)
 
     run()  # warm-up (allocator, kernel library)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
     walls = sorted(wall_s(torch, run)[1] for _ in range(3))
+    torch.cuda.synchronize()
+    print(f"  device memory allocated before / after 3 ladders {mem0 / 1e6:.1f} / "
+          f"{torch.cuda.memory_allocated() / 1e6:.1f} MB, peak "
+          f"{torch.cuda.max_memory_allocated() / 1e6:.1f} MB", flush=True)
+    check(torch.cuda.memory_allocated() <= mem0,
+          "the ladder's 10 LM calls keep no graph pool after they return")
     # One more call with its LM calls traced: rows, starts and the launches
     # of kernels B and C each made (their counters, read around it).
     calls = []
@@ -523,22 +579,41 @@ def phase_ladder(torch, counters, hetero_cohort, fit_ct_ladder):
     launches = [c.launches for c in counters]
     for c in calls:
         print(f"  LM call {c['stage']} K={c['K']} S2 {'free' if c['s2_free'] else 'fixed'}, "
-              f"{c['starts']} start(s): {c['rows']} rows, kernel B {c['launches_B']} "
-              f"launches, kernel C {c['launches_C']}", flush=True)
+              f"{c['starts']} start(s): {c['rows']} rows, slowest lane {c['iterations']} "
+              f"iterations, {c['steps']} steps run, kernel B {c['launches_B']} launches, "
+              f"kernel C {c['launches_C']}", flush=True)
     check(launches[1] > 0 and launches[2] > 0,
           f"ladder launched kernels B/C {launches[1]}/{launches[2]} times (A {launches[0]})")
     check(sum(c["launches_B"] for c in calls) == launches[1]
           and sum(c["launches_C"] for c in calls) == launches[2],
           "every launch of B and C on the ladder came from a traced LM call")
+    check(all(c["launches_B"] == c["launches_C"] == c["steps"] >= c["iterations"]
+              and c["steps"] - c["iterations"] < 8 for c in calls),
+          "each LM call launched B and C once per step, and overshot its slowest lane "
+          "by less than a stall window")
     ok = all(bool(torch.isfinite(getattr(cts, f)).all()) for f in ("S2", "C", "tau", "chisq"))
     check(ok and bool((cts.mask.sum(1) >= 1).all()), "ladder model finite, >= 1 component a row")
     busy, per = device_profile(torch, run)
     kt = kernel_times(per)
-    print(f"  ladder wall median {walls[1]:.3f} s over 3 calls (min {walls[0]:.3f}, max "
-          f"{walls[2]:.3f}); profiled call: device busy {busy:.2f} ms = "
-          f"{busy / (walls[1] * 1e3):.1%} of the median wall; "
+    check(kt["B"][0] == launches[1] and kt["C"][0] == launches[2],
+          f"profiler saw kernels B/C {kt['B'][0]}/{kt['C'][0]} times = the steps run")
+    print(f"  graph loop: ladder wall median {walls[1]:.3f} s over 3 calls (min {walls[0]:.3f}, "
+          f"max {walls[2]:.3f}); profiled call: device busy {busy:.2f} ms, idle share "
+          f"{1 - busy / (walls[1] * 1e3):.1%} of the median wall; "
           + "; ".join(f"kernel {k} {n} launches, {us:.2f} us each"
                       for k, (n, us) in sorted(kt.items())), flush=True)
+    with eager_loop(engine):
+        eager, first = wall_s(torch, run)
+        walls_e = sorted([first, wall_s(torch, run)[1], wall_s(torch, run)[1]])
+        busy_e, per_e = device_profile(torch, run)
+    check(all(same_bits(torch, getattr(cts, f), getattr(eager, f))
+              for f in ("S2", "C", "tau", "chisq", "mask", "s2fast")),
+          "the ladder's model from the graph loop equals the eager loop's bit for bit")
+    print(f"  eager loop: ladder wall median {walls_e[1]:.3f} s over 3 calls (min "
+          f"{walls_e[0]:.3f}, max {walls_e[2]:.3f}); profiled call: "
+          f"{sum(n for n, _ in per_e.values())} device kernels and copies (graph loop: "
+          f"{sum(n for n, _ in per.values())}), device busy {busy_e:.2f} ms, idle share "
+          f"{1 - busy_e / (walls_e[1] * 1e3):.1%}", flush=True)
     # The rung selected on the card against the port's CPU ladders, on the
     # first SUBSET rows (all three run on the same subset).
     t0 = time.perf_counter()
@@ -555,10 +630,10 @@ def phase_ladder(torch, counters, hetero_cohort, fit_ct_ladder):
           f"(CPU float32 vs float64: {float((cpu32 == cpu64).double().mean()):.4f}); "
           f"subset ladders {time.perf_counter() - t0:.1f} s", flush=True)
     return dict(wall=walls[1], launches=launches, busy=busy, kernels=kt,
-                share32=share32, share64=share64)
+                share32=share32, share64=share64, wall_eager=walls_e[1], busy_eager=busy_e)
 
 
-def phase_finish(torch, counters, run_finish, Diffusion, paf_ensemble, acc, count):
+def phase_finish(torch, counters, engine, run_finish, Diffusion, paf_ensemble, acc, count):
     print("phase 6: streamed finish (ladder -> axisymmetric J -> 64 weighted PAF samples "
           "-> ensemble rates) on phase 4's accumulators vs the CPU in float64", flush=True)
     vecs, weights = paf_ensemble(N_RES, 64, seed=1)
@@ -581,12 +656,24 @@ def phase_finish(torch, counters, run_finish, Diffusion, paf_ensemble, acc, coun
         check(med < 1e-4, f"finish {f} median relative gap to CPU float64 {med:.3e} < 1e-4")
     share = float((rung_of(out.cts) == rung_of(ref.cts)).double().mean())
     busy, per = device_profile(torch, lambda: run_finish(*acc, count, **kw))
-    print(f"  finish wall {secs:.3f} s on the card (CPU float64 {cpu_s:.1f} s); rung equal to "
-          f"CPU float64 on {share:.4f} of {N_RES} residues; profiled call: device busy "
-          f"{busy:.2f} ms = {busy / (secs * 1e3):.1%} of the wall; "
+    secs = sorted([secs] + [wall_s(torch, lambda: run_finish(*acc, count, **kw))[1]
+                            for _ in range(2)])[1]
+    with eager_loop(engine):
+        eager, first = wall_s(torch, lambda: run_finish(*acc, count, **kw))
+        secs_e = sorted([first] + [wall_s(torch, lambda: run_finish(*acc, count, **kw))[1]
+                                   for _ in range(2)])[1]
+        busy_e, _ = device_profile(torch, lambda: run_finish(*acc, count, **kw))
+    check(all(same_bits(torch, getattr(out, f), getattr(eager, f))
+              for f in ("R1", "R2", "NOE", "rho", "dR1", "dR2", "dNOE", "drho")),
+          "the finish's rates from the graph loop equal the eager loop's bit for bit")
+    print(f"  finish wall median of 3 {secs:.3f} s on the card (CPU float64 {cpu_s:.1f} s); rung "
+          f"equal to CPU float64 on {share:.4f} of {N_RES} residues; profiled call: device busy "
+          f"{busy:.2f} ms, idle share {1 - busy / (secs * 1e3):.1%} of the wall; "
           + "; ".join(f"kernel {k} {n} launches, {us:.2f} us each"
-                      for k, (n, us) in sorted(kernel_times(per).items())), flush=True)
-    return dict(wall=secs, launches=launches, busy=busy)
+                      for k, (n, us) in sorted(kernel_times(per).items()))
+          + f"; eager loop: wall median of 3 {secs_e:.3f} s, device busy {busy_e:.2f} ms, "
+            f"idle share {1 - busy_e / (secs_e * 1e3):.1%}", flush=True)
+    return dict(wall=secs, launches=launches, busy=busy, wall_eager=secs_e, busy_eager=busy_e)
 
 
 def main() -> int:
@@ -606,6 +693,7 @@ def main() -> int:
 
     from spinrelax_tpu_torch import _build
     from spinrelax_tpu_torch.entry import correlated_walk, hetero_cohort, paf_ensemble
+    from spinrelax_tpu_torch.fit import engine
     from spinrelax_tpu_torch.fit.expfit import fit_ct_ladder
     from spinrelax_tpu_torch.fit.lm import fit_multiexp
     from spinrelax_tpu_torch.models.diffusion import Diffusion
@@ -629,12 +717,12 @@ def main() -> int:
     a_err, a_times = phase_acf(torch, tac, cuda_acf, vecs, gen)
     b_err, c_err_, lm_times = phase_lm(torch, cuda_lm, gen)
     counters = (cuda_acf.acf_lag_sums, cuda_lm.hgc_cuda, cuda_lm.cost_cuda)
-    launches, fwd_s, busy_ms = phase_forward(torch, tac, counters, make_forward,
-                                              fit_multiexp, vecs)
+    launches, fwd_s, busy_ms, fwd_eager_s, busy_eager_ms = phase_forward(
+        torch, tac, counters, engine, make_forward, fit_multiexp, vecs)
     step_ms, acc, count = phase_stream(torch, tac, cuda_acf, vecs, gen)
     del vecs
-    ladder = phase_ladder(torch, counters, hetero_cohort, fit_ct_ladder)
-    finish = phase_finish(torch, counters, run_finish, Diffusion, paf_ensemble, acc, count)
+    ladder = phase_ladder(torch, counters, engine, hetero_cohort, fit_ct_ladder)
+    finish = phase_finish(torch, counters, engine, run_finish, Diffusion, paf_ensemble, acc, count)
 
     print(f"chip_smoke phases took {time.perf_counter() - t_start:.1f} s, build included",
           flush=True)
@@ -646,12 +734,15 @@ def main() -> int:
           f"B {fwd_t['B']:.5f} vs {fwd_t['B_plain']:.5f} ms; "
           f"C {fwd_t['C']:.5f} vs {fwd_t['C_plain']:.5f} ms ({fwd_t['shape']}); "
           f"B {rung['B']:.5f} ms, C {rung['C']:.5f} ms ({rung['shape']}); forward "
-          f"{fwd_s * 1e3:.2f} ms, device busy {busy_ms:.2f} ms; group step "
+          f"{fwd_s * 1e3:.2f} ms, device busy {busy_ms:.2f} ms (eager loop "
+          f"{fwd_eager_s * 1e3:.2f} / {busy_eager_ms:.2f} ms); group step "
           f"{step_ms:.4f} ms; A slab plan {a_times['long']:.4f} ms; B/C at K 5 "
           f"{lm_times['k5']['B']:.5f}/{lm_times['k5']['C']:.5f} ms, K 8 "
           f"{lm_times['k8']['B']:.5f}/{lm_times['k8']['C']:.5f} ms; ladder "
-          f"{ladder['wall']:.3f} s, device busy {ladder['busy']:.2f} ms; finish "
-          f"{finish['wall']:.3f} s", flush=True)
+          f"{ladder['wall']:.3f} s, device busy {ladder['busy']:.2f} ms (eager loop "
+          f"{ladder['wall_eager']:.3f} s / {ladder['busy_eager']:.2f} ms); finish "
+          f"{finish['wall']:.3f} s, device busy {finish['busy']:.2f} ms (eager loop "
+          f"{finish['wall_eager']:.3f} s / {finish['busy_eager']:.2f} ms)", flush=True)
     if failures:
         print(f"chip_smoke FAILED ({len(failures)}):", *failures, sep="\n  ",
               file=sys.stderr)

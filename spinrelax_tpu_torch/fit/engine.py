@@ -15,8 +15,12 @@ trust-region and convergence gates of ``fit.lm.lm_solve`` /
 - lam >= 1e6, or 60 iterations;
 - ``skip`` lanes start done.
 
-A finished lane is frozen; the loop runs while any lane is live.  The
-per-iteration H = J^T J, g = J^T r and costs come from ``ops.cuda_lm``
+A finished lane is frozen; the loop runs while any lane is live.  An
+iteration is one step function over fixed state tensors, the same code on
+every device: on the CPU the host calls it while a lane is live; on the
+card one step is captured in a CUDA graph and replayed, and the host asks
+whether a lane is live once per stall window (``_run_graph``), not per
+iteration.  The per-iteration H = J^T J, g = J^T r and costs come from ``ops.cuda_lm``
 (kernels B and C for CUDA float32, their plain versions for CPU tensors)
 on lag-major (T, B) operands, so the (B, T, P) Jacobian is only built
 once, in the covariance tail.
@@ -42,9 +46,57 @@ def _bounds(K: int, s2_free: bool, tau_max, dtype, device):
     return torch.tensor(lo, dtype=dtype, device=device), hi
 
 
+def _run_eager(step, live, max_iter: int, window: int) -> int:
+    """Call ``step`` while ``live`` (a bool scalar tensor the step keeps)
+    is true; the host reads it every iteration.  Returns the steps run."""
+    steps = 0
+    while bool(live):
+        step()
+        steps += 1
+    return steps
+
+
+def _run_graph(step, live, max_iter: int, window: int) -> int:
+    """Run ``step`` on the current CUDA device until ``live`` (a bool
+    scalar tensor the step keeps) is false or ``max_iter`` steps are done:
+    the first step eagerly on a side stream (it also warms up what the
+    capture may not do: loading the kernel library, first allocations),
+    then one step captured in a CUDA graph and replayed.  The host reads
+    ``live`` once per ``window`` steps; the steps it overshoots by change
+    nothing (``step`` freezes finished lanes).  The graph and its memory
+    pool live only inside this call.  Returns the steps run; a capture or
+    replay that fails raises."""
+    if max_iter < 1:
+        return 0
+    cur = torch.cuda.current_stream()
+    side = torch.cuda.Stream()
+    side.wait_stream(cur)
+    with torch.cuda.stream(side):
+        step()
+    cur.wait_stream(side)
+    steps = 1
+    if steps == max_iter:
+        return steps
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):  # launches nothing; the wrappers do not count it
+        step()
+    while steps < max_iter:
+        n = min(window - steps % window, max_iter - steps)
+        for _ in range(n):
+            graph.replay()
+        steps += n
+        cuda_lm.hgc_cuda.launches += n  # a replay launches B and C once each
+        cuda_lm.cost_cuda.launches += n
+        if not bool(live):
+            break
+    del graph
+    return steps
+
+
 def fit_multiexp_engine(dt, decay, sigma, K: int, s2_free: bool,
                         n_starts: int = 1, skip=None,
-                        max_iter: int = 60, init=None) -> MultiExpFit:
+                        max_iter: int = 60, init=None, info=None,
+                        _eager: bool = False) -> MultiExpFit:
     """Batched bounded multi-exp fit (see module docstring).
 
     dt (T,), decay and sigma (B, T), all on one device in one dtype.
@@ -120,9 +172,15 @@ def fit_multiexp_engine(dt, decay, sigma, K: int, s2_free: bool,
     it = torch.zeros(BS, dtype=torch.int32, device=dev)
     c_best = torch.full((BS,), float("inf"), dtype=f, device=dev)
     c_mark = c_best.clone()
+    live = torch.any((it < max_iter) & ~done)
     eye = torch.eye(P, dtype=f, device=dev)
 
-    while bool(torch.any((it < max_iter) & ~done)):
+    def step():
+        """One LM iteration over every lane, written into the state tensors
+        (t, lam, it, c_best, c_mark, done, live) in place.  A lane that is
+        done or out of iterations is frozen: the step changes nothing of
+        it, so steps past the last live lane's end are no-ops."""
+        frozen = done | (it >= max_iter)
         H_p, g_p, c_old = cuda_lm.hgc(pt_of_t(t), y_t, isg_t, dt, K, s2_free)
         s = torch.sigmoid(t)
         D = span * s * (1.0 - s)  # (BS, P) chain rule
@@ -152,14 +210,19 @@ def fit_multiexp_engine(dt, decay, sigma, K: int, s2_free: bool,
             at_window & torch.isfinite(c_mark) & (lam_next <= 100.0 * lam0)
             & ((c_mark - c_best_next) <= stall_window * ftol * c_best_next)
         )
-        c_mark = torch.where(at_window, c_best_next, c_mark)
-        c_best = c_best_next
-        done_next = (done | (improved & small) | flat | small_rel | stalled
-                     | (lam_next >= lam_stuck))
-        t = torch.where(done[:, None], t, t_next)
-        lam = torch.where(done, lam, lam_next)
-        it = torch.where(done, it, it + 1)
-        done = done_next
+        done_next = (improved & small) | flat | small_rel | stalled | (lam_next >= lam_stuck)
+        c_mark.copy_(torch.where(frozen | ~at_window, c_mark, c_best_next))
+        c_best.copy_(torch.where(frozen, c_best, c_best_next))
+        t.copy_(torch.where(frozen[:, None], t, t_next))
+        lam.copy_(torch.where(frozen, lam, lam_next))
+        it.copy_(torch.where(frozen, it, it + 1))
+        done.copy_(done | (~frozen & done_next))
+        live.copy_(torch.any((it < max_iter) & ~done))
+
+    run = _run_graph if dev.type == "cuda" and not _eager else _run_eager
+    steps = run(step, live, max_iter, stall_window)
+    if info is not None:
+        info.update(steps=steps, iterations=int(it.max()))
     p_fin = _to_constrained(t, lo, hi)  # (BS, P)
 
     # --- covariance tail + finalisation ----------------------------------

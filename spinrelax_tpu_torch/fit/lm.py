@@ -175,7 +175,7 @@ def _finalise_multiexp(dt, y, sg, C, tau, S2, dC, dtau, dS2, C0, S20,
 
 
 def fit_multiexp(dt, decay, sigma, K: int, s2_free: bool,
-                 n_starts: int = 1) -> MultiExpFit:
+                 n_starts: int = 1, info=None) -> MultiExpFit:
     """Fit a batch of decays with K transient components.
 
     dt (T,), decay and sigma (B, T).  Bounds follow the reference: C, S2
@@ -183,15 +183,17 @@ def fit_multiexp(dt, decay, sigma, K: int, s2_free: bool,
     deterministic tau starts and keeps the lowest-cost solution per
     residue (ties keep the cold start).  Runs ``fit.engine`` on every
     device: its per-iteration evaluation is kernels B and C for CUDA
-    float32 and their plain versions on the CPU.
+    float32 and their plain versions on the CPU.  ``info``: the engine's
+    optional dict of steps and iterations.
     """
     from .engine import fit_multiexp_engine
 
-    return fit_multiexp_engine(dt, decay, sigma, K, s2_free, n_starts=n_starts)
+    return fit_multiexp_engine(dt, decay, sigma, K, s2_free, n_starts=n_starts,
+                               info=info)
 
 
 def fit_multiexp_warm(dt, decay, sigma, C0, tau0, S20, K: int,
-                      s2_free: bool) -> MultiExpFit:
+                      s2_free: bool, info=None) -> MultiExpFit:
     """:func:`fit_multiexp` from caller-given PER-ROW initial parameters
     instead of the reference's cold initialiser: the DoF ladder's warm
     retry (``fit.expfit``).  C0, tau0 (B, K), S20 (B,).  Bounds and gates
@@ -200,4 +202,5 @@ def fit_multiexp_warm(dt, decay, sigma, C0, tau0, S20, K: int,
     the card every iteration is kernels B and C."""
     from .engine import fit_multiexp_engine
 
-    return fit_multiexp_engine(dt, decay, sigma, K, s2_free, init=(C0, tau0, S20))
+    return fit_multiexp_engine(dt, decay, sigma, K, s2_free, init=(C0, tau0, S20),
+                               info=info)

@@ -35,17 +35,22 @@ def traced_fit(trace, stage: str, dt, decays, sigma, K: int, s2_free: bool,
                n_starts: int = 1, init=None):
     """One LM call of the ladder: ``lm.fit_multiexp`` over (B, T) decays,
     or ``lm.fit_multiexp_warm`` from ``init`` = (C0, tau0, S20).  With a
-    ``trace`` list, appends {stage, K, s2_free, rows, starts, launches_B,
-    launches_C}: the launches of kernels B and C this call made, read from
-    their counters around it (0 on the CPU)."""
+    ``trace`` list, appends {stage, K, s2_free, rows, starts, steps,
+    iterations, launches_B, launches_C}: the LM steps the engine ran and
+    the iterations its slowest lane needed (``fit.engine``'s ``info``; on
+    the card the steps round the iterations up to the host's next look),
+    and the launches of kernels B and C this call made, read from their
+    counters around it (0 on the CPU, the steps on the card)."""
     before = (cuda_lm.hgc_cuda.launches, cuda_lm.cost_cuda.launches)
+    info = None if trace is None else {}
     if init is None:
-        out = lm.fit_multiexp(dt, decays, sigma, K, s2_free, n_starts=n_starts)
+        out = lm.fit_multiexp(dt, decays, sigma, K, s2_free, n_starts=n_starts,
+                              info=info)
     else:
-        out = lm.fit_multiexp_warm(dt, decays, sigma, *init, K, s2_free)
+        out = lm.fit_multiexp_warm(dt, decays, sigma, *init, K, s2_free, info=info)
     if trace is not None:
         trace.append(dict(stage=stage, K=K, s2_free=s2_free, rows=decays.shape[0],
-                          starts=n_starts,
+                          starts=n_starts, **info,
                           launches_B=cuda_lm.hgc_cuda.launches - before[0],
                           launches_C=cuda_lm.cost_cuda.launches - before[1]))
     return out

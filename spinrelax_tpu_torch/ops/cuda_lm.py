@@ -110,6 +110,13 @@ def _launch(fn_name, p, y, isg, dt, out, T, B, K, s2_free):
     _build.check(code, fn_name)
 
 
+def _launched() -> int:
+    """1 for a call that launched its kernel, 0 for one recorded into a
+    CUDA graph under capture (nothing runs until the graph is replayed;
+    whoever replays it counts the launches: ``fit.engine._run_graph``)."""
+    return 0 if torch.cuda.is_current_stream_capturing() else 1
+
+
 def hgc_cuda(p, y, isg, dt, K: int, s2_free: bool):
     """Kernel B on CUDA float32 operands -> (H, g, cost), contiguous views
     of the one buffer the kernel writes."""
@@ -117,7 +124,7 @@ def hgc_cuda(p, y, isg, dt, K: int, s2_free: bool):
     P = n_par(K, s2_free)
     out = torch.empty(B * (P * P + P + 1), dtype=torch.float32, device=y.device)
     _launch("lm_hgc_f32", p, y, isg, dt, out, T, B, K, s2_free)
-    hgc_cuda.launches += 1
+    hgc_cuda.launches += _launched()
     n_h, n_g = B * P * P, B * P
     return (out[:n_h].view(B, P, P), out[n_h : n_h + n_g].view(B, P),
             out[n_h + n_g :])
@@ -128,7 +135,7 @@ def cost_cuda(p, y, isg, dt, K: int, s2_free: bool):
     T, B = _check_cuda("cost", p, y, isg, dt, K, s2_free)
     out = torch.empty((B,), dtype=torch.float32, device=y.device)
     _launch("lm_cost_f32", p, y, isg, dt, out, T, B, K, s2_free)
-    cost_cuda.launches += 1
+    cost_cuda.launches += _launched()
     return out
 
 

@@ -306,3 +306,86 @@ def test_run_finish_on_card_matches_cpu(gen):
         x, y = getattr(a, f).cpu(), getattr(b, f)
         assert torch.isfinite(x).all()
         assert float(((x - y).abs() / y.abs()).median()) < 1e-4, f
+
+
+def _engine_case(case):
+    """(dt, y, sigma) of entry.hetero_cohort on the card and the engine's
+    keywords for one case of test_graph_loop_equals_eager_loop."""
+    B, T = case.pop("B", 300), 200
+    dt, y, dy = hetero_cohort(B, T)
+    args = [torch.tensor(a, dtype=torch.float32, device="cuda") for a in (dt, y, dy)]
+    rng = np.random.default_rng(5)
+    kw = dict(case)
+    if kw.pop("skip", False):
+        kw["skip"] = torch.from_numpy(rng.uniform(size=B) < 0.4).cuda()
+    if kw.pop("init", False):
+        K = kw["K"]
+        kw["init"] = [torch.tensor(a, dtype=torch.float32, device="cuda") for a in (
+            rng.uniform(0.02, 0.2, (B, K)), np.sort(rng.uniform(2, 300, (B, K)), axis=1),
+            rng.uniform(0.5, 0.9, B))]
+    return args, kw
+
+
+@pytest.mark.parametrize("case", [
+    dict(K=2, s2_free=True), dict(K=2, s2_free=True, n_starts=8),
+    dict(K=5, s2_free=True), dict(K=5, s2_free=False, n_starts=8, B=40),
+    dict(K=2, s2_free=True, skip=True), dict(K=2, s2_free=True, init=True),
+    dict(K=5, s2_free=True, init=True, skip=True), dict(K=1, s2_free=False, B=1),
+    dict(K=3, s2_free=True, max_iter=1), dict(K=3, s2_free=True, max_iter=11)],
+    ids=lambda c: "-".join(f"{k}{v}" for k, v in c.items()))
+def test_graph_loop_equals_eager_loop(gen, case):
+    """fit_multiexp_engine on the card replays one captured step and looks
+    at the lanes once per stall window; its outputs equal the eager loop's
+    (one host sync per iteration) bit for bit, the steps it ran cover the
+    slowest lane's iterations and overshoot them by less than a window,
+    and kernels B and C are counted once per step."""
+    from spinrelax_tpu_torch.fit.engine import fit_multiexp_engine
+
+    args, kw = _engine_case(dict(case))
+    e_info, g_info = {}, {}
+    eager = fit_multiexp_engine(*args, info=e_info, _eager=True, **kw)
+    before = (cuda_lm.hgc_cuda.launches, cuda_lm.cost_cuda.launches)
+    graph = fit_multiexp_engine(*args, info=g_info, **kw)
+    for name, a, b in zip(graph._fields, graph, eager):
+        assert torch.equal(torch.nan_to_num(a.double(), nan=-7.0),
+                           torch.nan_to_num(b.double(), nan=-7.0)), name
+    assert e_info["steps"] == e_info["iterations"] == g_info["iterations"]
+    assert g_info["iterations"] <= g_info["steps"] <= kw.get("max_iter", 60)
+    assert g_info["steps"] - g_info["iterations"] < 8
+    assert cuda_lm.hgc_cuda.launches - before[0] == g_info["steps"]
+    assert cuda_lm.cost_cuda.launches - before[1] == g_info["steps"]
+
+
+def test_graph_loop_frees_its_pool(gen):
+    """Ten engine calls in a row (a ladder's worth) leave no more device
+    memory allocated than one: each call's graph and its private pool end
+    with the call."""
+    from spinrelax_tpu_torch.fit.engine import fit_multiexp_engine
+
+    args, kw = _engine_case(dict(K=2, s2_free=True, B=2000))
+    fit_multiexp_engine(*args, **kw)
+    torch.cuda.synchronize()
+    one = torch.cuda.memory_allocated()
+    for _ in range(10):
+        fit_multiexp_engine(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() <= one
+
+
+def test_graph_loop_profiled_launches_equal_steps(gen):
+    """torch.profiler sees kernels B and C run once per step of the graph
+    loop (the eager first step and every replay)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from spinrelax_tpu_torch.fit.engine import fit_multiexp_engine
+
+    args, kw = _engine_case(dict(K=2, s2_free=True))
+    fit_multiexp_engine(*args, **kw)
+    info = {}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fit_multiexp_engine(*args, info=info, **kw)
+        torch.cuda.synchronize()
+    n = sum("lm_kernel" in e.name for e in prof.events()
+            if e.device_type == DeviceType.CUDA)
+    assert n == 2 * info["steps"]

@@ -301,3 +301,213 @@ def test_fit_multiexp_matches_jax_on_forward_ct():
     a32 = jeng.fit_multiexp_engine(*f32, K=2, s2_free=True, interpret=True)
     b32 = tlm.fit_multiexp(*_t(*f32), K=2, s2_free=True)
     _assert_selection_agrees(a32, b32)
+
+
+def _old_engine(dt, decay, sigma, K: int, s2_free: bool,
+                        n_starts: int = 1, skip=None,
+                        max_iter: int = 60, init=None):
+    """spinrelax_tpu_torch.fit.engine.fit_multiexp_engine as it was before its
+    loop became a step function: a literal copy, the reference of
+    test_step_function_equals_old_loop."""
+    dev, f = decay.device, decay.dtype
+    dt = torch.as_tensor(dt, dtype=f, device=dev).contiguous()
+    sigma = torch.as_tensor(sigma, dtype=f, device=dev)
+    B, T = decay.shape
+    P = cuda_lm.n_par(K, s2_free)
+    tau_max = dt[-1] * 10.0
+
+    # --- initialisation ------------------------------------------------
+    # starts: (S, K) taus shared by every lane, or (1, B, K) per-row taus
+    if init is not None:
+        if n_starts != 1:
+            raise ValueError("init gives one start per row: n_starts must be 1")
+        C0, tau0_rows, S20 = (torch.as_tensor(a, dtype=f, device=dev) for a in init)
+        starts = tau0_rows[None]
+    else:
+        C0, tau0_shared, S20 = teng._init_multiexp(dt, decay, K, s2_free)
+        starts = tau0_shared[None]
+    if n_starts > 1:
+        # Deterministic extra starts drawn in float64 numpy, independent
+        # of dtype and device (same draws as the JAX package).
+        u = torch.as_tensor(
+            np.random.default_rng(12345).uniform(size=(n_starts - 1, K)),
+            dtype=f, device=dev,
+        )
+        step = torch.mean(dt[1:] - dt[:-1])
+        lo_l, hi_l = torch.log(step * 0.5), torch.log(dt[-1] * 2.0)
+        extra = torch.sort(torch.exp(lo_l + u * (hi_l - lo_l)), dim=1).values
+        starts = torch.cat([starts, extra], dim=0)
+    S = starts.shape[0]
+    BS = B * S
+    # start-major stacking: lane b, start s -> row s * B + b
+    dec_s = decay.repeat(S, 1)
+    sig_s = sigma.repeat(S, 1)
+    C0_s = C0.repeat(S, 1)
+    S20_s = S20.repeat(S)
+    tau0_s = starts[0] if init is not None else starts.repeat_interleave(B, dim=0)
+    if skip is None:
+        done = torch.zeros(BS, dtype=torch.bool, device=dev)
+    else:
+        done = torch.as_tensor(skip, dtype=torch.bool, device=dev).repeat(S)
+
+    p0 = torch.cat([C0_s, tau0_s] + ([S20_s[:, None]] if s2_free else []), dim=1)
+    lo, hi = teng._bounds(K, s2_free, tau_max, f, dev)
+    span = hi - lo
+
+    # --- lag-major operands of the kernels ------------------------------
+    y_t = dec_s.T.contiguous()
+    isg_t = (1.0 / sig_s).T.contiguous()
+
+    def pt_of_t(t):  # (BS, P) unconstrained -> (P, BS) constrained
+        return teng._to_constrained(t, lo, hi).T.contiguous()
+
+    eps = torch.finfo(f).eps
+    ftol = 10.0 * eps
+    xtol = 1e-10
+    xtol_rel = float(np.sqrt(eps))
+    stall_window = 8
+    lam0 = 1e-3
+    lam_stuck = 1e6
+
+    t = teng._to_unconstrained(p0, lo, hi)
+    lam = torch.full((BS,), lam0, dtype=f, device=dev)
+    it = torch.zeros(BS, dtype=torch.int32, device=dev)
+    c_best = torch.full((BS,), float("inf"), dtype=f, device=dev)
+    c_mark = c_best.clone()
+    eye = torch.eye(P, dtype=f, device=dev)
+
+    while bool(torch.any((it < max_iter) & ~done)):
+        H_p, g_p, c_old = cuda_lm.hgc(pt_of_t(t), y_t, isg_t, dt, K, s2_free)
+        s = torch.sigmoid(t)
+        D = span * s * (1.0 - s)  # (BS, P) chain rule
+        H = H_p * D[:, :, None] * D[:, None, :]
+        g = g_p * D
+        diag = torch.clamp(torch.diagonal(H, dim1=1, dim2=2), min=1e-12)
+        A = H + lam[:, None, None] * eye * diag[:, None, :] * eye
+        step_v = -teng._chol_solve_small(A, g)
+        t_new = t + step_v
+        c_new = cuda_lm.cost(pt_of_t(t_new), y_t, isg_t, dt, K, s2_free)
+        improved = (c_new < c_old) & torch.isfinite(c_new)
+        t_next = torch.where(improved[:, None], t_new, t)
+        lam_next = torch.where(improved, torch.clamp(lam * 0.33, min=1e-12),
+                               torch.clamp(lam * 3.0, max=1e10))
+        small = torch.amax(torch.abs(step_v), dim=1) < xtol
+        flat = improved & ((c_old - c_new) <= ftol * c_old)
+        small_rel = improved & (lam <= lam0) & (
+            torch.linalg.vector_norm(step_v, dim=1)
+            < xtol_rel * (xtol_rel + torch.linalg.vector_norm(t, dim=1))
+        )
+        c_best_next = torch.minimum(
+            torch.minimum(c_best, torch.where(torch.isfinite(c_old), c_old, c_best)),
+            torch.where(torch.isfinite(c_new), c_new, c_best),
+        )
+        at_window = (it + 1) % stall_window == 0
+        stalled = (
+            at_window & torch.isfinite(c_mark) & (lam_next <= 100.0 * lam0)
+            & ((c_mark - c_best_next) <= stall_window * ftol * c_best_next)
+        )
+        c_mark = torch.where(at_window, c_best_next, c_mark)
+        c_best = c_best_next
+        done_next = (done | (improved & small) | flat | small_rel | stalled
+                     | (lam_next >= lam_stuck))
+        t = torch.where(done[:, None], t, t_next)
+        lam = torch.where(done, lam, lam_next)
+        it = torch.where(done, it, it + 1)
+        done = done_next
+    p_fin = teng._to_constrained(t, lo, hi)  # (BS, P)
+
+    # --- covariance tail + finalisation ----------------------------------
+    r_fin, Jp = teng._multiexp_res_jac(p_fin, dt, dec_s, sig_s, K, s2_free)
+    cost_fin = 0.5 * torch.sum(r_fin * r_fin, dim=1)
+    H = Jp.transpose(1, 2) @ Jp
+    dof = max(T - P, 1)
+    red_chisq = torch.sum(r_fin * r_fin, dim=1) / dof
+    dead = torch.diagonal(H, dim1=1, dim2=2) == 0.0
+    Hs = torch.where(dead[:, :, None] | dead[:, None, :], eye, H)
+    var = torch.where(dead, torch.zeros_like(red_chisq)[:, None],
+                      teng._spd_inv_diag_small(Hs)) * red_chisq[:, None]
+    perr = torch.sqrt(torch.clamp(var, min=0.0))
+    C = p_fin[:, :K]
+    tau = p_fin[:, K : 2 * K]
+    S2 = p_fin[:, -1] if s2_free else 1.0 - C.sum(dim=1)
+    dS2 = perr[:, -1] if s2_free else torch.zeros_like(S2)
+    fin = teng._finalise_multiexp(dt, dec_s, sig_s, C, tau, S2, perr[:, :K],
+                             perr[:, K : 2 * K], dS2, C0_s, S20_s, s2_free)
+    if S > 1:
+        # best start per lane by final cost; ties keep the cold start.
+        best = torch.argmin(cost_fin.reshape(S, B), dim=0)
+        idx = best * B + torch.arange(B, device=dev)
+        fin = tuple(a[idx] for a in fin)
+    return teng.MultiExpFit(*fin)
+
+
+_STEP_CASES = [dict(K=2, s2_free=True), dict(K=2, s2_free=True, n_starts=8),
+               dict(K=1, s2_free=False, n_starts=3), dict(K=5, s2_free=True),
+               dict(K=2, s2_free=True, skip=True), dict(K=2, s2_free=True, init=True),
+               dict(K=3, s2_free=False, max_iter=7)]
+
+
+def _step_case_args(rng, case, dtype):
+    dt, y, sg = (a.astype(dtype) for a in _cohort(rng, B=48, T=120))
+    kw = dict(case)
+    if kw.pop("skip", False):
+        kw["skip"] = torch.from_numpy(rng.uniform(size=48) < 0.4)
+    if kw.pop("init", False):
+        K = kw["K"]
+        kw["init"] = _t(rng.uniform(0.02, 0.2, (48, K)).astype(dtype),
+                        np.sort(rng.uniform(2, 300, (48, K)), axis=1).astype(dtype),
+                        rng.uniform(0.5, 0.9, 48).astype(dtype))
+    return _t(dt, y, sg), kw
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("case", _STEP_CASES, ids=lambda c: "-".join(f"{k}{v}" for k, v in c.items()))
+def test_step_function_equals_old_loop(rng, case, dtype):
+    """The engine's step function, run eagerly on the CPU, gives the old
+    while loop's outputs bit for bit (NaN == NaN), and reports the steps
+    it ran = the iterations of the slowest lane."""
+    args, kw = _step_case_args(rng, case, dtype)
+    info = {}
+    new = teng.fit_multiexp_engine(*args, info=info, **kw)
+    old = _old_engine(*args, **kw)
+    for name, a, b in zip(new._fields, new, old):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        assert torch.equal(torch.nan_to_num(a.double(), nan=-7.0),
+                           torch.nan_to_num(b.double(), nan=-7.0)), name
+    assert info["steps"] == info["iterations"] <= kw.get("max_iter", 60)
+    assert info["steps"] > 0
+
+
+@pytest.mark.parametrize("case", _STEP_CASES, ids=lambda c: "-".join(f"{k}{v}" for k, v in c.items()))
+def test_steps_past_the_last_live_lane_change_nothing(rng, case, monkeypatch):
+    """Run on the card's schedule -- the host looks at the lanes once per
+    stall window and the steps in between run regardless, to max_iter
+    steps at most -- and then a window more: frozen lanes keep t, lam and
+    it, so every output equals the eager loop's bit for bit."""
+    args, kw = _step_case_args(rng, case, np.float32)
+    want_info, ran = {}, {}
+    want = teng.fit_multiexp_engine(*args, info=want_info, **kw)
+
+    def windowed(step, live, max_iter, window):
+        steps = 0
+        while steps < max_iter:
+            n = min(window - steps % window, max_iter - steps)
+            for _ in range(n):
+                step()
+            steps += n
+            if not bool(live):
+                break
+        for _ in range(window):  # past the end, and past max_iter
+            step()
+        ran["steps"] = steps + window
+        return steps
+
+    monkeypatch.setattr(teng, "_run_eager", windowed)
+    info = {}
+    got = teng.fit_multiexp_engine(*args, info=info, **kw)
+    assert ran["steps"] > want_info["steps"]
+    assert info["iterations"] == want_info["iterations"]
+    assert info["steps"] >= want_info["steps"]
+    for name, a, b in zip(got._fields, got, want):
+        assert torch.equal(torch.nan_to_num(a.double(), nan=-7.0),
+                           torch.nan_to_num(b.double(), nan=-7.0)), name

@@ -20,6 +20,20 @@ that checkout's ``_build.py`` and prints:
    calls after a first call, and from one torch.profiler run the
    device-busy time and kernels B's and C's launches and time per launch.
 
+With ``--loops`` instead of OLD_ROOT it times this checkout's LM loop
+both ways in one process (the wall differs up to 2x between processes): the
+graph loop (one captured step, replayed; the host looks at the lanes once
+per stall window) against the eager loop (``_eager=True``: every step
+issued by the host, one sync per iteration), in turns eager, graph, graph,
+eager, on the forward's fit (B 1024, T 500, K 2, S2 free, C(t) of
+``entry.correlated_walk``) and a ladder rung (B 10 000, T 500, K 2, S2
+free, ``entry.hetero_cohort``): median wall of 5 calls per turn, the
+device-busy time and device kernel count of one profiled call, the steps
+run and the slowest lane's iterations, and whether the outputs are equal
+bit for bit.
+
+    python3 tools/torch_lm_ab.py --loops
+
 Needs one GPU; prints the card's name and power limit.
 """
 
@@ -107,7 +121,58 @@ def kernel_times(torch, roots) -> None:
                   flush=True)
 
 
+def loops_run() -> int:
+    """Graph loop against eager loop, in turns in this process (see the
+    module docstring)."""
+    sys.path.insert(0, str(HERE))
+    import torch
+
+    from spinrelax_tpu_torch.entry import correlated_walk, hetero_cohort
+    from spinrelax_tpu_torch.fit.engine import fit_multiexp_engine
+    from spinrelax_tpu_torch.ops.autocorr import ct_palmer
+
+    Ct, dCt = ct_palmer(torch.from_numpy(correlated_walk(32, 1000, 1024, seed=0)).cuda())
+    dt = torch.arange(Ct.shape[0], dtype=Ct.dtype, device="cuda") + 1.0
+    fwd = (dt, Ct.T.contiguous(), torch.where(dCt.T > 0, dCt.T, torch.ones_like(dCt.T)))
+    rung = tuple(torch.tensor(a, dtype=torch.float32, device="cuda")
+                 for a in hetero_cohort(10_000, 500))
+    ok = True
+    for name, args in (("forward fit, B 1024", fwd), ("ladder rung, B 10 000", rung)):
+        def fit(eager, info=None):
+            return fit_multiexp_engine(*args, K=2, s2_free=True, info=info, _eager=eager)
+
+        fit(False)
+        out, stats = {}, {True: [], False: []}
+        for eager in (True, False, False, True):
+            info = {}
+            out[eager] = fit(eager, info)
+            walls = sorted(smoke.wall_s(torch, lambda: fit(eager))[1] * 1e3 for _ in range(5))
+            busy, per = smoke.device_profile(torch, lambda: fit(eager))
+            stats[eager].append((walls[2], busy))
+            print(f"{name}, K 2, S2 free, {'eager' if eager else 'graph'} loop: wall median "
+                  f"{walls[2]:.3f} ms of 5 (min {walls[0]:.3f}, max {walls[-1]:.3f}); device "
+                  f"busy {busy:.3f} ms, idle share {1 - busy / walls[2]:.1%}; "
+                  f"{sum(n for n, _ in per.values())} device kernels and copies; "
+                  f"{info['steps']} steps, slowest lane {info['iterations']} iterations",
+                  flush=True)
+        same = all(smoke.same_bits(torch, a, b) for a, b in zip(out[True], out[False]))
+        ok &= same
+        (we, be), (wg, bg) = ([statistics.mean(x) for x in zip(*stats[k])] for k in (True, False))
+        print(f"{name}: eager {we:.3f} ms wall / {be:.3f} ms busy, graph {wg:.3f} ms wall / "
+              f"{bg:.3f} ms busy, eager / graph {we / wg:.2f}; outputs equal bit for bit: "
+              f"{same}", flush=True)
+    return 0 if ok else 1
+
+
 def main(argv) -> int:
+    if argv == ["--loops"]:
+        import torch
+
+        if not torch.cuda.is_available():
+            print("torch_lm_ab: needs a GPU", file=sys.stderr)
+            return 3
+        print(smoke.gpu_line(), flush=True)
+        return loops_run()
     if len(argv) >= 2 and argv[0] == "--forward":
         print(json.dumps(forward_run(Path(argv[1]).resolve())))
         return 0
