@@ -41,6 +41,26 @@ Builds the port's CUDA kernels from csrc/ and runs, in order:
    held to the same finish on the CPU in float64 (median relative gap of
    every rate < 1e-4).
 
+7. the streamed C(t) stage: (a) stage_ct_streamed on a synthetic .xtc of
+   ubiquitin's size (1231 atoms, 71 N-H bonds, 20 000 frames 2 ps apart,
+   tau_memory 4000 ps: chunks of 2000 frames, 1000 lags), read by the
+   native codec (built here with the host C++ compiler), held to the same
+   stage on the CPU in float64 (C(t) 2e-6, S2 and the average vector
+   1e-5, <= 1e-3 of the histogram's samples in another bin: float32
+   vectors differ from float64 ones by ~1e-7, so a sample that close to a
+   bin edge lands next door); (b) 10 group steps of 4 chunks x 2000
+   frames x 1024 bonds from observables made on the card, through
+   bond_vectors_from_obs and the fused update, held to a float64 plain
+   route on the card, with the step's time, kernel A's launches (2 a
+   group) and time from the profiler, eigh's time and the idle share;
+   (c) entry.ct_entry() from file to rates, held to its CPU run.
+
+Phases 3, 5 and 6 run their LM loop both ways in turns -- the CUDA graph
+of one step, and the eager loop that issues every step from the host --
+and hold the outputs equal bit for bit.  Kernel A is also timed against
+its plain version (torch.fft) at the stage's chunk lengths, 1024 bonds at
+F 2000 / D 1000 and F 10 000 / D 5000.
+
 Kernel A also runs a chunk past one block's shared memory (F = 20 000,
 the slab plan) and kernels B and C K = 5 and 8 (the runtime-K variant),
 each held to its plain version and timed against its bound.
@@ -327,24 +347,39 @@ def rel_gap(a, b):
     return (a - b).abs() / b.abs().clamp_min(1e-30)
 
 
-def device_profile(torch, fn):
+def device_profile(torch, fn, complete=bool):
     """Run fn once under torch.profiler -> (device-busy ms: the union of
-    the card's kernel and copy intervals, {kernel: (launches, total ms)})."""
+    the card's kernel and copy intervals, {kernel: (launches, total ms)}).
+
+    The profiler now and then loses device events (seen on an H100: the
+    first kernel of a cycle, and once a whole cycle), so fn is profiled
+    again, at most three times in all, until ``complete(per)`` holds; by
+    default that some device event was seen."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
-    busy, reach, per = 0.0, float("-inf"), {}
-    for lo, hi, name in spans:
-        busy += max(0.0, hi - max(lo, reach))
-        reach = max(reach, hi)
-        n, tot = per.get(name, (0, 0.0))
-        per[name] = (n + 1, tot + (hi - lo) / 1e3)
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                       for e in prof.events() if e.device_type == DeviceType.CUDA)
+        busy, reach, per = 0.0, float("-inf"), {}
+        for lo, hi, name in spans:
+            busy += max(0.0, hi - max(lo, reach))
+            reach = max(reach, hi)
+            n, tot = per.get(name, (0, 0.0))
+            per[name] = (n + 1, tot + (hi - lo) / 1e3)
+        if complete(per):
+            break
     return busy / 1e3, per
+
+
+def saw(per, **counts) -> bool:
+    """True if device_profile's table holds kernels A / B / C exactly
+    ``counts`` times, e.g. saw(per, A=2)."""
+    kt = kernel_times(per)
+    return all(kt.get(k, (0,))[0] == n for k, n in counts.items())
 
 
 @contextlib.contextmanager
@@ -411,9 +446,13 @@ def phase_forward(torch, tac, counters, engine, make_forward, fit_multiexp, vecs
         return w[2]
 
     def profile_of(secs):
-        for c in counters:
-            c.launches = 0
-        busy, per = device_profile(torch, lambda: fwd(vecs))
+        def run():
+            for c in counters:
+                c.launches = 0
+            fwd(vecs)
+
+        busy, per = device_profile(torch, run, lambda per: saw(
+            per, **{k: c.launches for c, k in zip(counters, "ABC")}))
         per_kernel = kernel_times(per)
         print(f"    profiled: {sum(n for n, _ in per.values())} device kernels and copies, "
               f"device busy {busy:.2f} ms, idle share {1 - busy / (secs * 1e3):.1%} of the "
@@ -593,7 +632,8 @@ def phase_ladder(torch, counters, engine, hetero_cohort, fit_ct_ladder):
           "by less than a stall window")
     ok = all(bool(torch.isfinite(getattr(cts, f)).all()) for f in ("S2", "C", "tau", "chisq"))
     check(ok and bool((cts.mask.sum(1) >= 1).all()), "ladder model finite, >= 1 component a row")
-    busy, per = device_profile(torch, run)
+    busy, per = device_profile(torch, run,
+                               lambda per: saw(per, B=launches[1], C=launches[2]))
     kt = kernel_times(per)
     check(kt["B"][0] == launches[1] and kt["C"][0] == launches[2],
           f"profiler saw kernels B/C {kt['B'][0]}/{kt['C'][0]} times = the steps run")
@@ -655,7 +695,8 @@ def phase_finish(torch, counters, engine, run_finish, Diffusion, paf_ensemble, a
         med = float(rel_gap(getattr(out, f).cpu(), getattr(ref, f)).median())
         check(med < 1e-4, f"finish {f} median relative gap to CPU float64 {med:.3e} < 1e-4")
     share = float((rung_of(out.cts) == rung_of(ref.cts)).double().mean())
-    busy, per = device_profile(torch, lambda: run_finish(*acc, count, **kw))
+    busy, per = device_profile(torch, lambda: run_finish(*acc, count, **kw),
+                               lambda per: saw(per, B=launches[1], C=launches[2]))
     secs = sorted([secs] + [wall_s(torch, lambda: run_finish(*acc, count, **kw))[1]
                             for _ in range(2)])[1]
     with eager_loop(engine):
@@ -674,6 +715,259 @@ def phase_finish(torch, counters, engine, run_finish, Diffusion, paf_ensemble, a
           + f"; eager loop: wall median of 3 {secs_e:.3f} s, device busy {busy_e:.2f} ms, "
             f"idle share {1 - busy_e / (secs_e * 1e3):.1%}", flush=True)
     return dict(wall=secs, launches=launches, busy=busy, wall_eager=secs_e, busy_eager=busy_e)
+
+
+def moved_share(a, b) -> float:
+    """Share of histogram samples that sit in another bin in ``a`` than in
+    ``b`` (two histograms of the same samples)."""
+    a, b = a.double(), b.double()
+    return float((a - b).abs().sum() / 2 / b.sum())
+
+
+def stage_observables(torch, gen, n_frames, n_bonds):
+    """One group's host-reduced observables, made on the card: a body whose
+    orientation random-walks (quaternion steps of ~0.01 rad a frame), with
+    ``n_bonds`` bond directions wobbling around their own axes.  S is the
+    Horn correlation C_ref R(t)^T of a reference with second moments
+    diag(1, 0.6, 0.3); raw_diff is R(t) applied to the wobbling bonds, at
+    the N-H length in nm -> (raw_diff (F, nB, 3), S (F, 3, 3)) float32."""
+    from spinrelax_tpu_torch.core import quaternion as qt
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    q = qt.qnorm(rand(1, 4) + 0.005 * torch.cumsum(rand(n_frames, 4), dim=0))
+    R = qt.quat_to_mat(q)  # (F, 3, 3)
+    axis = torch.nn.functional.normalize(rand(1, n_bonds, 3), dim=-1)
+    wob = torch.cumsum(rand(n_frames, n_bonds, 3), dim=0)
+    wob = wob - wob.mean(dim=0, keepdim=True)
+    body = torch.nn.functional.normalize(axis + 0.3 * wob / wob.std(), dim=-1)
+    raw = 0.102 * torch.einsum("fij,fbj->fbi", R, body)
+    S = torch.diag(torch.tensor([1.0, 0.6, 0.3], device="cuda")) @ R.transpose(1, 2)
+    return raw.contiguous(), S.contiguous()
+
+
+def phase_stage(torch, tac, cuda_acf, counters, gen):
+    print("phase 7: the streamed C(t) stage (.xtc -> Horn orientation -> bond vectors -> "
+          "fused group update over kernel A) on the card", flush=True)
+    import tempfile
+
+    import numpy as np
+
+    from spinrelax_tpu_torch import _build
+    from spinrelax_tpu_torch.core import geometry
+    from spinrelax_tpu_torch.entry import ct_entry, synthetic_system
+    from spinrelax_tpu_torch.io import native
+    from spinrelax_tpu_torch.io import pdb as pdbio
+    from spinrelax_tpu_torch.ops import orient
+    from spinrelax_tpu_torch.pipeline.stages import (
+        _fit_weights, fused_group_update, init_accumulators, stage_ct_streamed)
+
+    # (a) the file leg, at ubiquitin's size
+    n_res, n_atoms, n_frames, dt, tau = 71, 1231, 20_000, 2.0, 4000.0
+    fpc, groups = int(tau / dt), 4
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ref_fn, xtc_fn, _ = synthetic_system(tmp, n_res=n_res, n_extra=n_atoms - 3 * n_res,
+                                             n_frames=n_frames, dt=dt, seed=7)
+        t_make = time.perf_counter() - t0
+        print(f"  (a) synthetic system: {n_atoms} atoms, {n_res} N-H bonds, {n_frames} frames, "
+              f"dt {dt} ps, {Path(xtc_fn).stat().st_size / 1e6:.1f} MB .xtc, made in "
+              f"{t_make:.1f} s (codec {_build.host_library_path('xtc').name})", flush=True)
+        kw = dict(tau_memory=tau, chunk_groups=groups)
+        stage_ct_streamed([xtc_fn], [ref_fn], str(Path(tmp) / "warm"), **kw)  # warm-up
+        for c in counters:
+            c.launches = 0
+        card, secs = wall_s(torch, lambda: stage_ct_streamed(
+            [xtc_fn], [ref_fn], str(Path(tmp) / "card"), **kw))
+        res["launches"] = [c.launches for c in counters]
+        n_groups = -(-card["n_chunks"] // groups)
+        check(res["launches"][0] == 2 * n_groups,
+              f"the stage launched kernel A {res['launches'][0]} times = 2 x {n_groups} groups "
+              f"({card['n_chunks']} chunks of {fpc} frames, D {fpc // 2})")
+        # the host's share: decode + reduce alone, all cores
+        top, ref_xyz = pdbio.read_structure(ref_fn)
+        idx_h, idx_x, _ = pdbio.bond_indices(top)
+        A = orient.bond_obs_matrix(ref_xyz[0], _fit_weights(top, "occupancy > 0"))
+        t0 = time.perf_counter()
+        n_read = sum(r.shape[0] for r, _, _ in native.iter_xtc_obs(
+            xtc_fn, fpc * groups, idx_h, idx_x, A, threads=0))
+        t_host = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ref = stage_ct_streamed([xtc_fn], [ref_fn], str(Path(tmp) / "cpu"), device="cpu",
+                                dtype=torch.float64, **kw)
+        t_cpu = time.perf_counter() - t0
+        files = [f"card{s}" for s in ("_Ctext.dat", "_Ctint.dat", "_S2.dat", "_avgvec.dat",
+                                      "_vecHistogram.npz")]
+        check(all((Path(tmp) / f).stat().st_size > 0 for f in files),
+              "the stage wrote _Ctext.dat, _Ctint.dat, _S2.dat, _avgvec.dat, _vecHistogram.npz")
+        h_card, h_ref = (torch.from_numpy(np.load(str(Path(tmp) / f"{n}_vecHistogram.npz"),
+                                                  allow_pickle=True)["data"])
+                         for n in ("card", "cpu"))
+    from spinrelax_tpu_torch.io import xvg
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        xvg.print_sxylist(str(Path(tmp) / "w.dat"), card["res_ids"],
+                          tac.lag_times(dt, tau).numpy(),
+                          np.stack([card["Ct"].T, card["dCt"].T], axis=-1))
+        t_write = 2 * (time.perf_counter() - t0)
+    print(f"  writing _Ctext.dat + _Ctint.dat ({2 * n_res * (fpc // 2)} rows through numpy's "
+          f"row formatter) takes {t_write:.3f} s = {t_write / secs:.1%} of the stage wall",
+          flush=True)
+    print(f"  stage wall {secs:.3f} s on the card for {n_read} frames ({n_read / secs:.0f} "
+          f"frames/s); decode + reduce alone {t_host:.3f} s = {t_host / secs:.1%} of it; "
+          f"the same stage on the CPU in float64 {t_cpu:.1f} s", flush=True)
+    for k, tol in (("Ct", 2e-6), ("S2", 1e-5), ("avgvec", 1e-5)):
+        a = torch.from_numpy(card[k]).double()
+        b = torch.from_numpy(ref[k])
+        check(a.shape == b.shape and bool(torch.isfinite(a).all()), f"stage {k} {tuple(a.shape)} finite")
+        err = float((a - b)[..., 0].abs().max()) if k == "S2" else float((a - b).abs().max())
+        check(err <= tol, f"stage {k} max abs vs the CPU float64 stage {err:.3e} <= {tol}")
+    for key in ("ct_ext_s", "ct_int_s"):
+        mean = tac.palmer_pooled_stats(card["acc"][key], card["acc"][key + "2"], card["n_chunks"])[0]
+        rmean = tac.palmer_pooled_stats(ref["acc"][key], ref["acc"][key + "2"], ref["n_chunks"])[0]
+        err = float((mean.double().cpu() - rmean).abs().max())
+        check(err <= 2e-6, f"stage pooled C(t) of {key} max abs err {err:.3e} <= 2e-6")
+    # float32 vectors differ from float64 ones by ~1e-7, so a sample within
+    # that of a bin edge lands in the neighbouring bin: a few in a million.
+    moved = moved_share(h_card, h_ref)
+    check(int(h_card.sum()) == int(h_ref.sum()) == n_res * card["n_chunks"] * fpc
+          and moved <= 1e-3,
+          f"stage histogram: {int(h_card.sum())} samples, {moved:.2e} of them in another bin "
+          f"than in float64 (<= 1e-3; {int((h_card != h_ref).sum())} of {h_card.numel()} "
+          f"counts differ)")
+    res.update(wall=secs, host=t_host, cpu=t_cpu, frames=n_read, write=t_write)
+
+    # (b) the device leg at the forward's width
+    n_bonds, n_grp, F = N_RES, 10, fpc * groups
+    print(f"  (b) device leg: {n_bonds} bonds x {n_grp} groups of {groups} chunks x {fpc} "
+          f"frames, observables made on the card", flush=True)
+    acc = init_accumulators(n_bonds, fpc, torch.float32, "cuda")
+    racc = init_accumulators(n_bonds, fpc, torch.float64, "cuda")
+    w_g = torch.ones(groups, device="cuda")
+    n_vals = fpc - torch.arange(1, fpc // 2 + 1, device="cuda", dtype=torch.float64)
+    cuda_acf.acf_lag_sums.launches = 0
+    step_ms = []
+
+    def group_step(raw, S, acc):
+        bv = orient.bond_vectors_from_obs(raw, S)
+        return fused_group_update(bv.raw.reshape(groups, fpc, n_bonds, 3),
+                                  bv.fitted.reshape(groups, fpc, n_bonds, 3), w_g, None, acc)[0]
+
+    for g in range(n_grp):
+        raw, S = stage_observables(torch, gen, F, n_bonds)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        acc = group_step(raw, S, acc)
+        ev[1].record()
+        # the float64 plain route: the same observables, torch.fft lag sums
+        bv = orient.bond_vectors_from_obs(raw.double(), S.double())
+        for key, vv in (("ext", bv.raw), ("int", bv.fitted)):
+            v = vv.reshape(groups, fpc, n_bonds, 3).transpose(1, 2)
+            s = tac.acf_sums_plain(v, fpc // 2).reshape(-1, fpc // 2).T
+            e = (-1.5 + 1.5 * s / n_vals[:, None]).reshape(fpc // 2, groups, n_bonds)
+            racc[f"ct_{key}_s"] += e.sum(1)
+            racc[f"ct_{key}_s2"] += (e**2).sum(1)
+        e2b = tac.s2_block_values(bv.fitted.reshape(groups, fpc, n_bonds, 3)) - 1.0
+        racc["s2_s"] += e2b.sum(0)
+        racc["s2_s2"] += (e2b**2).sum(0)
+        racc["vec_sum"] += bv.fitted.sum(0)
+        racc["hist"] += geometry.lambert_histogram(bv.fitted.transpose(0, 1), 72, 36)[0]
+        del bv, v, s, e
+        ev[1].synchronize()
+        step_ms.append(ev[0].elapsed_time(ev[1]))
+    launches_b = cuda_acf.acf_lag_sums.launches
+    check(launches_b == 2 * n_grp, f"device leg launched kernel A {launches_b} times = 2 x "
+                                   f"{n_grp} groups")
+    count = n_grp * groups
+    for key in ("ct_ext_s", "ct_int_s"):
+        mean, dct = tac.palmer_pooled_stats(acc[key], acc[key + "2"], count)
+        rmean, _ = tac.palmer_pooled_stats(racc[key], racc[key + "2"], count)
+        err = float((mean.double() - rmean).abs().max())
+        check(err <= 2e-6 and bool(torch.isfinite(dct).all()),
+              f"device leg pooled C(t) of {key} max abs err {err:.3e} <= 2e-6")
+    s2 = tac.palmer_pooled_stats(acc["s2_s"], acc["s2_s2"], count)[0]
+    rs2 = tac.palmer_pooled_stats(racc["s2_s"], racc["s2_s2"], count)[0]
+    err = float((s2.double() - rs2).abs().max())
+    check(err <= 1e-5, f"device leg S2 max abs err {err:.3e} <= 1e-5")
+    err = float((acc["vec_sum"].double() - racc["vec_sum"]).abs().max() / (count * fpc))
+    check(err <= 1e-6, f"device leg average vector max abs err {err:.3e} <= 1e-6")
+    moved = moved_share(acc["hist"], racc["hist"])
+    check(moved <= 1e-3, f"device leg histogram: {moved:.2e} of {int(racc['hist'].sum())} "
+                         f"samples in another bin than in float64 (<= 1e-3)")
+    med = sorted(step_ms[1:])[len(step_ms[1:]) // 2]
+    # where a group step's time goes: the copy, eigh, the whole step profiled
+    raw, S = stage_observables(torch, gen, F, n_bonds)
+    raw_h, S_h = raw.cpu().pin_memory(), S.cpu().pin_memory()
+    copy_ms = cuda_ms(torch, lambda: (raw_h.cuda(non_blocking=True), S_h.cuda(non_blocking=True)))
+    K = orient._horn_K(S)
+    eigh_ms = cuda_ms(torch, lambda: torch.linalg.eigh(K))
+    bv_ms = cuda_ms(torch, lambda: orient.bond_vectors_from_obs(raw, S))
+    _, wall = wall_s(torch, lambda: group_step(raw, S, acc))
+    busy, per = device_profile(torch, lambda: group_step(raw, S, acc),
+                               lambda per: saw(per, A=2))
+    kt = kernel_times(per)
+    check(kt.get("A", (0,))[0] == 2, f"profiler saw kernel A {kt.get('A', (0,))[0]} times in one "
+                                     f"group step (2: raw and superposed vectors)")
+    a_ms = kt["A"][0] * kt["A"][1] / 1e3
+    top = sorted(per.items(), key=lambda kv: -kv[1][1])[:6]
+    print(f"  group step (bond_vectors_from_obs + fused update) median {med:.3f} ms over "
+          f"{n_grp - 1} steps = {F * n_bonds / (med * 1e-3):.4e} frames*bonds/s; one step: wall "
+          f"{wall * 1e3:.3f} ms, device busy {busy:.3f} ms, idle share {1 - busy / (wall * 1e3):.1%}; "
+          f"kernel A 2 x {kt['A'][1] / 1e3:.3f} ms = {a_ms / busy:.1%} of busy; eigh on "
+          f"({F}, 4, 4) {eigh_ms:.3f} ms = {eigh_ms / med:.1%} of the step; "
+          f"bond_vectors_from_obs {bv_ms:.3f} ms; host -> card copy of one group's observables "
+          f"({(raw.numel() + S.numel()) * 4 / 1e6:.1f} MB, pinned) {copy_ms:.3f} ms", flush=True)
+    print("  longest device kernels of one step: "
+          + "; ".join(f"{name[:60]} {n} x, {ms:.3f} ms" for name, (n, ms) in top), flush=True)
+    res.update(step_ms=med, eigh_ms=eigh_ms, copy_ms=copy_ms, busy=busy, step_wall=wall * 1e3,
+               a_ms=a_ms, launches_device_leg=launches_b)
+    del acc, racc, raw, S, K
+
+    # (c) file to rates
+    for c in counters:
+        c.launches = 0
+    (out, rates), secs = wall_s(torch, ct_entry)
+    res["launches_entry"] = [c.launches for c in counters]
+    check(all(n > 0 for n in res["launches_entry"]),
+          f"ct_entry launched kernels A/B/C {res['launches_entry']} times")
+    _, cpu = ct_entry(device="cpu")
+    for f in ("R1", "R2", "NOE", "rho"):
+        a = getattr(rates, f)
+        check(bool(torch.isfinite(a).all()) and a.shape == (len(out["res_ids"]),),
+              f"ct_entry {f} finite, ({len(out['res_ids'])},)")
+        med_gap = float(rel_gap(a.cpu(), getattr(cpu, f)).median())
+        check(med_gap < 1e-3, f"ct_entry {f} median relative gap to the CPU run {med_gap:.3e} < 1e-3")
+    print(f"  (c) ct_entry (8 residues, 6000 frames: .xtc -> stage -> finish) {secs:.3f} s",
+          flush=True)
+    res["entry_wall"] = secs
+    return res
+
+
+def phase_acf_stage_shapes(torch, tac, cuda_acf, gen):
+    """Kernel A against acf_sums_plain (torch.fft) at the stage's shapes:
+    1024 bonds in the stage's (chunk, frame, bond, 3) layout."""
+    print("kernel A at the stage's chunk lengths (1024 bonds) vs acf_sums_plain (torch.fft)",
+          flush=True)
+    out = {}
+    for key, F in (("f2000", 2000), ("f10000", 10_000)):
+        D = F // 2
+        v = unit(torch, (1, F, N_RES), gen).transpose(1, 2)  # (1, 1024, F, 3) view
+        s = cuda_acf.acf_lag_sums(v, D)
+        err = c_err(torch, s, tac.acf_sums_plain(v.double(), D).reshape(-1, D).T, F)
+        check(err <= ACF_BOUND, f"A at F {F}, D {D}, B {N_RES}: max C(t) err {err:.3e} <= "
+                                f"{ACF_BOUND}")
+        t = out[key] = {"F": F, "D": D, "err": err}
+        t["bound"], t["by"] = acf_bound(N_RES, F, D)
+        t["ms"], t["plain"] = paired_ms(torch, lambda: cuda_acf.acf_lag_sums(v, D),
+                                        lambda: tac.acf_sums_plain(v, D), reps=3)
+        print(f"  time A at ({N_RES} bonds, F {F}, D {D}): kernel {t['ms']:.4f} ms, plain f32 "
+              f"FFT {t['plain']:.4f} ms (kernel / FFT {t['ms'] / t['plain']:.2f}), bound "
+              f"{t['bound']:.4f} ms ({t['by']}), {t['bound'] / t['ms']:.1%} of bound", flush=True)
+        del v, s
+    return out
 
 
 def main() -> int:
@@ -723,6 +1017,9 @@ def main() -> int:
     del vecs
     ladder = phase_ladder(torch, counters, engine, hetero_cohort, fit_ct_ladder)
     finish = phase_finish(torch, counters, engine, run_finish, Diffusion, paf_ensemble, acc, count)
+    del acc
+    a_stage = phase_acf_stage_shapes(torch, tac, cuda_acf, gen)
+    stage = phase_stage(torch, tac, cuda_acf, counters, gen)
 
     print(f"chip_smoke phases took {time.perf_counter() - t_start:.1f} s, build included",
           flush=True)
@@ -742,7 +1039,12 @@ def main() -> int:
           f"{ladder['wall']:.3f} s, device busy {ladder['busy']:.2f} ms (eager loop "
           f"{ladder['wall_eager']:.3f} s / {ladder['busy_eager']:.2f} ms); finish "
           f"{finish['wall']:.3f} s, device busy {finish['busy']:.2f} ms (eager loop "
-          f"{finish['wall_eager']:.3f} s / {finish['busy_eager']:.2f} ms)", flush=True)
+          f"{finish['wall_eager']:.3f} s / {finish['busy_eager']:.2f} ms); A at the stage's "
+          f"shapes F 2000 {a_stage['f2000']['ms']:.4f} ms (FFT {a_stage['f2000']['plain']:.4f}), "
+          f"F 10000 {a_stage['f10000']['ms']:.4f} ms (FFT {a_stage['f10000']['plain']:.4f}); "
+          f"stage on {stage['frames']} frames {stage['wall']:.3f} s (decode + reduce "
+          f"{stage['host']:.3f} s); stage group step {stage['step_ms']:.3f} ms, eigh "
+          f"{stage['eigh_ms']:.3f} ms; ct_entry {stage['entry_wall']:.3f} s", flush=True)
     if failures:
         print(f"chip_smoke FAILED ({len(failures)}):", *failures, sep="\n  ",
               file=sys.stderr)
@@ -757,7 +1059,11 @@ def main() -> int:
              bound_by=a_times["by"], library_ms=None, launches_ladder=ladder["launches"][0],
              launches_finish=finish["launches"][0], slab_plan_ms=a_times["long"],
              slab_plan_plain_ms=a_times["long_plain"], slab_plan_bound_ms=a_times["long_bound"],
-             slab_plan_bound_by=a_times["long_by"]),
+             slab_plan_bound_by=a_times["long_by"],
+             launches_stage=stage["launches"][0], launches_ct_entry=stage["launches_entry"][0],
+             **{f"stage_{k}_{f}": t[x] for k, t in a_stage.items()
+                for f, x in (("ms", "ms"), ("plain_ms", "plain"), ("bound_ms", "bound"),
+                             ("bound_by", "by"), ("max_abs_err", "err"))}),
         dict(name="lm_hgc", route="cuda", source=src + "lm_hgc.cu",
              replaces="spinrelax_tpu/ops/pallas_lm.py:127", launches=launches[1],
              launches_per_forward=launches[1], max_abs_err=b_err,
@@ -765,6 +1071,7 @@ def main() -> int:
              ms=fwd_t["B"], plain_ms=fwd_t["B_plain"], bound_ms=fwd_t["B_bound"],
              bound_by=fwd_t["B_by"], library_ms=None, launches_ladder=ladder["launches"][1],
              launches_finish=finish["launches"][1],
+             launches_ct_entry=stage["launches_entry"][1],
              **{f"{k}_{f}": t[x] for k, t in (("k5", k5), ("k8", k8))
                 for f, x in (("ms", "B"), ("plain_ms", "B_plain"), ("bound_ms", "B_bound"))}),
         dict(name="lm_cost", route="cuda", source=src + "lm_hgc.cu",
@@ -773,6 +1080,7 @@ def main() -> int:
              ms=fwd_t["C"], plain_ms=fwd_t["C_plain"], bound_ms=fwd_t["C_bound"],
              bound_by=fwd_t["C_by"], library_ms=None, launches_ladder=ladder["launches"][2],
              launches_finish=finish["launches"][2],
+             launches_ct_entry=stage["launches_entry"][2],
              **{f"{k}_{f}": t[x] for k, t in (("k5", k5), ("k8", k8))
                 for f, x in (("ms", "C"), ("plain_ms", "C_plain"), ("bound_ms", "C_bound"))}),
     ]

@@ -1,4 +1,5 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's native code: the CUDA kernels, and the XTC
+codec (``csrc/xtc.cpp``, host C++; :func:`load_host`).
 
 Every ``csrc/*.cu`` source compiles to an object in its own ``nvcc``
 process, all started together, and the objects link into one shared
@@ -14,6 +15,12 @@ source rebuilds and a stale library is never loaded.  The build runs at
 the first kernel launch of a process (or at an explicit :func:`load`),
 never at import.  Every C entry point returns ``cudaGetLastError()``
 after its launch; :func:`check` raises on a non-zero code.
+
+A host source (``csrc/<name>.cpp``) builds on its own with the host C++
+compiler, needs no CUDA toolkit, and lands beside the kernel library as
+``build/lib<name>_<hash>.so``:
+
+    g++ -O3 -pthread -shared -fPIC csrc/<name>.cpp -o build/lib<name>_<hash>.so
 """
 
 from __future__ import annotations
@@ -48,8 +55,11 @@ _SIGNATURES = {
     "lm_cost_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
+HOST_FLAGS = ("-O3", "-pthread", "-shared", "-fPIC")
+
 _lock = threading.Lock()
 _lib = None
+_host_libs: dict = {}
 
 
 def _sources():
@@ -138,3 +148,45 @@ def check(code: int, name: str) -> None:
     """Raise if a C entry point reported a CUDA error."""
     if code != 0:
         raise RuntimeError(f"{name}: CUDA error {code} at launch")
+
+
+def _host_compiler() -> str:
+    for cand in (os.environ.get("CXX"), "g++", "c++", "clang++"):
+        if cand and shutil.which(cand):
+            return cand
+    raise RuntimeError(
+        "no host C++ compiler found (tried $CXX, g++, c++, clang++): "
+        "spinrelax_tpu_torch builds its XTC codec from csrc/xtc.cpp at first use"
+    )
+
+
+def host_library_path(name: str) -> Path:
+    src = CSRC / f"{name}.cpp"
+    h = hashlib.sha256(src.read_bytes())
+    h.update(" ".join(HOST_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+
+
+def load_host(name: str):
+    """The loaded host library of ``csrc/<name>.cpp``, compiled on the first
+    call unless its hashed file exists.  A failed build raises."""
+    with _lock:
+        if name not in _host_libs:
+            out = host_library_path(name)
+            if not out.exists():
+                BUILD_DIR.mkdir(parents=True, exist_ok=True)
+                tmp = BUILD_DIR / f"{out.stem}.{os.getpid()}.so.tmp"
+                cmd = [_host_compiler(), *HOST_FLAGS, str(CSRC / f"{name}.cpp"),
+                       "-o", str(tmp)]
+                try:
+                    res = subprocess.run(cmd, stdout=subprocess.PIPE,
+                                         stderr=subprocess.STDOUT, text=True)
+                    if res.returncode != 0:
+                        raise RuntimeError(
+                            f"host build failed ({res.returncode}):\n{' '.join(cmd)}\n"
+                            f"{res.stdout}")
+                    os.replace(tmp, out)  # atomic, as for the kernel library
+                finally:
+                    tmp.unlink(missing_ok=True)
+            _host_libs[name] = ctypes.CDLL(str(out))
+        return _host_libs[name]

@@ -37,6 +37,10 @@ MU0_HBAR_OVER_4PI_SQ = 1.1121216813552401e-82
 # = = Default X-H effective bond length in nm (spectral_densities.py:164)
 DEFAULT_R_XH_NM = 1.02e-1
 
+# = = Default zeta: QM zero-point-vibration scaling (1.02/1.04)^6
+#     (calculate-relaxations-from-Ct.py:512-515)
+DEFAULT_ZETA = (1.02 / 1.04) ** 6
+
 TIME_FACTORS = {
     "ps": 1.0e-12,
     "ns": 1.0e-9,

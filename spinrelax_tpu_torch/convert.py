@@ -3,7 +3,9 @@
 This system has no weights.  What a run carries is (1) the physical
 constants the forward step closes over, (2) the streamed Palmer
 accumulators, so a stream started with ``spinrelax_tpu`` can continue in
-the port and finish there, and (3) fitted C(t) models and diffusion
+the port and finish there (and the streamed C(t) stage's returned
+dictionary, so either package's finish can start from the other's stage),
+and (3) fitted C(t) models and diffusion
 tensors, so a model fitted in one package can be rated in the other.
 """
 
@@ -56,6 +58,36 @@ def palmer_state_from_numpy(acc_s, acc_s2, count, device="cuda"):
             f"{tuple(s.shape)} and {tuple(s2.shape)}"
         )
     return s, s2, int(count)
+
+
+def palmer_state_from_stage(stage_out: dict, n_chunks: int, device="cuda"):
+    """The dictionary a ``stage_ct_streamed`` returns (either package's:
+    ``Ct`` and ``dCt`` as (nDeltas, nRes) numpy arrays of the pooled Palmer
+    statistics) and its chunk count -> the port's lag-leading shifted
+    accumulators (acc_s, acc_s2, count) for ``parallel.streamed.run_finish``:
+    the inverse of ``palmer_pooled_stats`` (dtype kept).  ``n_chunks`` must
+    be at least 2: one chunk has no dCt to invert.  On the card unless
+    ``device="cpu"``; raises without one."""
+    dev = checked_device(device)
+    if n_chunks < 2:
+        raise ValueError("n_chunks must be >= 2: one chunk's dCt is NaN")
+    ct = torch.tensor(np.asarray(stage_out["Ct"]), device=dev)
+    dct = torch.tensor(np.asarray(stage_out["dCt"]), device=dev)
+    e_mean = ct - 1.0
+    var = (dct * (n_chunks**0.5 - 1.0)) ** 2
+    return e_mean * n_chunks, (var + e_mean**2) * n_chunks, int(n_chunks)
+
+
+def stage_from_palmer_state(acc_s, acc_s2, count, res_ids, delta_t: float) -> dict:
+    """The way back: the port's lag-leading accumulators and chunk count ->
+    the ``Ct``/``dCt``/``res_ids``/``delta_t`` entries of the dictionary the
+    JAX package's ``stage_ct_streamed`` returns (numpy, (nDeltas, nRes)),
+    from which its own finish (``stage_fit_ct``) can start."""
+    from .ops.autocorr import palmer_pooled_stats
+
+    mean, dct = palmer_pooled_stats(acc_s, acc_s2, count)
+    return {"res_ids": list(res_ids), "delta_t": delta_t,
+            "Ct": mean.cpu().numpy(), "dCt": dct.cpu().numpy()}
 
 
 def ctmodel_from_numpy(S2, C, tau, mask, zeta=1.0, s2fast=None, dS2=None, dC=None,

@@ -48,7 +48,9 @@ def _bounds(K: int, s2_free: bool, tau_max, dtype, device):
 
 def _run_eager(step, live, max_iter: int, window: int) -> int:
     """Call ``step`` while ``live`` (a bool scalar tensor the step keeps)
-    is true; the host reads it every iteration.  Returns the steps run."""
+    is true; the host reads it every iteration.  Returns the steps run.
+    (``max_iter`` and ``window`` are :func:`_run_graph`'s: the step itself
+    clears ``live`` at ``max_iter``.)"""
     steps = 0
     while bool(live):
         step()

@@ -1,6 +1,13 @@
 """P2 orientational autocorrelation C(t) with Palmer chunk statistics.
 
-Port of ``spinrelax_tpu/ops/autocorr.py`` (main-path subset).  The lag
+Port of ``spinrelax_tpu/ops/autocorr.py``: the fused, scanned and
+streamed C(t) drivers, the direct lag-loop reference and the S2 order
+parameters.  Not ported: the JAX package's alternative lag-sum backends
+(``_acf_sums_xla``, ``_acf_sums_mxu``, ``ct_palmer_mxu``: matmul forms
+for the TPU's MXU; kernel A takes their place) and the ``lru_cache``s that
+exist only to keep one jit alive (``_dft_constants``,
+``_stream_update_jit``: its update is the plain :func:`stream_update`).
+The lag
 sums s[d] = sum_t (v(t) . v(t+d))^2 behind every C(t) come from
 :func:`acf_sums`, which launches kernel A (``ops.cuda_acf``) for a CUDA
 float32 tensor and runs :func:`acf_sums_plain` -- the FFT form of the
@@ -15,6 +22,7 @@ NaN dCt, as the reference's 0/0 does.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from . import cuda_acf
@@ -197,6 +205,157 @@ def palmer_group_update_pretiled(vt: torch.Tensor, acc_s: torch.Tensor,
     e = -1.5 + 1.5 * s / _n_vals(n_frames, n_deltas, vt)[:, None]
     e = e.reshape(n_deltas, n_group, n_res)
     return acc_s + e.sum(dim=1), acc_s2 + (e**2).sum(dim=1)
+
+
+_MESH = ("mesh= shards a stream over several devices; the port's multi-device "
+         "stream comes with ROADMAP item 15")
+
+
+def stream_update(group: torch.Tensor, acc_s: torch.Tensor, acc_s2: torch.Tensor,
+                  weights=None):
+    """One streamed group step: lag sums (kernel A on the card) + per-chunk
+    statistics + accumulator update.
+
+    group : (g, nFrames, nRes, 3) Palmer chunks; acc_s, acc_s2 : the
+    lag-leading (nDeltas, nRes) shifted accumulators; weights : optional
+    (g,) chunk weights (0.0 for the zero-padded chunks of a partial group).
+    Returns the updated accumulators (new tensors)."""
+    g, n_frames, n_res, _ = group.shape
+    n_deltas = n_frames // 2
+    s = acf_sums(group.transpose(1, 2), n_deltas, lag_major=True)  # (nDeltas, g * nRes)
+    # palmer_pooled_stats convention: accumulate e = per - 1 and e**2.
+    e = -1.5 + 1.5 * s / _n_vals(n_frames, n_deltas, group)[:, None]
+    e = e.reshape(n_deltas, g, n_res)
+    if weights is None:
+        return acc_s + e.sum(dim=1), acc_s2 + (e**2).sum(dim=1)
+    w = weights[None, :, None]
+    return acc_s + torch.sum(w * e, dim=1), acc_s2 + torch.sum(w * e**2, dim=1)
+
+
+def stream_accumulate(chunk_iter, n_frames_per_chunk: int):
+    """Streaming accumulation: chunk groups -> (acc_s, acc_s2, count), the
+    running lag-leading (nDeltas, nRes) sums of the SHIFTED per-chunk Palmer
+    C(t) means (e = per - 1 and e**2; see palmer_pooled_stats) and the
+    chunk count.  Each group is a (g, n_frames_per_chunk, nRes, 3) tensor
+    (g may vary); all on one device."""
+    n_deltas = n_frames_per_chunk // 2
+    acc_s = acc_s2 = None
+    n_rep = 0
+    for group in chunk_iter:
+        if group.shape[1] != n_frames_per_chunk:
+            raise ValueError(
+                f"chunk group has {group.shape[1]} frames, expected {n_frames_per_chunk}"
+            )
+        if acc_s is None:
+            acc_s = torch.zeros((n_deltas, group.shape[2]), dtype=group.dtype,
+                                device=group.device)
+            acc_s2 = torch.zeros_like(acc_s)
+        acc_s, acc_s2 = stream_update(group, acc_s, acc_s2)
+        n_rep += group.shape[0]
+    if acc_s is None:
+        raise ValueError("empty chunk iterator")
+    return acc_s, acc_s2, n_rep
+
+
+def ct_palmer_streamed(chunk_iter, n_frames_per_chunk: int, mesh=None):
+    """Streaming C(t): consume an iterator of Palmer-chunk groups without
+    ever holding the full trajectory.
+
+    chunk_iter yields (g, n_frames_per_chunk, nRes, 3) tensors (g may
+    vary); per-chunk lag means accumulate into running sum / sum of
+    squares, so the result equals :func:`ct_palmer` over the concatenated
+    chunks.  Returns Ct, dCt : (nDeltas, nRes)."""
+    if mesh is not None:
+        raise NotImplementedError(_MESH)
+    acc_s, acc_s2, n_rep = stream_accumulate(chunk_iter, n_frames_per_chunk)
+    return palmer_pooled_stats(acc_s, acc_s2, float(n_rep))
+
+
+def ct_palmer_scan(vecs: torch.Tensor, batch: int = 1, mesh=None):
+    """Replicate-streamed variant of :func:`ct_palmer` for chunk sets too
+    large for one lag-sum launch: ``batch`` replicates a step, accumulating
+    per-lag sum and sum of squares (population std via E[x^2] - E[x]^2).
+
+    vecs : (nReplicates, nFrames, nResidues, 3); nReplicates % batch == 0.
+    """
+    if mesh is not None:
+        raise NotImplementedError(_MESH)
+    n_rep = vecs.shape[0]
+    if n_rep % batch != 0:
+        raise ValueError(f"nReplicates ({n_rep}) must be divisible by batch ({batch})")
+    return ct_palmer_streamed((vecs[off : off + batch] for off in range(0, n_rep, batch)),
+                              vecs.shape[1])
+
+
+def ct_palmer_direct(vecs: torch.Tensor):
+    """O(N^2) lag-loop reference implementation (for parity tests against
+    the FFT path and kernel A; mirrors calculate-Ct-from-traj.py:222-228
+    literally)."""
+    n_rep, n_frames, n_res, _ = vecs.shape
+    n_deltas = n_frames // 2
+    per_rep = torch.stack([
+        (-0.5 + 1.5 * torch.sum(vecs[:, :-d] * vecs[:, d:], dim=-1) ** 2).mean(dim=1)
+        for d in range(1, n_deltas + 1)
+    ])  # (nDeltas, nRep, nRes)
+    Ct = per_rep.mean(dim=1)
+    dCt = per_rep.std(dim=1, correction=0) / (n_rep**0.5 - 1.0)
+    return Ct, dCt
+
+
+def reformat_by_tau(vec_list, delta_t: float, tau_memory: float) -> np.ndarray:
+    """Concatenate per-trajectory (nFrames, nBonds, 3) numpy arrays and
+    reshape into Palmer chunks (nChunks, framesPerChunk, nBonds, 3),
+    dropping remainder frames per source
+    (calculate-Ct-from-traj.py:245-275)."""
+    frames_per_chunk = int(tau_memory / delta_t)
+    used = []
+    for v in vec_list:
+        n = (v.shape[0] // frames_per_chunk) * frames_per_chunk
+        used.append(np.asarray(v[:n]))
+    out = np.concatenate(used, axis=0)
+    n_chunks = out.shape[0] // frames_per_chunk
+    return out.reshape(n_chunks, frames_per_chunk, out.shape[-2], out.shape[-1])
+
+
+# ---------------------------------------------------------------------------
+# S^2 order parameters (calculate-Ct-from-traj.py:96-145)
+# ---------------------------------------------------------------------------
+
+def s2_outer(vecs: torch.Tensor):
+    """S2 = 1.5 * sum_ab <v_a v_b>^2 - 0.5 with no block averaging.
+
+    vecs : (nFrames, nResidues, 3) or (nFrames, 3).
+    Returns (nResidues,) or scalar.
+    """
+    if vecs.ndim == 2:
+        outer = torch.einsum("ij,ik->jk", vecs, vecs) / vecs.shape[0]
+        return 1.5 * torch.sum(outer**2) - 0.5
+    outer = torch.einsum("ijk,ijl->jkl", vecs, vecs) / vecs.shape[0]
+    return 1.5 * torch.sum(outer**2, dim=(-2, -1)) - 0.5
+
+
+def s2_block_values(blocks: torch.Tensor):
+    """Per-block S2 of (nBlocks, nPerBlock, nRes, 3) vectors -> (nBlocks, nRes)."""
+    outer = torch.einsum("ijkl,ijkm->iklm", blocks, blocks) / blocks.shape[1]
+    return 1.5 * torch.sum(outer**2, dim=(-2, -1)) - 0.5
+
+
+def s2_outer_blocked(vecs: torch.Tensor, delta_t: float, tau_memory: float):
+    """Block-averaged S2 with SEM using the reference's sqrt(n)-1
+    denominator (calculate-Ct-from-traj.py:116-142).
+
+    vecs : (nFrames, nResidues, 3).
+    Returns (nResidues, 2) stacked [S2, dS2].
+    """
+    n_per_block = int(tau_memory / delta_t)
+    n_blocks = vecs.shape[0] // n_per_block
+    v = vecs[: n_blocks * n_per_block].reshape(
+        n_blocks, n_per_block, vecs.shape[-2], vecs.shape[-1]
+    )
+    s2 = s2_block_values(v)
+    S2 = s2.mean(dim=0)
+    dS2 = s2.std(dim=0, correction=0) / (n_blocks**0.5 - 1.0)
+    return torch.stack([S2, dS2], dim=-1)
 
 
 def lag_times(delta_t: float, tau_memory: float) -> torch.Tensor:

@@ -389,3 +389,64 @@ def test_graph_loop_profiled_launches_equal_steps(gen):
     n = sum("lm_kernel" in e.name for e in prof.events()
             if e.device_type == DeviceType.CUDA)
     assert n == 2 * info["steps"]
+
+
+def test_stage_ct_streamed_on_card_matches_cpu(gen, tmp_path):
+    """stage_ct_streamed on the card (kernel A twice a group) against the
+    same stage on the CPU in float64: C(t) 2e-6, S2 and the average vector
+    1e-5, at most 1e-3 of the histogram's samples in another bin; with a
+    partial last group and q_rot."""
+    from spinrelax_tpu_torch.entry import synthetic_system
+    from spinrelax_tpu_torch.pipeline.stages import stage_ct_streamed
+
+    ref_fn, xtc_fn, _ = synthetic_system(tmp_path, n_res=9, n_frames=3700, dt=2.0, seed=3)
+    kw = dict(tau_memory=1000.0, chunk_groups=3, q_rot=np.array([0.5, -0.5, 0.5, 0.5]))
+    before = cuda_acf.acf_lag_sums.launches
+    a = stage_ct_streamed([xtc_fn], [ref_fn], str(tmp_path / "card"), **kw)
+    assert a["n_chunks"] == 7 and a["acc"]["ct_int_s"].is_cuda
+    assert cuda_acf.acf_lag_sums.launches - before == 2 * 3  # groups of 3, 3, 1
+    b = stage_ct_streamed([xtc_fn], [ref_fn], str(tmp_path / "cpu"), device="cpu",
+                          dtype=torch.float64, **kw)
+    np.testing.assert_allclose(a["Ct"], b["Ct"], atol=2e-6)
+    np.testing.assert_allclose(a["S2"][:, 0], b["S2"][:, 0], atol=1e-5)
+    np.testing.assert_allclose(a["avgvec"], b["avgvec"], atol=1e-5)
+    ha, hb = (np.load(str(tmp_path / f"{n}_vecHistogram.npz"), allow_pickle=True)["data"]
+              for n in ("card", "cpu"))
+    assert ha.sum() == hb.sum() == 9 * 7 * 500
+    assert np.abs(ha - hb).sum() / 2 <= 1e-3 * hb.sum()
+
+
+def test_ct_entry_on_card(gen):
+    """entry.ct_entry(): file to rates on the card; kernels A, B and C all
+    launch, the rates are finite and within 1e-3 (median) of the CPU run."""
+    from spinrelax_tpu_torch.entry import ct_entry
+
+    counters = (cuda_acf.acf_lag_sums, cuda_lm.hgc_cuda, cuda_lm.cost_cuda)
+    before = [c.launches for c in counters]
+    out, rates = ct_entry()
+    assert all(c.launches > n for c, n in zip(counters, before))
+    _, cpu = ct_entry(device="cpu")
+    for f in ("R1", "R2", "NOE", "rho"):
+        x, y = getattr(rates, f).cpu(), getattr(cpu, f)
+        assert torch.isfinite(x).all()
+        assert float(((x - y).abs() / y.abs()).median()) < 1e-3, f
+
+
+def test_orient_on_card_matches_cpu_f64(gen):
+    """bond_vectors_from_obs on the card in float32 against the CPU in
+    float64 on the same observables: vectors to 1e-5 (eigh of Horn's
+    matrix by two solvers)."""
+    from spinrelax_tpu_torch.ops import orient
+
+    rng = np.random.default_rng(2)
+    q = rng.normal(size=(500, 4))
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    from spinrelax_tpu_torch.core import quaternion as qt
+
+    R = qt.quat_to_mat(torch.from_numpy(q))
+    S = (torch.diag(torch.tensor([1.0, 0.6, 0.3], dtype=torch.float64)) @ R.transpose(1, 2))
+    raw = torch.from_numpy(rng.normal(size=(500, 12, 3)))
+    a = orient.bond_vectors_from_obs(raw.float().cuda(), S.float().cuda())
+    b = orient.bond_vectors_from_obs(raw, S)
+    np.testing.assert_allclose(a.raw.cpu().numpy(), b.raw.numpy(), atol=1e-6)
+    np.testing.assert_allclose(a.fitted.cpu().numpy(), b.fitted.numpy(), atol=1e-5)

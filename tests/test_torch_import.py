@@ -23,6 +23,11 @@ MODULES = [
     "spinrelax_tpu_torch.models.diffusion", "spinrelax_tpu_torch.ops.observables",
     "spinrelax_tpu_torch.fit.walk", "spinrelax_tpu_torch.fit.expfit",
     "spinrelax_tpu_torch.parallel.streamed",
+    "spinrelax_tpu_torch.core.quaternion", "spinrelax_tpu_torch.core.geometry",
+    "spinrelax_tpu_torch.ops.orient", "spinrelax_tpu_torch.io.native",
+    "spinrelax_tpu_torch.io.zopen", "spinrelax_tpu_torch.io.pdb",
+    "spinrelax_tpu_torch.io.xvg", "spinrelax_tpu_torch.io.vectors",
+    "spinrelax_tpu_torch.io.trajectory", "spinrelax_tpu_torch.pipeline.stages",
 ]
 
 
@@ -37,7 +42,8 @@ def test_every_module_is_listed():
                 found.add(name)
     assert found - {"spinrelax_tpu_torch.ops", "spinrelax_tpu_torch.fit",
                     "spinrelax_tpu_torch.parallel", "spinrelax_tpu_torch.core",
-                    "spinrelax_tpu_torch.models"} == set(MODULES)
+                    "spinrelax_tpu_torch.models", "spinrelax_tpu_torch.io",
+                    "spinrelax_tpu_torch.pipeline"} == set(MODULES)
 
 
 def test_import_leaves_out_jax_and_toolchain():
