@@ -1,5 +1,6 @@
-"""Build and load the port's native code: the CUDA kernels, and the XTC
-codec (``csrc/xtc.cpp``, host C++; :func:`load_host`).
+"""Build and load the port's native code: the CUDA kernels, and the host
+C++ libraries, the XTC codec (``csrc/xtc.cpp``) and the text reader and
+writers (``csrc/fastio.cpp``; :func:`load_host`).
 
 Every ``csrc/*.cu`` source compiles to an object in its own ``nvcc``
 process, all started together, and the objects link into one shared
@@ -156,7 +157,8 @@ def _host_compiler() -> str:
             return cand
     raise RuntimeError(
         "no host C++ compiler found (tried $CXX, g++, c++, clang++): "
-        "spinrelax_tpu_torch builds its XTC codec from csrc/xtc.cpp at first use"
+        "spinrelax_tpu_torch builds its host libraries (the XTC codec, the text "
+        "reader and writers) from csrc/*.cpp at first use"
     )
 
 

@@ -1,10 +1,12 @@
-"""ctypes bindings to the port's native XTC codec (``csrc/xtc.cpp``; the XTC
-half of ``spinrelax_tpu/io/native.py``).
+"""ctypes bindings to the port's native host libraries: the text reader and
+writers (``csrc/fastio.cpp``; the fastio half of
+``spinrelax_tpu/io/native.py``) and the XTC codec (``csrc/xtc.cpp``; its
+XTC half).
 
-The codec is compiled with the host C++ compiler at first use into
+Each library is compiled with the host C++ compiler at first use into
 ``spinrelax_tpu_torch/build/`` (``_build.load_host``), keyed on the
-source's hash.  A build that fails raises: no numpy route stands in for
-the codec.
+source's hash.  A build or load that fails raises: no numpy route stands
+in for either library.
 """
 
 from __future__ import annotations
@@ -15,36 +17,151 @@ import os
 import numpy as np
 
 from .. import _build
+from .zopen import is_gz
 
 _F = ctypes.POINTER(ctypes.c_float)
 _D = ctypes.POINTER(ctypes.c_double)
 _LP = ctypes.POINTER(ctypes.c_long)
 _IP = ctypes.POINTER(ctypes.c_int)
 _V, _S, _L, _I = ctypes.c_void_p, ctypes.c_char_p, ctypes.c_long, ctypes.c_int
-# (argtypes, restype) of the codec's C entry points
+_LL = ctypes.c_longlong
+# (argtypes, restype) of each library's C entry points
 _SIGNATURES = {
-    "xtc_info": ((_S, _LP, _IP), _I),
-    "xtc_write": ((_S, _F, _F, _F, _L, _I, ctypes.c_float), _I),
-    "xtc_append": ((_S, _F, _F, _F, _L, _I, ctypes.c_float, _L), _I),
-    "xtc_open": ((_S, _IP), _V),
-    "xtc_next_mt": ((_V, _F, _F, _F, _L, _I), _L),
-    "xtc_close": ((_V,), None),
-    "xtc_next_obs": ((_V, _LP, _LP, _L, _D, _F, _D, _F, _L, _I), _L),
-    "xtc_reduce_obs": ((_F, _L, _I, _LP, _LP, _L, _D, _F, _D, _I), None),
+    "fastio": {
+        "fastio_table_dims": ((_S, _S, _LP, _LP), _I),
+        "fastio_parse_table": ((_S, _S, _D, _L, _L), _L),
+        "fastio_count_fields_headers": ((_S, _LP), _I),
+        "fastio_write_table": ((_S, _I, _D, _L, _L), _I),
+        "fastio_format_sxy": ((_D, _V, _I, _LL, _I, _S, _LL), _LL),
+    },
+    "xtc": {
+        "xtc_info": ((_S, _LP, _IP), _I),
+        "xtc_write": ((_S, _F, _F, _F, _L, _I, ctypes.c_float), _I),
+        "xtc_append": ((_S, _F, _F, _F, _L, _I, ctypes.c_float, _L), _I),
+        "xtc_open": ((_S, _IP), _V),
+        "xtc_next_mt": ((_V, _F, _F, _F, _L, _I), _L),
+        "xtc_close": ((_V,), None),
+        "xtc_next_obs": ((_V, _LP, _LP, _L, _D, _F, _D, _F, _L, _I), _L),
+        "xtc_reduce_obs": ((_F, _L, _I, _LP, _LP, _L, _D, _F, _D, _I), None),
+    },
 }
 _READ_ERRORS = {-3: "frame natoms mismatch", -4: "corrupt/truncated frame mid-file"}
-_typed = False
+_typed: set = set()
+
+
+def _load(name: str):
+    """The host library ``csrc/<name>.cpp``, built on first use, its entry
+    points typed."""
+    lib = _build.load_host(name)
+    if name not in _typed:
+        for fn_name, (argtypes, restype) in _SIGNATURES[name].items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes, fn.restype = list(argtypes), restype
+        _typed.add(name)
+    return lib
 
 
 def _load_xtc():
-    global _typed
-    lib = _build.load_host("xtc")
-    if not _typed:
-        for name, (argtypes, restype) in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes, fn.restype = list(argtypes), restype
-        _typed = True
-    return lib
+    return _load("xtc")
+
+
+# ---------------------------------------------------------------------------
+# Text tables (csrc/fastio.cpp)
+# ---------------------------------------------------------------------------
+
+
+def available() -> bool:
+    """True once the text library is built and loaded; a build that fails
+    raises (kept so callers written for the JAX module read the same)."""
+    _load("fastio")
+    return True
+
+
+def _plain_path(fn: str, what: str) -> bytes:
+    if is_gz(str(fn)):
+        raise ValueError(f"{what}: {fn!r} is gzip-compressed; the native library "
+                         "reads and writes plain files only")
+    return str(fn).encode()
+
+
+def load_table(fn: str, skip_chars: str = "#@&") -> np.ndarray:
+    """Parse a numeric text table -> (nRows, nCols) float64.  Lines whose
+    first non-blank character is in ``skip_chars`` are skipped; a row wider
+    than the first raises.  Plain files only (a .gz path raises: the
+    readers of ``io.colvar`` take numpy's route for those)."""
+    lib = _load("fastio")
+    path = _plain_path(fn, "load_table")
+    rows, cols = ctypes.c_long(), ctypes.c_long()
+    rc = lib.fastio_table_dims(path, skip_chars.encode(), ctypes.byref(rows),
+                               ctypes.byref(cols))
+    if rc != 0:
+        raise OSError(f"fastio_table_dims failed on {fn!r} (code {rc})")
+    out = np.empty((rows.value, cols.value), dtype=np.float64)
+    n = lib.fastio_parse_table(path, skip_chars.encode(), _ptr(out, _D),
+                               rows.value, cols.value)
+    if n < 0:
+        raise OSError(f"fastio_parse_table failed on {fn!r} (code {n})")
+    if n != rows.value * cols.value:
+        raise OSError(f"fastio_parse_table short read on {fn!r}")
+    return out
+
+
+def format_sxy(x, y) -> bytes:
+    """Render ``n`` lines ``str(np.float64(x[i])) + " " + str(y[i]).strip('[]')``
+    -- the exact per-row bytes of ``io.xvg.print_sxylist``'s row formatter
+    under numpy's default printoptions -- in one native call.
+
+    x must be float64 (its str is Python's float repr); y a (n, k) float32
+    or float64 block with k <= 3: wider rows can pass numpy's 75-character
+    line width, which wraps str(row), and the renderer does not wrap.
+    Other input raises ValueError."""
+    lib = _load("fastio")
+    x = np.ascontiguousarray(x)
+    y = np.asarray(y)
+    if (x.dtype != np.float64 or y.ndim != 2 or y.dtype not in (np.float32, np.float64)
+            or y.shape[1] > 3 or y.shape[0] != x.shape[0]):
+        raise ValueError(f"format_sxy renders float64 x (n,) beside float32/float64 y "
+                         f"(n, <= 3); got x {x.dtype} {x.shape}, y {y.dtype} {y.shape}")
+    y = np.ascontiguousarray(y)
+    n, k = y.shape
+    cap = 64 + n * (40 + 40 * k)
+    out = ctypes.create_string_buffer(cap)
+    nb = lib.fastio_format_sxy(_ptr(x, _D), y.ctypes.data_as(_V),
+                               1 if y.dtype == np.float32 else 0, n, k, out, cap)
+    if nb < 0:
+        raise RuntimeError(f"fastio_format_sxy failed (code {nb})")
+    return out.raw[:nb]
+
+
+def write_table(fn: str, data, append: bool = False) -> None:
+    """Bulk-write a 2D array as "%16g"-joined rows (the PLUMED colvar row
+    format), or append them.  Plain files only (a .gz path raises)."""
+    lib = _load("fastio")
+    path = _plain_path(fn, "write_table")
+    arr = np.ascontiguousarray(data, dtype=np.float64)
+    if arr.ndim != 2:
+        raise ValueError(f"write_table needs a 2D array, got {arr.shape}")
+    rc = lib.fastio_write_table(path, 1 if append else 0, _ptr(arr, _D), arr.shape[0],
+                                arr.shape[1])
+    if rc != 0:
+        raise OSError(f"fastio_write_table failed on {fn!r}")
+
+
+def count_fields_headers(fn: str) -> int:
+    """Number of ``#! FIELDS`` headers of a PLUMED colvar (its replica
+    blocks)."""
+    lib = _load("fastio")
+    n = ctypes.c_long()
+    rc = lib.fastio_count_fields_headers(_plain_path(fn, "count_fields_headers"),
+                                         ctypes.byref(n))
+    if rc != 0:
+        raise OSError(f"fastio_count_fields_headers failed on {fn!r}")
+    return n.value
+
+
+# ---------------------------------------------------------------------------
+# The XTC codec (csrc/xtc.cpp)
+# ---------------------------------------------------------------------------
 
 
 def _ptr(a, kind):

@@ -147,21 +147,51 @@ def print_xylist(fn: str, x, ylist, cols: bool = False, header: str = ""):
                     print("&", file=fp)
 
 
+def _default_printoptions() -> bool:
+    """The native renderer copies numpy's DEFAULT printoptions; under any
+    user override (set_printoptions) the rows go through numpy's own
+    formatter (the JAX package's rule, ``spinrelax_tpu/io/xvg.py:150``)."""
+    po = np.get_printoptions()
+    return (
+        po["precision"] == 8 and not po["suppress"] and po["sign"] == "-"
+        and po["floatmode"] == "maxprec" and po["nanstr"] == "nan"
+        and po["infstr"] == "inf" and po.get("legacy") in (False, None)
+        and po["linewidth"] >= 75 and po.get("formatter") is None
+        # rows are <= 3 elements; threshold <= 3 would summarize them
+        and po["threshold"] > 3
+    )
+
+
+def _native_rows(x, ylist) -> bool:
+    """Whether ``native.format_sxy`` renders these rows: default
+    printoptions, float64 x, float32/float64 rows of at most 3 values."""
+    return (ylist.ndim == 3 and ylist.shape[-1] <= 3
+            and ylist.dtype in (np.float32, np.float64)
+            and np.asarray(x).dtype == np.float64 and _default_printoptions())
+
+
 def print_sxylist(fn: str, legend, x, ylist, header: Sequence[str] = ()):
     """Legend-keyed multi-set output (general_scripts.py:275-290).
     ylist may be (nSets, nPts) or (nSets, nPts, nCols).
 
     The ndim == 3 rows are numpy's aligned ``str(ndarray)`` rendering (the
-    reference prints str(row).strip('[]')), one row at a time: the JAX
-    package's native renderer of the same bytes comes with ROADMAP item
-    14."""
+    reference prints str(row).strip('[]')).  ``native.format_sxy`` renders
+    the same bytes in C, one set per call; numpy's row formatter takes what
+    the renderer does not render (see :func:`_native_rows`)."""
     ylist = np.asarray(ylist)
+    native_rows = _native_rows(x, ylist)
+    if native_rows:
+        from . import native
+
+        xarr = np.ascontiguousarray(x, dtype=np.float64)
     with topen(fn, "w") as fp:
         for line in header:
             print(line, file=fp)
         for i in range(ylist.shape[0]):
             print('@s%d legend "%s"' % (i, legend[i]), file=fp)
-            if ylist.ndim == 3:
+            if native_rows:
+                fp.write(native.format_sxy(xarr, ylist[i]).decode("ascii"))
+            elif ylist.ndim == 3:
                 for j in range(len(x)):
                     # reference: str(ndarray).strip('[]') -- numpy's
                     # aligned rendering, incl. its padding whitespace
