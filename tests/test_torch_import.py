@@ -28,6 +28,8 @@ MODULES = [
     "spinrelax_tpu_torch.io.zopen", "spinrelax_tpu_torch.io.pdb",
     "spinrelax_tpu_torch.io.xvg", "spinrelax_tpu_torch.io.vectors",
     "spinrelax_tpu_torch.io.trajectory", "spinrelax_tpu_torch.pipeline.stages",
+    "spinrelax_tpu_torch.io.colvar", "spinrelax_tpu_torch.io.fittedct",
+    "spinrelax_tpu_torch.io.dx",
 ]
 
 
