@@ -29,7 +29,7 @@ MODULES = [
     "spinrelax_tpu_torch.io.xvg", "spinrelax_tpu_torch.io.vectors",
     "spinrelax_tpu_torch.io.trajectory", "spinrelax_tpu_torch.pipeline.stages",
     "spinrelax_tpu_torch.io.colvar", "spinrelax_tpu_torch.io.fittedct",
-    "spinrelax_tpu_torch.io.dx",
+    "spinrelax_tpu_torch.io.dx", "spinrelax_tpu_torch.ops.dq",
 ]
 
 
