@@ -1,6 +1,6 @@
 """End-to-end observables: C(t) parameters + diffusion tensor ->
-R1/R2/NOE/rho (port of ``spinrelax_tpu/ops/observables.py:31-84``, the
-legacy averaging).
+R1/R2/NOE/rho, or J(omega) (port of ``spinrelax_tpu/ops/observables.py:31-84``,
+the legacy averaging, and ``:190 predict_jomega``).
 
 Every observable, NOE included, is computed per vector sample and then
 ensemble-averaged (get_relax_from_J_simd, spectral_densities.py:1710-1737).
@@ -70,3 +70,18 @@ def predict_rates(pair: NucleusPair, diffusion: Diffusion, cts: CtModelSet,
     NOE, dNOE = weighted_mean_std(rates.NOE, weights, axis=-1)
     rho, drho = weighted_mean_std(rates.rho, weights, axis=-1)
     return RatesWithErrors(R1, R2, NOE, rho, dR1, dR2, dNOE, drho)
+
+
+def predict_jomega(pair: NucleusPair, diffusion: Diffusion, cts: CtModelSet,
+                   vecs=None, weights=None):
+    """J(omega) with ensemble averaging, mirroring _obtain_Jomega
+    (calculate-relaxations-from-Ct.py:82-122).
+    Returns (J_mean, J_std) with shape (nRes, 5); J_std is None without an
+    ensemble axis."""
+    J = compute_j(pair, diffusion, cts, vecs)
+    if J.ndim == 2:
+        return J, None
+    if weights is not None:
+        weights = torch.as_tensor(weights, dtype=J.dtype, device=J.device)
+    mean, std = weighted_mean_std(J.movedim(-1, 0), weights, axis=-1)
+    return mean.movedim(0, -1), std.movedim(0, -1)
