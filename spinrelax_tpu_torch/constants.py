@@ -75,6 +75,11 @@ def dist_factor(unit: str) -> float:
         raise ValueError(f"invalid distance unit: {unit!r}") from None
 
 
+# Bond-type -> heavy-nucleus isotope label (the reference's NH/CH bond
+# naming, spectral_densities.py:1630-1645).
+BOND_ISOTOPES = {"NH": "15N", "CH": "13C"}
+
+
 def gamma(isotope: str) -> float:
     """Gyromagnetic ratio in rad s^-1 T^-1."""
     try:
