@@ -302,17 +302,17 @@ def ct_palmer_direct(vecs: torch.Tensor):
     return Ct, dCt
 
 
-def reformat_by_tau(vec_list, delta_t: float, tau_memory: float) -> np.ndarray:
-    """Concatenate per-trajectory (nFrames, nBonds, 3) numpy arrays and
-    reshape into Palmer chunks (nChunks, framesPerChunk, nBonds, 3),
-    dropping remainder frames per source
-    (calculate-Ct-from-traj.py:245-275)."""
+def reformat_by_tau(vec_list, delta_t: float, tau_memory: float):
+    """Concatenate per-trajectory (nFrames, nBonds, 3) arrays and reshape
+    into Palmer chunks (nChunks, framesPerChunk, nBonds, 3), dropping
+    remainder frames per source (calculate-Ct-from-traj.py:245-275).
+    Tensors stay tensors (on their device); anything else becomes numpy."""
     frames_per_chunk = int(tau_memory / delta_t)
-    used = []
-    for v in vec_list:
-        n = (v.shape[0] // frames_per_chunk) * frames_per_chunk
-        used.append(np.asarray(v[:n]))
-    out = np.concatenate(used, axis=0)
+    used = [v[: (v.shape[0] // frames_per_chunk) * frames_per_chunk] for v in vec_list]
+    if torch.is_tensor(used[0]):
+        out = torch.cat(used)
+    else:
+        out = np.concatenate([np.asarray(v) for v in used], axis=0)
     n_chunks = out.shape[0] // frames_per_chunk
     return out.reshape(n_chunks, frames_per_chunk, out.shape[-2], out.shape[-1])
 

@@ -1,27 +1,42 @@
-"""Workflow stages of the port: the streamed C(t) stage (port of
-``spinrelax_tpu/pipeline/stages.py:1188 stage_ct_streamed`` and its fused
-per-group update, ``:1105 _streamed_update_program``).
+"""Workflow stages: functions with file artefacts at the boundaries (port
+of ``spinrelax_tpu/pipeline/stages.py``).
 
-The in-memory ``stage_ct`` and the other stages come with ROADMAP item 14.
+Each stage mirrors one reference CLI script and runs its compute on a
+torch device, the card unless the caller asks for the CPU; the artefact
+formats are byte-compatible with the JAX package's and the reference's, so
+a stage of either package reads the other's files.  Ported: the
+orientation colvar, Delta-q -> D tensor, the in-memory and the streamed
+C(t) stages, the C(t) fit and the relaxation predictions.  The multi-field
+fit (``stage_multifield``) waits for ROADMAP item 12.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+import os
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from .. import checked_device
-from ..constants import DEFAULT_ZETA
+from ..constants import BOND_ISOTOPES, DEFAULT_ZETA, NucleusPair, field_from_mhz
 from ..core import geometry
 from ..core import quaternion as qt
+from ..core.stats import simple_total_mean_square
+from ..fit.expfit import fit_ct_ladder
+from ..io import colvar as colvario
+from ..io import dx as dxio
+from ..io import fittedct as fctio
 from ..io import native as natio
 from ..io import pdb as pdbio
 from ..io import trajectory as trajio
 from ..io import vectors as vecio
 from ..io import xvg
-from ..ops import autocorr, orient
+from ..io.zopen import is_gz, topen
+from ..models.ctmodel import CtModelSet
+from ..models.diffusion import Diffusion
+from ..ops import autocorr, observables, orient
+from ..ops import dq as dqops
 
 
 def _fit_weights(top, fit_sel: str) -> np.ndarray:
@@ -38,6 +53,720 @@ def _fit_weights(top, fit_sel: str) -> np.ndarray:
     w = np.zeros(top.n_atoms)
     w[fit_idx] = 1.0
     return w
+
+
+# ---------------------------------------------------------------------------
+# Stage 1: orientation quaternions (replaces GROMACS+PLUMED external step)
+# ---------------------------------------------------------------------------
+
+
+def stage_orientation(
+    traj_files: Sequence[str],
+    ref_pdb: str,
+    out_colvar: str,
+    fit_sel: str = "occupancy > 0",
+    force: bool = False,
+    timestep: Optional[float] = None,
+    device="cuda",
+) -> str:
+    """Compute q(t) of each trajectory vs the reference structure and write
+    a PLUMED-format colvar (concatenated for multiple trajectories, as
+    run-all.bash:366 does with `cat`).
+
+    The frames go to ``device`` (the card unless ``device="cpu"``) and the
+    Horn fit runs in float64, as the JAX stage's does; the rows are written
+    in one native call (``io.native.write_table``, "%16g"), or by numpy for
+    a .gz colvar.
+
+    ``timestep`` overrides the frame spacing -- REQUIRED for formats with
+    no time axis (.pdb/bare .npy): the colvar's time column is what the dq
+    stage later reads delta_t from."""
+    if os.path.exists(out_colvar) and not force:
+        return out_colvar
+    dev = checked_device(device)
+    top, ref_xyz = pdbio.read_structure(ref_pdb)
+    weights = torch.as_tensor(_fit_weights(top, fit_sel), device=dev)
+    ref = torch.as_tensor(ref_xyz[0], dtype=torch.float64, device=dev)
+    mode = "w"
+    for fn in traj_files:
+        if timestep is None and trajio.is_timeless(fn):
+            raise ValueError(
+                f"{fn!r}: this format carries no time axis -- pass "
+                "timestep explicitly (the colvar's time column defines "
+                "the dq stage's delta_t)"
+            )
+        xyz, dt = trajio.load_trajectory(fn, top_fn=ref_pdb)
+        if timestep is not None:
+            dt = timestep
+        frames = torch.from_numpy(np.ascontiguousarray(xyz)).to(dev).double()
+        q = orient.orientation_quats(frames, ref, weights).cpu().numpy()
+        del frames
+        t = np.arange(q.shape[0]) * dt
+        data = np.concatenate([t[:, None], q], axis=1)
+        with topen(out_colvar, mode) as fp:
+            print("#! FIELDS time q.w q.x q.y q.z", file=fp)
+        if is_gz(out_colvar):
+            with topen(out_colvar, "a") as fp:
+                np.savetxt(fp, data, fmt="%16g", delimiter=" ")
+        else:
+            natio.write_table(out_colvar, data, append=True)
+        mode = "a"
+    return out_colvar
+
+
+# ---------------------------------------------------------------------------
+# Stage 2: Delta-q -> D tensor (calculate-dq-distribution.py)
+# ---------------------------------------------------------------------------
+
+
+def _format_dq_headers(res: dqops.DqResult) -> Tuple[List[str], List[str]]:
+    """Reproduce the reference's iso/aniso header formats exactly -- the
+    run-all driver greps Diso/Dani_L/Drho_L/Dani_S/Drho_S and the PAF
+    quaternion out of them (run-all.bash:393,412-416;
+    calculate-dq-distribution.py:221-275)."""
+    has_chunks = res.iso_tau_chunks.size > 0
+
+    def flex_bounds(x, samples):
+        mean, sig = np.mean(samples), np.std(samples)
+        return x, sig + x - mean, sig + mean - x
+
+    iso_lines = []
+    if has_chunks:
+        b = flex_bounds(res.iso_tau, res.iso_tau_chunks)
+        iso_lines.append("# model fit, tau = %e +- %e %e [ps]" % b)
+        dvals = 0.5e12 / res.iso_tau_chunks
+        b = flex_bounds(res.D_iso, dvals)
+        iso_lines.append("# Converted D_iso = %e +- %e %e [s^-1]" % b)
+        for i, d in enumerate(dvals):
+            iso_lines.append("# Chunk_%d D_iso = %e [s^-1]" % (i, d))
+    else:
+        iso_lines.append("# model fit, tau = %e [ps]" % res.iso_tau)
+        iso_lines.append("# Converted D_iso = %e [s^-1]" % res.D_iso)
+    iso_lines.append("# t cos(th) P2[cos(th)] cos(th/2) th")
+
+    aniso_lines = []
+    Dval = res.D_axes
+    anis = res.anisotropies
+    if has_chunks:
+        Dch = 0.5e12 / res.aniso_tau_chunks  # (nChunk, 3)
+        for i in range(3):
+            b = flex_bounds(res.aniso_taus[i], res.aniso_tau_chunks[:, i])
+            aniso_lines.append("# model fit, e_%i tau = %e +- %e %e [ps]" % ((i,) + b[:3]))
+            b = flex_bounds(Dval[i], Dch[:, i])
+            aniso_lines.append("# Converted D_%i = %e +- %e %e [s^-1]" % ((i,) + b[:3]))
+        errs = np.std(res.anis_chunk_samples, axis=0)
+        labels = ["Diso", "Dani_L", "Drho_L", "Dani_S", "Drho_S"]
+        fmts = ["# Converted %s = %e +- %e [s^-1]", "# Converted %s = %f +- %f",
+                "# Converted %s = %f +- %f", "# Converted %s = %f +- %f",
+                "# Converted %s = %f +- %f"]
+        for lab, fmt, v, e in zip(labels, fmts, anis, errs):
+            aniso_lines.append(fmt % (lab, float(v), e))
+        for j in range(Dch.shape[0]):
+            for i in range(3):
+                aniso_lines.append("# Chunk_%d D_%d = %e [s^-1]" % (j, i, Dch[j, i]))
+    else:
+        for i in range(3):
+            aniso_lines.append("# model fit, e_%i tau = %e [ps]" % (i, res.aniso_taus[i]))
+            aniso_lines.append("# Converted D_%i = %e [s^-1]" % (i, Dval[i]))
+        aniso_lines.append("# Converted Diso = %e [s^-1]" % anis[0])
+        aniso_lines.append("# Converted Dani_L = %f" % anis[1])
+        aniso_lines.append("# Converted Drho_L = %f" % anis[2])
+        aniso_lines.append("# Converted Dani_S = %f" % anis[3])
+        aniso_lines.append("# Converted Drho_S = %f" % anis[4])
+    aniso_lines.append("# t <1-2x^2> <1-2y^2> <1-2z^2>")
+    aniso_lines.append(
+        "# Quaternion orientation frame: %f %f %f %f" % tuple(res.q_frame)
+    )
+    return iso_lines, aniso_lines
+
+
+def _print_graphs(fn, header, x, groups):
+    """print_model_fits_gen equivalent
+    (calculate-dq-distribution.py:277-328): groups is a list of 2D arrays
+    (nPlots, nPts); one graph per group."""
+    with open(fn, "w") as fp:
+        for line in header:
+            print(line, file=fp)
+        if len(groups) == 1:
+            s = 0
+            for row in groups[0]:
+                print("@target g0.s%d" % s, file=fp)
+                for xi, yi in zip(x, row):
+                    print("%g %g" % (xi, yi), file=fp)
+                print("&", file=fp)
+                s += 1
+        else:
+            for g in range(len(groups)):
+                print("@g%d on" % g, file=fp)
+            for g, grp in enumerate(groups):
+                s = 0
+                for row in grp:
+                    print("@target g%d.s%d" % (g, s), file=fp)
+                    for xi, yi in zip(x, row):
+                        print("%g %g" % (xi, yi), file=fp)
+                    print("&", file=fp)
+                    s += 1
+            print("@arrange(%i, %i, 0.1, 0.1, 0.1)" % (2, int(0.5 * len(groups) + 0.5)), file=fp)
+            for i in range(len(groups)):
+                print("@with g%i" % i, file=fp)
+                if i == 0:
+                    print('@subtitle "Aggregate Data"', file=fp)
+                print("@autoscale", file=fp)
+
+
+def stage_dq(
+    colvar_file: str,
+    out_prefix: str,
+    min_dt: float,
+    max_dt: float,
+    skip_dt: float,
+    n_chunks: int = 0,
+    multi: bool = False,
+    do_hist: bool = False,
+    hist_bins: int = 101,
+    hist_format: str = "dat",  # 'dx' | 'dat' | 'none'
+    do_full_tensor: bool = False,
+    force: bool = False,
+    stream_chunk: int = 0,
+    do_iso: bool = True,
+    do_aniso: bool = True,
+    device="cuda",
+) -> dqops.DqResult:
+    """Global tumbling analysis; writes {pref}-iso.dat, {pref}-aniso2.dat,
+    {pref}-aniso_q.dat, {pref}-moi.xyz; optionally per-lag 3D delta-q
+    histograms ({pref}-hist-<dt>ps.dx/.dat) and the full 3x3 tensor trace
+    ({pref}-tensor.dat).  The statistics run in float64 on ``device`` (the
+    card unless ``device="cpu"``).
+
+    stream_chunk > 0 enables the constant-memory streaming path: the
+    colvar is read and analysed in blocks of that many frames.  Chunked
+    uncertainties (n_chunks), per-lag histograms, the full-tensor trace
+    and multi-replica aggregates all work in this mode (single-colvar
+    uncertainties add one frame-counting pre-pass).
+
+    Resume lives in the orchestrator (runall's content-hash manifest) --
+    this stage always computes; ``force`` is accepted for signature
+    symmetry with the other stages.
+    """
+    dev = checked_device(device)
+
+    def _load_q(fn):
+        """(delta_t, q (N,4)) from a PLUMED colvar or a GROMACS
+        ``gmx rotmat`` .xvg (rotation matrices -> INVERSE quaternions,
+        calculate-dq-distribution.py:389-407,490-495)."""
+        if fn.endswith((".xvg", ".xvg.gz")):
+            t, ys = xvg.load_xys(fn)
+            R = torch.as_tensor(np.asarray(ys, dtype=np.float64).reshape(len(t), 3, 3))
+            return float(t[1] - t[0]), qt.qconj(qt.mat_to_quat(R)).numpy()
+        fields, data = colvario.read_colvar(fn)
+        return float(data[0, 1] - data[0, 0]), data[1:5].T.astype(np.float64)
+
+    if stream_chunk > 0 and multi:
+        # Constant-memory multi-replica path: replica boundaries are the
+        # FIELDS headers, exactly like read_colvar_multi; per-replica
+        # streamed sums pool like analyse_dq_multi.
+        if colvar_file.endswith((".xvg", ".xvg.gz")):
+            raise ValueError(
+                "--multi reads aggregate PLUMED colvars; gmx-rotmat .xvg "
+                "files are single-trajectory (no replica headers)"
+            )
+        if stream_chunk < 2:
+            raise ValueError("--stream chunk size must be >= 2")
+        it = colvario.iter_colvar_chunks_multi(colvar_file, stream_chunk)
+        try:
+            rep0, _fields0, first = next(it)
+        except StopIteration:
+            raise ValueError(f"{colvar_file!r}: no data rows") from None
+        if first.shape[0] < 2:
+            raise ValueError(
+                f"{colvar_file!r}: need >= 2 data rows in the first "
+                "replica block to infer the timestep"
+            )
+        delta_t = float(first[1, 0] - first[0, 0])
+
+        def rep_chunks():
+            yield rep0, first[:, 1:5]
+            for rep, _f, block in it:
+                yield rep, block[:, 1:5]
+
+        res = dqops.analyse_dq_multi_streamed(
+            rep_chunks(), delta_t, min_dt, max_dt, skip_dt,
+            chunk_frames=stream_chunk, n_chunks=n_chunks, device=dev,
+        )
+    elif stream_chunk > 0:
+        n_total = None
+        if colvar_file.endswith((".xvg", ".xvg.gz")):
+            delta_t, q_all = _load_q(colvar_file)
+            n_total = q_all.shape[0]
+
+            def q_chunks():
+                for off in range(0, q_all.shape[0], stream_chunk):
+                    yield q_all[off: off + stream_chunk]
+        else:
+            if n_chunks > 0:
+                # Sub-chunk uncertainties need the total length up front
+                # (the reference's blocking is defined on it, calculate-
+                # dq-distribution.py:128-144): one counting pre-pass.
+                n_total = colvario.count_colvar_rows(colvar_file)
+            if stream_chunk < 2:
+                raise ValueError("--stream chunk size must be >= 2")
+            it = colvario.iter_colvar_chunks(colvar_file, stream_chunk)
+            try:
+                fields0, first = next(it)
+            except StopIteration:
+                raise ValueError(f"{colvar_file!r}: no data rows") from None
+            if first.shape[0] < 2:
+                raise ValueError(
+                    f"{colvar_file!r}: need >= 2 data rows to infer the "
+                    "timestep"
+                )
+            delta_t = float(first[1, 0] - first[0, 0])
+
+            def q_chunks():
+                yield first[:, 1:5]
+                for _, block in it:
+                    yield block[:, 1:5]
+
+        res = dqops.analyse_dq_streamed(
+            q_chunks(), delta_t, min_dt, max_dt, skip_dt,
+            chunk_frames=stream_chunk, n_chunks=n_chunks, n_total=n_total,
+            hist_bins=(hist_bins if do_hist and hist_format != "none" else 0),
+            device=dev,
+        )
+    elif multi:
+        # (nReplicas, nTime, nFields): per-replica statistics, pooled
+        # delta-q samples (calculate-dq-distribution-multi.py).
+        fields, data = colvario.read_colvar_multi(colvar_file)
+        qs = [d[:, 1:5] for d in data]
+        delta_t = float(data[0][1, 0] - data[0][0, 0])
+        res = dqops.analyse_dq_multi(qs, delta_t, min_dt, max_dt, skip_dt, n_chunks,
+                                     device=dev)
+    else:
+        delta_t, q = _load_q(colvar_file)
+        res = dqops.analyse_dq(q, delta_t, min_dt, max_dt, skip_dt, n_chunks, device=dev)
+
+    iso_hdr, aniso_hdr = _format_dq_headers(res)
+    x = res.lag_times
+    if do_iso:
+        groups = [np.stack([res.iso, res.iso_models[0]])]
+        for i in range(res.iso_chunks.shape[0]):
+            groups.append(np.stack([res.iso_chunks[i], res.iso_models[1 + i]]))
+        _print_graphs(out_prefix + "-iso.dat", iso_hdr, x, groups)
+
+    if do_aniso:
+        groups = [np.concatenate([res.aniso, res.aniso_models[0]])]
+        for i in range(res.aniso_chunks.shape[0]):
+            groups.append(np.concatenate([res.aniso_chunks[i], res.aniso_models[1 + i]]))
+        _print_graphs(out_prefix + "-aniso2.dat", aniso_hdr, x, groups)
+
+        # Per-lag PAF quaternions; first line carries the locked PAF, which
+        # run-all extracts with `head -n 1 ... | awk '{print $2,$3,$4,$5}'`.
+        xvg.print_xylist(out_prefix + "-aniso_q.dat", x, res.q_per_lag.T, cols=True)
+
+        with open(out_prefix + "-moi.xyz", "w") as fp:
+            for axes in res.axes_per_lag:
+                print("3", file=fp)
+                print("AXES", file=fp)
+                for lab, row in zip("XYZ", axes):
+                    print("%s %g %g %g" % (lab, row[0], row[1], row[2]), file=fp)
+
+    if do_full_tensor and do_aniso:
+        # <(Rv)(Rv)^T> components per lag in the locked PAF
+        # (calculate-dq-distribution.py:610-611,722-723), from the raw M
+        # every analyse path carries.
+        R = qt.quat_to_mat(torch.as_tensor(res.q_frame)).numpy()
+        MR = np.einsum("ab,lbc,dc->lad", R, res.M, R)
+        xvg.print_xylist(out_prefix + "-tensor.dat", res.lag_times,
+                         MR.reshape(len(x), 9).T, cols=True)
+
+    if do_hist and hist_format != "none" and not multi:
+        lags = np.rint(res.lag_times / delta_t).astype(int)
+        hedges = tuple(np.linspace(-1.0, 1.0, hist_bins + 1) for _ in range(3))
+        for li, delta in enumerate(lags):
+            if res.hist is not None:
+                # streamed: analyse_dq_streamed already density-normalised
+                # the pooled counts -- do NOT normalise again.
+                hist = res.hist[li]
+            else:
+                hist, hedges = np.histogramdd(
+                    dqops.dq_vectors(q, int(delta)), bins=(hist_bins,) * 3,
+                    range=((-1, 1),) * 3, density=True,
+                )
+            out_file = "%s-hist-%sps.%s" % (out_prefix, res.lag_times[li], hist_format)
+            if hist_format == "dx":
+                xmin = [0.5 * (e[0] + e[1]) for e in hedges]
+                abc = np.diag([(e[-1] - e[0]) / hist_bins for e in hedges])
+                dxio.write_dx(out_file, hist, (hist_bins,) * 3, xmin, abc, units="nm")
+            else:
+                xvg.print_gplot_hist(out_file, hist, hedges)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# Stage 3: trajectory -> C(t), S2, vector distributions
+# (calculate-Ct-from-traj.py)
+# ---------------------------------------------------------------------------
+
+
+def stage_ct(
+    traj_files: Sequence[str],
+    ref_pdbs: Sequence[str],
+    out_prefix: str,
+    tau_memory: Optional[float],
+    q_rot: Optional[np.ndarray] = None,
+    h_sel: str = "name H",
+    x_sel: str = "name N and not resname PRO",
+    fit_sel: str = "occupancy > 0",
+    zeta: float = DEFAULT_ZETA,
+    do_ct: bool = True,
+    do_s2: bool = True,
+    s2_mode: str = "outer",  # outer | ired | wired
+    do_vec_dist: bool = True,
+    do_vec_avg: bool = True,
+    vec_storage: str = "Histogram",  # Histogram | PhiTheta | TextPhiTheta
+    hist_bins: int = 72,
+    force: bool = False,
+    timestep: Optional[float] = None,
+    device="cuda",
+    dtype=None,
+):
+    """Compute bond-vector statistics with the whole trajectory in memory.
+    Writes {pref}_Ctext.dat, {pref}_Ctint.dat, {pref}_vecHistogram.npz /
+    _vecPhiTheta.*, {pref}_avgvec.dat, {pref}_S2.dat.
+
+    The host reduces each trajectory to bond differences and 3x3 Horn
+    correlations (``orient.bond_obs_host``), which go to ``device`` (the
+    card unless ``device="cpu"``) in one copy; there the raw and superposed
+    bond vectors are formed and their C(t) taken by kernel A
+    (``autocorr.ct_palmer``).  ``dtype``: the device arithmetic's, by
+    default float32 on the card (kernel A's) and float64 on the CPU.
+
+    ``timestep`` overrides the frame spacing reported by the trajectory
+    loader (for formats that carry no time axis).  ``s2_mode`` "ired" and
+    "wired" wait for ROADMAP item 13 and raise ``NotImplementedError``."""
+    if s2_mode not in ("outer", "ired", "wired"):
+        raise ValueError(f"unknown s2_mode {s2_mode!r}")
+    if do_s2 and s2_mode != "outer":
+        raise NotImplementedError(
+            f"s2_mode={s2_mode!r}: ops/ired.py comes with ROADMAP item 13")
+    if do_vec_dist and vec_storage not in ("Histogram", "PhiTheta", "TextPhiTheta"):
+        raise ValueError(f"unknown vec_storage {vec_storage!r}")
+    dev = checked_device(device)
+    f = dtype or (torch.float32 if dev.type == "cuda" else torch.float64)
+    if len(ref_pdbs) == 1:
+        ref_pdbs = list(ref_pdbs) * len(traj_files)
+
+    res_ids = None
+    delta_t = None
+    vec_raw_list, vec_fit_list = [], []
+    for trj_fn, ref_fn in zip(traj_files, ref_pdbs):
+        top, ref_xyz = pdbio.read_structure(ref_fn)
+        idx_h, idx_x, res_h = pdbio.bond_indices(top, h_sel, x_sel)
+        w = _fit_weights(top, fit_sel)
+        if timestep is None and trajio.is_timeless(trj_fn):
+            raise ValueError(
+                f"{trj_fn!r}: this format carries no time axis -- pass "
+                "timestep explicitly"
+            )
+        xyz, dt = trajio.load_trajectory(trj_fn, top_fn=ref_fn)
+        if timestep is not None:
+            dt = timestep
+        raw_diff, S = orient.bond_obs_host(xyz, ref_xyz[0], idx_h, idx_x, w)
+        del xyz
+        bv = orient.bond_vectors_from_obs(torch.from_numpy(raw_diff).to(dev, f),
+                                          torch.from_numpy(S).to(dev, f))
+        if res_ids is None:
+            res_ids, delta_t = list(res_h), dt
+        elif list(res_h) != res_ids or (
+            # relative tolerance: f32 timestamps of a late-starting
+            # segment differ in the last ulp
+            abs(dt - delta_t) > 1e-9 * max(abs(dt), abs(delta_t))
+        ):
+            raise ValueError("trajectories disagree in residues or timestep")
+        vec_raw_list.append(bv.raw)
+        vec_fit_list.append(bv.fitted)
+
+    if tau_memory is None:
+        # No memory time (calculate-Ct-from-traj.py:509-514,643-644):
+        # statistics run unblocked over all frames; C(t) is refused.
+        if do_ct:
+            raise ValueError("C(t) analysis needs a memory time (tau_memory=None)")
+        vec_raw = torch.cat(vec_raw_list)[None]
+        vec_fit = torch.cat(vec_fit_list)[None]
+        dt_lags = None
+    else:
+        vec_raw = autocorr.reformat_by_tau(vec_raw_list, delta_t, tau_memory)
+        vec_fit = autocorr.reformat_by_tau(vec_fit_list, delta_t, tau_memory)
+        dt_lags = autocorr.lag_times(delta_t, tau_memory).numpy()
+    del vec_raw_list, vec_fit_list
+
+    out = {}
+    if do_ct:
+        for vv, suffix in ((vec_raw, "_Ctext.dat"), (vec_fit, "_Ctint.dat")):
+            Ct, dCt = (a.cpu().numpy() for a in autocorr.ct_palmer(vv))
+            xvg.print_sxylist(out_prefix + suffix, res_ids, dt_lags,
+                              np.stack([Ct.T, dCt.T], axis=-1))
+        out["Ct"], out["dCt"] = Ct, dCt
+
+    # Flatten chunks for the remaining statistics
+    flat = vec_fit.reshape(-1, vec_fit.shape[-2], vec_fit.shape[-1])
+    del vec_raw, vec_fit
+    if q_rot is not None:
+        flat = qt.rotate_vector(flat, torch.as_tensor(np.asarray(q_rot), dtype=f, device=dev))
+
+    if do_vec_avg:
+        avg = qt.vecnorm(flat.mean(dim=0)).cpu().numpy()
+        xvg.print_xylist(out_prefix + "_avgvec.dat", res_ids, avg.T, cols=True)
+        out["avgvec"] = avg
+
+    if do_vec_dist:
+        per_res = flat.transpose(0, 1)  # (nRes, nFrames, 3)
+        if vec_storage == "Histogram":
+            hist, ep, ec = geometry.lambert_histogram(per_res, hist_bins, hist_bins // 2)
+            out["vec_file"] = out_prefix + "_vecHistogram.npz"
+            vecio.save_histogram(out["vec_file"], res_ids, hist.cpu().numpy(),
+                                 ep.cpu().numpy(), ec.cpu().numpy())
+        elif vec_storage == "PhiTheta":
+            out["vec_file"] = out_prefix + "_vecPhiTheta.npz"
+            vecio.save_phitheta(out["vec_file"], res_ids,
+                                geometry.xyz_to_pt(per_res).cpu().numpy())
+        else:
+            rtp = geometry.xyz_to_rtp(per_res).cpu().numpy()
+            out["vec_file"] = out_prefix + "_vecPhiTheta.dat"
+            with open(out["vec_file"], "w") as fp:
+                for i, rid in enumerate(res_ids):
+                    print('@s%d legend "%s"' % (i, rid), file=fp)
+                    for j in range(rtp.shape[1]):
+                        print("%g %g" % (rtp[i, j, 1], rtp[i, j, 2]), file=fp)
+                    print("&", file=fp)
+
+    if do_s2:
+        if tau_memory is None:
+            # Unblocked S2, value only (calculate-S2.py:122-125,143).
+            s2 = autocorr.s2_outer(flat).cpu().numpy()
+        else:
+            s2 = autocorr.s2_outer_blocked(flat, delta_t, tau_memory).cpu().numpy()
+        xvg.print_xylist(out_prefix + "_S2.dat", res_ids, (s2.T) * zeta, cols=True)
+        out["S2"] = s2
+
+    out["res_ids"] = res_ids
+    out["delta_t"] = delta_t
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Stage 4: C(t) -> fitted multi-exponential parameters
+# (calculate-fitted-Ct.py)
+# ---------------------------------------------------------------------------
+
+
+def stage_fit_ct(
+    ct_files: Sequence[str],
+    out_prefix: str,
+    n_components: Optional[int] = None,
+    use_s2fast: bool = True,
+    force: bool = False,
+    optimiser: str = "lm",
+    n_starts: int = 1,
+    retry_starts: int = 8,
+    mesh=None,
+    device="cuda",
+) -> CtModelSet:
+    """Fit every residue's C(t) of ``ct_files`` with the DoF ladder
+    (``fit_ct_ladder``: kernels B and C on the card, float64 on the CPU)
+    and write {pref}_fittedCt.dat; several files are averaged first, with
+    their errors pooled, into {pref}_averageCt.dat.  ``optimiser="varpro"``
+    (item 12) and ``mesh`` (item 15) raise ``NotImplementedError``."""
+    out_fn = out_prefix + "_fittedCt.dat"
+    legs, dts, cts, dcts = xvg.load_sxydylist(ct_files[0], "legend")
+    dt = np.asarray(dts)[0]
+    decays = np.asarray(cts)
+    ddecays = np.asarray(dcts) if len(dcts) else None
+    if len(ct_files) > 1:
+        # Replica averaging with error pooling
+        # (calculate-fitted-Ct.py:113-147).
+        all_ct, all_dct = [decays], [ddecays]
+        for fn in ct_files[1:]:
+            l2, d2, c2, e2 = xvg.load_sxydylist(fn, "legend")
+            if l2 != legs or not np.allclose(np.asarray(d2)[0], dt):
+                raise ValueError(f"{fn}: time/legend entries differ")
+            all_ct.append(np.asarray(c2))
+            all_dct.append(np.asarray(e2) if len(e2) else None)
+        stack = np.stack(all_ct)
+        decays = np.mean(stack, axis=0)
+        if any(d is None for d in all_dct):
+            ddecays = np.std(stack, axis=0)
+        else:
+            ddecays = np.sqrt(simple_total_mean_square(
+                torch.from_numpy(stack), torch.from_numpy(np.stack(all_dct))).numpy())
+        # Averaged-C(t) report artefact in the reference's INTENDED
+        # format (calculate-fitted-Ct.py:140-147: bare float prints,
+        # one '&' per leg).
+        with open(out_prefix + "_averageCt.dat", "w") as fp:
+            for i in range(len(legs)):
+                for j in range(decays.shape[1]):
+                    print(dt[j], decays[i][j], ddecays[i][j], file=fp)
+                print("&", file=fp)
+
+    model = fit_ct_ladder(
+        names=legs,
+        dt=dt,
+        decays=decays,
+        ddecays=ddecays,
+        use_s2fast=use_s2fast,
+        n_components=n_components,
+        optimiser=optimiser,
+        n_starts=n_starts,
+        retry_starts=retry_starts,
+        mesh=mesh,
+        device=device,
+    )
+    fctio.write_fittedct(out_fn, model, dt=dt, targets=decays)
+    return model
+
+
+# ---------------------------------------------------------------------------
+# Stage 5: relaxation prediction (calculate-relaxations-from-Ct)
+# ---------------------------------------------------------------------------
+
+
+def stage_relax(
+    fittedct_file: str,
+    out_prefix: str,
+    diffusion: Diffusion,
+    vec_file: Optional[str] = None,
+    q_rot: Optional[np.ndarray] = None,
+    freq_mhz: float = 600.133,
+    nuclei: str = "NH",
+    time_unit: str = "ps",
+    zeta: float = DEFAULT_ZETA,
+    csa: Optional[np.ndarray] = None,
+    jomega: bool = False,
+    shift_res: int = 0,
+    expt_file: Optional[str] = None,
+    opt_mode: Optional[str] = None,
+    max_cycles: int = 100,
+    tol: float = 1e-6,
+    opt_method: str = "powell",
+    force: bool = False,
+    vec_avg_file: Optional[str] = None,
+    ref_pdb: Optional[str] = None,
+    traj_file: Optional[str] = None,
+    ref_hsel: str = "name H",
+    ref_xsel: str = "name N and not resname PRO",
+    device="cuda",
+):
+    """Predict R1/R2/NOE/rho (or J(w)) at one field on ``device`` (the card
+    unless ``device="cpu"``, float64); writes {pref}_R1.dat, _R2.dat,
+    _NOE.dat, _rho.dat or _Jw.dat.
+
+    Vector sources, in reference precedence
+    (calculate-relaxations-from-Ct.py:636-656): ``vec_avg_file`` (-v,
+    average X-H vectors as an xvg table), then ``vec_file`` (--distfn
+    npz distribution), then ``ref_pdb`` [+ ``traj_file``] (vectors taken
+    directly from structure/trajectory, no fitting).
+
+    The legacy fit against experiment (``expt_file`` + ``opt_mode``) waits
+    for ROADMAP item 12 and raises ``NotImplementedError`` before any
+    artefact is written.
+    """
+    if expt_file is not None and opt_mode is not None:
+        raise NotImplementedError(
+            "stage_relax(expt_file=, opt_mode=): the legacy fit (fit/legacyfit.py) "
+            "comes with ROADMAP item 12")
+    cts = fctio.read_fittedct(fittedct_file, device=device).with_zeta(zeta)
+    pair = NucleusPair(isotope_a=BOND_ISOTOPES[nuclei], B0=field_from_mhz(freq_mhz),
+                       time_unit=time_unit)
+
+    vecs = weights = None
+    if diffusion.kind != "isotropic":
+        names = None
+        if vec_avg_file is not None:
+            res_v, block = xvg.load_xys(vec_avg_file)
+            names = [str(int(x) + shift_res) for x in res_v]
+            vecs = np.asarray(block[:, :3], dtype=np.float64)
+            vecs /= np.linalg.norm(vecs, axis=-1, keepdims=True)
+        elif vec_file is not None:
+            names, vecs, weights = vecio.load_vector_distribution(vec_file)
+            names = [str(int(x) + shift_res) for x in names]
+        elif ref_pdb is not None:
+            # Vectors straight from the structure (no fitting); with a
+            # trajectory, every frame contributes an ensemble sample
+            # (reference's extract_vectors_from_structure, :44-69,
+            # implemented as intended).
+            top, ref_xyz = pdbio.read_structure(ref_pdb)
+            idx_h, idx_x, res_h = pdbio.bond_indices(top, ref_hsel, ref_xsel)
+            if traj_file is not None:
+                xyz, _ = trajio.load_trajectory(traj_file, top_fn=ref_pdb)
+            else:
+                xyz = ref_xyz
+            v = xyz[:, idx_h, :] - xyz[:, idx_x, :]
+            v /= np.linalg.norm(v, axis=-1, keepdims=True)
+            names = [str(int(x) + shift_res) for x in res_h]
+            vecs = v[0] if v.shape[0] == 1 else np.swapaxes(v, 0, 1)
+        if vecs is not None:
+            if names != cts.names:
+                raise ValueError("resid mismatch between fittedCt and vector source")
+            if q_rot is not None:
+                vecs = qt.rotate_vector(torch.as_tensor(np.asarray(vecs, dtype=np.float64)),
+                                        torch.as_tensor(np.asarray(q_rot, dtype=np.float64))
+                                        ).numpy()
+
+    sim_resid = cts.names
+    if jomega:
+        J, dJ = observables.predict_jomega(pair, diffusion, cts, vecs=vecs, weights=weights)
+        omega = np.abs(np.asarray(pair.omega5()))
+        order = np.argsort(omega)
+        J_np = J.cpu().numpy()
+        dJ_np = None if dJ is None else dJ.cpu().numpy()
+        with open(out_prefix + "_Jw.dat", "w") as fp:
+            if dJ_np is not None:
+                print("@type xydy", file=fp)
+            for i, rid in enumerate(sim_resid):
+                print('@s%d legend "Resid: %s"' % (i, rid), file=fp)
+                for j in order:
+                    if dJ_np is not None:
+                        print("%g %g %g" % (omega[j], J_np[i, j], dJ_np[i, j]), file=fp)
+                    else:
+                        print("%g %g" % (omega[j], J_np[i, j]), file=fp)
+                print("&", file=fp)
+        return J
+
+    rates = observables.predict_rates(pair, diffusion, cts, vecs=vecs, weights=weights,
+                                      csa=csa)
+    host = {k: None if v is None else v.cpu().numpy() for k, v in rates._asdict().items()}
+    for name in ("R1", "R2", "NOE", "rho"):
+        if host["d" + name] is not None:
+            xvg.print_xydy(f"{out_prefix}_{name}.dat", sim_resid, host[name], host["d" + name])
+        else:
+            xvg.print_xy(f"{out_prefix}_{name}.dat", sim_resid, host[name])
+    return rates
+
+
+def stage_relax_theoretical(
+    diffusion: Diffusion,
+    freq_mhz: float = 600.133,
+    nuclei: str = "NH",
+    zeta: float = DEFAULT_ZETA,
+    device="cuda",
+):
+    """Rigid-baseline shortcut (--theoretical,
+    calculate-relaxations-from-Ct.py:671-687): relaxation of a rigid body
+    with no internal motion.  Isotropic -> one triple; axisymmetric ->
+    per-axis triples for the three lab axes."""
+    pair = NucleusPair(isotope_a=BOND_ISOTOPES[nuclei], B0=field_from_mhz(freq_mhz),
+                       time_unit="ps")
+    if diffusion.kind == "isotropic":
+        cts = CtModelSet.from_lists(["1"], [zeta], [[0.0]], [[99999.0]], device=device)
+        return observables.predict_rates(pair, diffusion, cts)
+    cts = CtModelSet.from_lists(["1", "2", "3"], [zeta] * 3, [[0.0]] * 3, [[99999.0]] * 3,
+                                device=device)
+    return observables.predict_rates(pair, diffusion, cts, vecs=np.eye(3))
+
+
+# ---------------------------------------------------------------------------
+# Stage 3, streamed: constant-memory C(t) over trajectory groups
+# ---------------------------------------------------------------------------
 
 
 def init_accumulators(n_bonds: int, fpc: int, dtype, device, do_ct: bool = True,
