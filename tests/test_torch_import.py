@@ -31,7 +31,8 @@ MODULES = [
     "spinrelax_tpu_torch.io.colvar", "spinrelax_tpu_torch.io.fittedct",
     "spinrelax_tpu_torch.io.dx", "spinrelax_tpu_torch.ops.dq",
     "spinrelax_tpu_torch.pipeline.corrections", "spinrelax_tpu_torch.pipeline.manifest",
-    "spinrelax_tpu_torch.pipeline.config",
+    "spinrelax_tpu_torch.pipeline.config", "spinrelax_tpu_torch.pipeline.cli",
+    "spinrelax_tpu_torch.pipeline.runall",
 ]
 
 
