@@ -213,3 +213,31 @@ def ct_entry(device="cuda", n_res: int = 8, n_frames: int = 6000,
                        diffusion=Diffusion.isotropic(diso=truth["D_iso"]),
                        names=[str(r) for r in out["res_ids"]])
     return out, rates
+
+
+def workflow_entry(out_dir=None, device="cuda", n_res: int = 8, n_frames: int = 6000,
+                   tau_memory: float = 1000.0):
+    """The run-all workflow on ``device`` (the card unless
+    ``device="cpu"``; raises without one), as examples/synthetic_workflow.py
+    drives the JAX package's: a :func:`synthetic_system` (.pdb + .xtc)
+    through ``pipeline.runall.main`` with ``-t_mem``, two ``-Bfields`` and
+    ``-Jw`` -- orientation colvar, Delta-q -> D tensor, the in-memory C(t)
+    stage, the DoF ladder, R1/R2/NOE/rho and J(omega) at 600.133 and
+    850.13 MHz.
+
+    The files go to ``out_dir`` (a new temporary directory, left to the
+    caller, when None).  Returns dict(paths: the artefacts written, sorted;
+    diso: the D_iso [ps^-1] the relaxations used; run: runall's summary)."""
+    from .pipeline import runall
+
+    checked_device(device)
+    out_dir = tempfile.mkdtemp(prefix="spinrelax_workflow_") if out_dir is None else str(out_dir)
+    os.makedirs(out_dir, exist_ok=True)
+    ref_fn, trj_fn, _ = synthetic_system(out_dir, n_res=n_res, n_frames=n_frames)
+    run = runall.main(["-out", os.path.join(out_dir, "rotdif"), "-sxtc", trj_fn,
+                       "-refpdb", ref_fn, "-qfile", os.path.join(out_dir, "colvar-qorient"),
+                       "-t_mem", str(tau_memory), "-Bfields", "600.133", "850.13", "-Jw"],
+                      device=device)
+    paths = sorted(os.path.join(out_dir, f) for f in os.listdir(out_dir)
+                   if f not in (os.path.basename(ref_fn), os.path.basename(trj_fn)))
+    return dict(paths=paths, diso=run["diso"], run=run)
