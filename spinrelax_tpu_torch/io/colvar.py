@@ -110,14 +110,15 @@ def read_colvar_multi(fn: str) -> Tuple[List[List[str]], np.ndarray]:
 
 
 def write_colvar(fn: str, field_names: List[str], data: np.ndarray):
-    """data: (nFields, nEntries) (plumedcolvario.py:150-168)."""
+    """data: (nFields, nEntries) (plumedcolvario.py:150-168): "%8f" values
+    joined by one space, a row per entry (np.savetxt formats a whole row
+    at a time; the bytes are the per-value loop's)."""
     data = np.asarray(data)
     if data.shape[0] != len(field_names):
         raise ValueError("field count mismatch")
     with topen(fn, "w") as fp:
         print("#! FIELDS " + " ".join(field_names), file=fp)
-        for i in range(data.shape[1]):
-            print(" ".join("%8f" % data[j][i] for j in range(data.shape[0])), file=fp)
+        np.savetxt(fp, data.T, fmt="%8f", delimiter=" ")
 
 
 def count_colvar_rows(fn: str) -> int:
