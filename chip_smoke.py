@@ -44,16 +44,33 @@ Builds the port's CUDA kernels from csrc/ and runs, in order:
 7. the streamed C(t) stage: (a) stage_ct_streamed on a synthetic .xtc of
    ubiquitin's size (1231 atoms, 71 N-H bonds, 20 000 frames 2 ps apart,
    tau_memory 4000 ps: chunks of 2000 frames, 1000 lags), read by the
-   native codec (built here with the host C++ compiler), held to the same
-   stage on the CPU in float64 (C(t) 2e-6, S2 and the average vector
-   1e-5, <= 1e-3 of the histogram's samples in another bin: float32
-   vectors differ from float64 ones by ~1e-7, so a sample that close to a
-   bin edge lands next door); (b) 10 group steps of 4 chunks x 2000
-   frames x 1024 bonds from observables made on the card, through
-   bond_vectors_from_obs and the fused update, held to a float64 plain
-   route on the card, with the step's time, kernel A's launches (2 a
-   group) and time from the profiler, eigh's time and the idle share;
-   (c) entry.ct_entry() from file to rates, held to its CPU run.
+   native codec and written by libfastio (both built here with the host
+   C++ compiler), held to the same stage on the CPU in float64 (C(t) 2e-6,
+   S2 and the average vector 1e-5, <= 1e-3 of the histogram's samples in
+   another bin: float32 vectors differ from float64 ones by ~1e-7, so a
+   sample that close to a bin edge lands next door), with the C(t) writer
+   timed through libfastio and through numpy's row formatter (the same
+   bytes); (b) 10 group steps of 4 chunks x 2000 frames x 1024 bonds from
+   observables made on the card, through bond_vectors_from_obs and the
+   fused update, held to a float64 plain route on the card, with the
+   step's time, kernel A's launches (2 a group) and time from the
+   profiler, eigh's time and the idle share; (c) entry.ct_entry() from
+   file to rates, held to its CPU run;
+8. run-all: (a) pipeline.runall.main on phase 7a's file (-t_mem 4000,
+   -num_chunks 4, -Bfields 600.133 850.13, -Jw, the in-memory C(t)):
+   orientation colvar, Delta-q -> D tensor, stage_ct (kernel A twice),
+   the DoF ladder (kernels B and C), rates and J(w) at both fields, held
+   to the same workflow on the CPU in float64 (D_i and Diso 1e-6
+   relative, the anisotropies as printed, C(t) 2e-6, rates' median
+   relative gap 1e-5, rungs equal on >= 98 %), with each step's wall,
+   the launches of A, B and C from the wrappers and the profiler, the
+   device's idle share, and a second main() that skips every stage;
+   (b) Delta-q at 10^6 frames of anisotropic Brownian tumbling made on
+   the card (a prefix product by doubling), written as a colvar through
+   io.colvar, through stage_dq in memory and streamed (65 536 frames a
+   part), 100 lags of 10 ps, 4 sub-chunks, held to each other and to the
+   CPU in float64 (D 1e-10 relative), with the read, statistics and
+   finalise times, frames/s and peak device memory.
 
 Phases 3, 5 and 6 run their LM loop both ways in turns -- the CUDA graph
 of one step, and the eager loop that issues every step from the host --
@@ -86,6 +103,7 @@ import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -747,34 +765,47 @@ def stage_observables(torch, gen, n_frames, n_bonds):
     return raw.contiguous(), S.contiguous()
 
 
-def phase_stage(torch, tac, cuda_acf, counters, gen):
+UBQ = dict(n_res=71, n_atoms=1231, n_frames=20_000, dt=2.0, tau=4000.0)  # phases 7a, 8a
+DQ_FRAMES = 1_000_000  # phase 8b
+
+
+def ubiquitin_system(work: Path) -> dict:
+    """The synthetic .pdb + .xtc at ubiquitin's size of phases 7a and 8a
+    (entry.synthetic_system, seed 7), written into ``work``."""
+    from spinrelax_tpu_torch import _build
+    from spinrelax_tpu_torch.entry import synthetic_system
+
+    t0 = time.perf_counter()
+    ref_fn, xtc_fn, _ = synthetic_system(work, n_res=UBQ["n_res"],
+                                         n_extra=UBQ["n_atoms"] - 3 * UBQ["n_res"],
+                                         n_frames=UBQ["n_frames"], dt=UBQ["dt"], seed=7)
+    print(f"synthetic system: {UBQ['n_atoms']} atoms, {UBQ['n_res']} N-H bonds, "
+          f"{UBQ['n_frames']} frames, dt {UBQ['dt']} ps, {Path(xtc_fn).stat().st_size / 1e6:.1f} "
+          f"MB .xtc, made in {time.perf_counter() - t0:.1f} s (codec "
+          f"{_build.host_library_path('xtc').name}, text I/O "
+          f"{_build.host_library_path('fastio').name})", flush=True)
+    return dict(dir=work, ref=ref_fn, xtc=xtc_fn)
+
+
+def phase_stage(torch, tac, cuda_acf, counters, gen, ubq):
     print("phase 7: the streamed C(t) stage (.xtc -> Horn orientation -> bond vectors -> "
           "fused group update over kernel A) on the card", flush=True)
-    import tempfile
-
     import numpy as np
 
-    from spinrelax_tpu_torch import _build
     from spinrelax_tpu_torch.core import geometry
-    from spinrelax_tpu_torch.entry import ct_entry, synthetic_system
-    from spinrelax_tpu_torch.io import native
+    from spinrelax_tpu_torch.entry import ct_entry
+    from spinrelax_tpu_torch.io import native, xvg
     from spinrelax_tpu_torch.io import pdb as pdbio
     from spinrelax_tpu_torch.ops import orient
     from spinrelax_tpu_torch.pipeline.stages import (
         _fit_weights, fused_group_update, init_accumulators, stage_ct_streamed)
 
     # (a) the file leg, at ubiquitin's size
-    n_res, n_atoms, n_frames, dt, tau = 71, 1231, 20_000, 2.0, 4000.0
+    n_res, dt, tau = UBQ["n_res"], UBQ["dt"], UBQ["tau"]
+    ref_fn, xtc_fn = ubq["ref"], ubq["xtc"]
     fpc, groups = int(tau / dt), 4
     res = {}
     with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        ref_fn, xtc_fn, _ = synthetic_system(tmp, n_res=n_res, n_extra=n_atoms - 3 * n_res,
-                                             n_frames=n_frames, dt=dt, seed=7)
-        t_make = time.perf_counter() - t0
-        print(f"  (a) synthetic system: {n_atoms} atoms, {n_res} N-H bonds, {n_frames} frames, "
-              f"dt {dt} ps, {Path(xtc_fn).stat().st_size / 1e6:.1f} MB .xtc, made in "
-              f"{t_make:.1f} s (codec {_build.host_library_path('xtc').name})", flush=True)
         kw = dict(tau_memory=tau, chunk_groups=groups)
         stage_ct_streamed([xtc_fn], [ref_fn], str(Path(tmp) / "warm"), **kw)  # warm-up
         for c in counters:
@@ -805,17 +836,27 @@ def phase_stage(torch, tac, cuda_acf, counters, gen):
         h_card, h_ref = (torch.from_numpy(np.load(str(Path(tmp) / f"{n}_vecHistogram.npz"),
                                                   allow_pickle=True)["data"])
                          for n in ("card", "cpu"))
-    from spinrelax_tpu_torch.io import xvg
-
-    with tempfile.TemporaryDirectory() as tmp:
+        # The writer of _Ctext.dat / _Ctint.dat: libfastio's rows (the
+        # stage's route) against numpy's row formatter (PR 7's route) on
+        # the same rows, the same bytes.
+        rows = (card["res_ids"], tac.lag_times(dt, tau).numpy(),
+                np.stack([card["Ct"].T, card["dCt"].T], axis=-1))
         t0 = time.perf_counter()
-        xvg.print_sxylist(str(Path(tmp) / "w.dat"), card["res_ids"],
-                          tac.lag_times(dt, tau).numpy(),
-                          np.stack([card["Ct"].T, card["dCt"].T], axis=-1))
+        xvg.print_sxylist(str(Path(tmp) / "native.dat"), *rows)
         t_write = 2 * (time.perf_counter() - t0)
-    print(f"  writing _Ctext.dat + _Ctint.dat ({2 * n_res * (fpc // 2)} rows through numpy's "
-          f"row formatter) takes {t_write:.3f} s = {t_write / secs:.1%} of the stage wall",
-          flush=True)
+        native_rows = xvg._native_rows
+        xvg._native_rows = lambda x, y: False
+        try:
+            t0 = time.perf_counter()
+            xvg.print_sxylist(str(Path(tmp) / "rows.dat"), *rows)
+            t_rows = 2 * (time.perf_counter() - t0)
+        finally:
+            xvg._native_rows = native_rows
+        check((Path(tmp) / "native.dat").read_bytes() == (Path(tmp) / "rows.dat").read_bytes(),
+              "libfastio's C(t) rows are numpy's row formatter's bytes")
+    print(f"  writing _Ctext.dat + _Ctint.dat ({2 * n_res * (fpc // 2)} rows) through libfastio "
+          f"takes {t_write:.3f} s = {t_write / secs:.1%} of the stage wall; through numpy's row "
+          f"formatter (the stage's route before libfastio) {t_rows:.3f} s", flush=True)
     print(f"  stage wall {secs:.3f} s on the card for {n_read} frames ({n_read / secs:.0f} "
           f"frames/s); decode + reduce alone {t_host:.3f} s = {t_host / secs:.1%} of it; "
           f"the same stage on the CPU in float64 {t_cpu:.1f} s", flush=True)
@@ -838,7 +879,7 @@ def phase_stage(torch, tac, cuda_acf, counters, gen):
           f"stage histogram: {int(h_card.sum())} samples, {moved:.2e} of them in another bin "
           f"than in float64 (<= 1e-3; {int((h_card != h_ref).sum())} of {h_card.numel()} "
           f"counts differ)")
-    res.update(wall=secs, host=t_host, cpu=t_cpu, frames=n_read, write=t_write)
+    res.update(wall=secs, host=t_host, cpu=t_cpu, frames=n_read, write=t_write, rows=t_rows)
 
     # (b) the device leg at the forward's width
     n_bonds, n_grp, F = N_RES, 10, fpc * groups
@@ -945,6 +986,196 @@ def phase_stage(torch, tac, cuda_acf, counters, gen):
     res["entry_wall"] = secs
     return res
 
+def dq_header(path) -> dict:
+    """{label: value} of a -aniso2.dat's "# Converted <label> = <value>"
+    lines (D_0..D_2 and Diso as %e, the anisotropies as %f)."""
+    out = {}
+    for line in Path(path).read_text().splitlines():
+        parts = line.split()
+        if line.startswith("# Converted"):
+            out[parts[2]] = float(parts[4])
+    return out
+
+
+def phase_runall(torch, counters, ubq):
+    """(a) The run-all workflow at ubiquitin's size on the card, held to the
+    same workflow on the CPU in float64."""
+    print("phase 8a: run-all on the card (orientation -> Delta-q -> in-memory C(t) -> DoF "
+          "ladder -> R1/R2/NOE/rho + J(w) at 2 fields) vs the CPU in float64", flush=True)
+    import contextlib
+    import io
+    import itertools
+
+    from spinrelax_tpu_torch.io import fittedct, xvg
+    from spinrelax_tpu_torch.pipeline import runall
+
+    argv = ["-sxtc", ubq["xtc"], "-refpdb", ubq["ref"], "-t_mem", str(UBQ["tau"]),
+            "-num_chunks", "4", "-Bfields", "600.133", "850.13", "-Jw"]
+    pref = f"rotdif-{UBQ['tau'] / 1000.0:g}ns"
+
+    def run(name, device="cuda"):
+        d = Path(ubq["dir"]) / name
+        d.mkdir(exist_ok=True)
+        log = io.StringIO()
+        with contextlib.redirect_stdout(log):
+            summary = runall.main(["-out", str(d / "rotdif"), "-qfile", str(d / "colvar-qorient"),
+                                   *argv], device=device)
+        return d, summary, log.getvalue()
+
+    for c in counters:
+        c.launches = 0
+    (card_dir, card, _), wall = wall_s(torch, lambda: run("card"))
+    launches = [c.launches for c in counters]
+    check(launches[0] == 2 and launches[1] == launches[2] > 0,
+          f"run-all launched kernels A/B/C {launches} times (A: the raw and the superposed "
+          f"vectors' C(t); B and C once a step of the ladder)")
+    names = itertools.count()
+    busy, per = device_profile(torch, lambda: run(f"profiled{next(names)}"),
+                               lambda per: saw(per, A=launches[0], B=launches[1], C=launches[2]))
+    kt = kernel_times(per)
+    check(all(kt.get(k, (0,))[0] == n for k, n in zip("ABC", launches)),
+          f"profiler saw kernels A/B/C {[kt.get(k, (0,))[0] for k in 'ABC']} times = the "
+          f"wrappers' counts")
+    _, again, log = run("card")
+    check(log.lower().count("skipping") == 4 + 2,
+          "a second main() on the same directory skipped every stage (4 steps + 2 fields)")
+    t0 = time.perf_counter()
+    cpu_dir, cpu, _ = run("cpu", device="cpu")
+    cpu_s = time.perf_counter() - t0
+    steps = ", ".join(f"{k} {v:.3f} s" for k, v in card["walls"].items())
+    print(f"  card: wall {wall:.3f} s ({steps}); device busy {busy:.2f} ms, idle share "
+          f"{1 - busy / (wall * 1e3):.1%}; profiled: "
+          + "; ".join(f"kernel {k} {n} launches, {us:.2f} us each"
+                      for k, (n, us) in sorted(kt.items())), flush=True)
+    print(f"  CPU float64: wall {cpu_s:.1f} s ("
+          + ", ".join(f"{k} {v:.3f} s" for k, v in cpu["walls"].items()) + ")", flush=True)
+    print(f"  Diso used {card['diso']:.6e} ps^-1 (CPU {cpu['diso']:.6e}), Daniso "
+          f"{card['dani']:g} (CPU {cpu['dani']:g})", flush=True)
+    hc, hf = dq_header(card_dir / f"{pref}-aniso2.dat"), dq_header(cpu_dir / f"{pref}-aniso2.dat")
+    for k in ("D_0", "D_1", "D_2", "Diso"):
+        gap = abs(hc[k] - hf[k]) / abs(hf[k])
+        check(gap <= 1e-6, f"run-all {k} {hc[k]:.6e} s^-1, relative gap to CPU float64 "
+                           f"{gap:.2e} <= 1e-6")
+    for k in ("Dani_L", "Drho_L", "Dani_S", "Drho_S"):
+        check(abs(hc[k] - hf[k]) <= 1e-6, f"run-all {k} {hc[k]:f} (CPU float64 {hf[k]:f}; "
+                                          f"printed to 1e-6)")
+    for f in ("_Ctint.dat", "_Ctext.dat"):
+        a, b = (xvg.load_sxydylist(d / (pref + f)) for d in (card_dir, cpu_dir))
+        err = float(abs(a[2] - b[2]).max())
+        check(a[0] == b[0] and err <= 2e-6, f"run-all {f} C(t) max abs vs CPU float64 "
+                                            f"{err:.3e} <= 2e-6")
+    rung = [fittedct.read_fittedct(str(d / f"{pref}_fittedCt.dat"), device="cpu")
+            for d in (card_dir, cpu_dir)]
+    rung = [m.mask.sum(1) * 2 + m.s2fast for m in rung]
+    share = float((rung[0] == rung[1]).double().mean())
+    check(share >= 0.98, f"run-all rung equal to the CPU float64 ladder's on {share:.4f} of "
+                         f"{len(rung[0])} residues (>= 0.98)")
+    gaps = []
+    for bf in ("600", "850"):
+        for f in ("R1", "R2", "NOE", "rho"):
+            a, b = (torch.from_numpy(xvg.load_matrix(d / f"{pref}-{bf}_{f}.dat")[:, 1])
+                    for d in (card_dir, cpu_dir))
+            gap = rel_gap(a, b)
+            gaps.append(float(gap.max()))
+            check(bool(torch.isfinite(a).all()) and float(gap.median()) <= 1e-5,
+                  f"run-all {bf} MHz {f} median relative gap to CPU float64 "
+                  f"{float(gap.median()):.2e} <= 1e-5 (max {float(gap.max()):.2e})")
+        a, b = (torch.from_numpy(xvg.load_sxydylist(d / f"{pref}-{bf}_Jw.dat")[2])
+                for d in (card_dir, cpu_dir))
+        check(float(rel_gap(a, b).median()) <= 1e-5,
+              f"run-all {bf} MHz J(w) median relative gap {float(rel_gap(a, b).median()):.2e} "
+              f"<= 1e-5")
+    return dict(wall=wall, walls=card["walls"], busy=busy, launches=launches, kernels=kt,
+                cpu=cpu_s, share=share, rate_gap_max=max(gaps))
+
+
+def phase_dq_long(torch, work: Path):
+    """(b) Delta-q at the length users give it: 10^6 frames."""
+    n, dt = DQ_FRAMES, 1.0
+    print(f"phase 8b: Delta-q on {n} frames (anisotropic Brownian tumbling made on the card), "
+          f"100 lags of 10 ps, 4 sub-chunks: in memory, streamed, and on the CPU", flush=True)
+    import numpy as np
+
+    from spinrelax_tpu_torch.core import quaternion as qt
+    from spinrelax_tpu_torch.io import colvar
+    from spinrelax_tpu_torch.ops import dq as dqops
+    from spinrelax_tpu_torch.pipeline.stages import stage_dq
+
+    f64 = dict(dtype=torch.float64, device="cuda")
+    D = torch.tensor([8e-4, 1.2e-3, 2.4e-3], **f64)  # body frame, ps^-1
+    gen = torch.Generator(device="cuda").manual_seed(20261017)
+    t0 = time.perf_counter()
+    w = torch.randn((n, 3), generator=gen, **f64) * torch.sqrt(2.0 * D * dt)
+    th = w.norm(dim=1, keepdim=True)
+    q = torch.cat([torch.cos(th / 2), w / th * torch.sin(th / 2)], dim=1)
+    q[0] = torch.tensor([1.0, 0.0, 0.0, 0.0], **f64)
+    # q_t = q_{t-1} dq_t: an inclusive prefix product, by doubling (the
+    # quaternion product is associative): 20 passes, no loop over frames
+    k = 1
+    while k < n:
+        q = torch.cat([q[:k], qt.qmult(q[:-k], q[k:])])
+        k *= 2
+    q = qt.qnorm(q)
+    torch.cuda.synchronize()
+    t_make = time.perf_counter() - t0
+    fn = str(work / "colvar-1M")
+    t0 = time.perf_counter()
+    times = torch.arange(n, **f64)[:, None] * dt
+    colvar.write_colvar(fn, ["time", "q.w", "q.x", "q.y", "q.z"],
+                        torch.cat([times, q], dim=1).T.cpu().numpy())
+    t_write = time.perf_counter() - t0
+    print(f"  q(t) made on the card in {t_make:.3f} s; colvar written ({Path(fn).stat().st_size / 1e6:.1f}"
+          f" MB, io.colvar) in {t_write:.2f} s", flush=True)
+
+    grid = (10.0, 1000.0, 10.0)
+    lags = dqops._lag_grid(dt, *grid, n)
+    t0 = time.perf_counter()
+    _, data = colvar.read_colvar(fn)
+    t_read = time.perf_counter() - t0
+    qd = torch.as_tensor(data[1:5].T.copy(), device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    stats, t_stats = wall_s(torch, lambda: dqops.dq_statistics(qd, lags, n_chunks=4))
+    peak_stats = torch.cuda.max_memory_allocated() - base
+    _, t_fin = wall_s(torch, lambda: dqops._finalise_dq(stats, lags, dt))
+    del stats, qd
+    out = {}
+    for key, kw in (("memory", {}), ("streamed", dict(stream_chunk=65536))):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out[key], secs = wall_s(torch, lambda: stage_dq(fn, str(work / f"dq-{key}"), *grid,
+                                                        n_chunks=4, **kw))
+        out[key + "_s"] = secs
+        out[key + "_peak"] = torch.cuda.max_memory_allocated() - base
+    t0 = time.perf_counter()
+    out["cpu"] = stage_dq(fn, str(work / "dq-cpu"), *grid, n_chunks=4, device="cpu")
+    out["cpu_s"] = time.perf_counter() - t0
+    print(f"  in memory: read {t_read:.3f} s (libfastio), statistics {t_stats:.3f} s = "
+          f"{n / t_stats:.4e} frames/s ({len(lags)} lags, peak {peak_stats / 1e6:.1f} MB above the "
+          f"input), finalise {t_fin:.3f} s; the whole stage {out['memory_s']:.3f} s (peak "
+          f"{out['memory_peak'] / 1e6:.1f} MB); streamed (65536 frames a part) "
+          f"{out['streamed_s']:.3f} s (peak {out['streamed_peak'] / 1e6:.1f} MB); CPU float64 "
+          f"{out['cpu_s']:.1f} s", flush=True)
+    ref = out["cpu"]
+    print(f"  D recovered {np.sort(ref.D_axes) * 1e-12} ps^-1 (body frame {D.tolist()}), "
+          f"Diso {ref.D_iso * 1e-12:.4e}", flush=True)
+    for key in ("memory", "streamed"):
+        r = out[key]
+        gap = max(float(np.max(np.abs(r.D_axes - ref.D_axes) / np.abs(ref.D_axes))),
+                  abs(r.D_iso - ref.D_iso) / abs(ref.D_iso))
+        check(bool(np.isfinite(r.D_axes).all()) and gap <= 1e-10,
+              f"Delta-q {key} D and Diso relative gap to CPU float64 {gap:.2e} <= 1e-10")
+    gap = float(np.max(np.abs(out["memory"].D_axes - out["streamed"].D_axes)
+                       / np.abs(out["memory"].D_axes)))
+    check(gap <= 1e-10, f"Delta-q in memory vs streamed D relative gap {gap:.2e} <= 1e-10")
+    return dict(frames=n, read=t_read, stats=t_stats, fin=t_fin, peak=peak_stats,
+                memory=out["memory_s"], memory_peak=out["memory_peak"],
+                streamed=out["streamed_s"], streamed_peak=out["streamed_peak"],
+                cpu=out["cpu_s"], rate=n / t_stats)
+
+
 
 def phase_acf_stage_shapes(torch, tac, cuda_acf, gen):
     """Kernel A against acf_sums_plain (torch.fft) at the stage's shapes:
@@ -1019,7 +1250,11 @@ def main() -> int:
     finish = phase_finish(torch, counters, engine, run_finish, Diffusion, paf_ensemble, acc, count)
     del acc
     a_stage = phase_acf_stage_shapes(torch, tac, cuda_acf, gen)
-    stage = phase_stage(torch, tac, cuda_acf, counters, gen)
+    with tempfile.TemporaryDirectory() as work:
+        ubq = ubiquitin_system(Path(work))
+        stage = phase_stage(torch, tac, cuda_acf, counters, gen, ubq)
+        wf = phase_runall(torch, counters, ubq)
+        dq_long = phase_dq_long(torch, Path(work))
 
     print(f"chip_smoke phases took {time.perf_counter() - t_start:.1f} s, build included",
           flush=True)
@@ -1044,7 +1279,11 @@ def main() -> int:
           f"F 10000 {a_stage['f10000']['ms']:.4f} ms (FFT {a_stage['f10000']['plain']:.4f}); "
           f"stage on {stage['frames']} frames {stage['wall']:.3f} s (decode + reduce "
           f"{stage['host']:.3f} s); stage group step {stage['step_ms']:.3f} ms, eigh "
-          f"{stage['eigh_ms']:.3f} ms; ct_entry {stage['entry_wall']:.3f} s", flush=True)
+          f"{stage['eigh_ms']:.3f} ms; ct_entry {stage['entry_wall']:.3f} s; stage writer "
+          f"{stage['write']:.3f} s (numpy rows {stage['rows']:.3f}); run-all {wf['wall']:.3f} s, "
+          f"device busy {wf['busy']:.2f} ms; Delta-q on 10^6 frames: statistics "
+          f"{dq_long['stats']:.3f} s ({dq_long['rate']:.4e} frames/s), stage in memory "
+          f"{dq_long['memory']:.3f} s, streamed {dq_long['streamed']:.3f} s", flush=True)
     if failures:
         print(f"chip_smoke FAILED ({len(failures)}):", *failures, sep="\n  ",
               file=sys.stderr)
@@ -1061,6 +1300,7 @@ def main() -> int:
              slab_plan_plain_ms=a_times["long_plain"], slab_plan_bound_ms=a_times["long_bound"],
              slab_plan_bound_by=a_times["long_by"],
              launches_stage=stage["launches"][0], launches_ct_entry=stage["launches_entry"][0],
+             launches_runall=wf["launches"][0],
              **{f"stage_{k}_{f}": t[x] for k, t in a_stage.items()
                 for f, x in (("ms", "ms"), ("plain_ms", "plain"), ("bound_ms", "bound"),
                              ("bound_by", "by"), ("max_abs_err", "err"))}),
@@ -1071,7 +1311,7 @@ def main() -> int:
              ms=fwd_t["B"], plain_ms=fwd_t["B_plain"], bound_ms=fwd_t["B_bound"],
              bound_by=fwd_t["B_by"], library_ms=None, launches_ladder=ladder["launches"][1],
              launches_finish=finish["launches"][1],
-             launches_ct_entry=stage["launches_entry"][1],
+             launches_ct_entry=stage["launches_entry"][1], launches_runall=wf["launches"][1],
              **{f"{k}_{f}": t[x] for k, t in (("k5", k5), ("k8", k8))
                 for f, x in (("ms", "B"), ("plain_ms", "B_plain"), ("bound_ms", "B_bound"))}),
         dict(name="lm_cost", route="cuda", source=src + "lm_hgc.cu",
@@ -1080,7 +1320,7 @@ def main() -> int:
              ms=fwd_t["C"], plain_ms=fwd_t["C_plain"], bound_ms=fwd_t["C_bound"],
              bound_by=fwd_t["C_by"], library_ms=None, launches_ladder=ladder["launches"][2],
              launches_finish=finish["launches"][2],
-             launches_ct_entry=stage["launches_entry"][2],
+             launches_ct_entry=stage["launches_entry"][2], launches_runall=wf["launches"][2],
              **{f"{k}_{f}": t[x] for k, t in (("k5", k5), ("k8", k8))
                 for f, x in (("ms", "C"), ("plain_ms", "C_plain"), ("bound_ms", "C_bound"))}),
     ]
