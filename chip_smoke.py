@@ -1042,11 +1042,30 @@ def phase_runall(torch, counters, ubq):
     t0 = time.perf_counter()
     cpu_dir, cpu, _ = run("cpu", device="cpu")
     cpu_s = time.perf_counter() - t0
+    # the host's part of the orient and ct steps: one decode of the file
+    # (load_trajectory, as both steps read it) and the bond-observable
+    # reduction of stage_ct
+    from spinrelax_tpu_torch.io import pdb as pdbio
+    from spinrelax_tpu_torch.io import trajectory
+    from spinrelax_tpu_torch.ops import orient
+    from spinrelax_tpu_torch.pipeline.stages import _fit_weights
+
+    t0 = time.perf_counter()
+    xyz, _ = trajectory.load_trajectory(ubq["xtc"])
+    t_decode = time.perf_counter() - t0
+    top, ref_xyz = pdbio.read_structure(ubq["ref"])
+    idx_h, idx_x, _ = pdbio.bond_indices(top)
+    t0 = time.perf_counter()
+    orient.bond_obs_host(xyz, ref_xyz[0], idx_h, idx_x, _fit_weights(top, "occupancy > 0"))
+    t_reduce = time.perf_counter() - t0
+    del xyz
     steps = ", ".join(f"{k} {v:.3f} s" for k, v in card["walls"].items())
     print(f"  card: wall {wall:.3f} s ({steps}); device busy {busy:.2f} ms, idle share "
           f"{1 - busy / (wall * 1e3):.1%}; profiled: "
           + "; ".join(f"kernel {k} {n} launches, {us:.2f} us each"
                       for k, (n, us) in sorted(kt.items())), flush=True)
+    print(f"  host parts: one decode of the .xtc (load_trajectory) {t_decode:.3f} s, the "
+          f"bond-observable reduction of stage_ct {t_reduce:.3f} s", flush=True)
     print(f"  CPU float64: wall {cpu_s:.1f} s ("
           + ", ".join(f"{k} {v:.3f} s" for k, v in cpu["walls"].items()) + ")", flush=True)
     print(f"  Diso used {card['diso']:.6e} ps^-1 (CPU {cpu['diso']:.6e}), Daniso "
@@ -1086,7 +1105,8 @@ def phase_runall(torch, counters, ubq):
               f"run-all {bf} MHz J(w) median relative gap {float(rel_gap(a, b).median()):.2e} "
               f"<= 1e-5")
     return dict(wall=wall, walls=card["walls"], busy=busy, launches=launches, kernels=kt,
-                cpu=cpu_s, share=share, rate_gap_max=max(gaps))
+                cpu=cpu_s, share=share, rate_gap_max=max(gaps), decode=t_decode,
+                reduce=t_reduce)
 
 
 def phase_dq_long(torch, work: Path):

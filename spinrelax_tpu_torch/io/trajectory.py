@@ -75,7 +75,9 @@ def load_trajectory(fn: str, top_fn: Optional[str] = None) -> Tuple[np.ndarray, 
         return np.asarray(np.load(fn, mmap_mode="r")), 1.0
     if disp.endswith(".pdb"):
         return pdbio.read_pdb(fn)[1], 1.0
-    xyz, _boxes, times = native.read_xtc(fn)
+    # all cores, as iter_trajectory: frames decode independently, and the
+    # output is the same bits for any thread count
+    xyz, _boxes, times = native.read_xtc(fn, threads=0)
     return xyz, _spacing(times)
 
 

@@ -37,9 +37,11 @@ import torch
 from .. import checked_device
 from ..core import quaternion as qt
 
-# Memory budget of one block of lags: ~200 bytes a (lag, frame) pair.
+# Memory budget of one block of lags: ~240 bytes a (lag, frame) pair, on
+# top of three (n, 4) copies of the frames a part holds (the pairs' first
+# and second frames and the conjugates).
 BLOCK_BYTES = 256 << 20
-_PAIR_BYTES = 200
+_PAIR_BYTES = 240
 
 
 class DqStats(NamedTuple):

@@ -180,7 +180,7 @@ def bond_obs_host(xyz, reference, idx_h, idx_x, fit_weights=None,
         # different float64 order, flipping occasional float32-cast ulps).
         from ..io import native as natio
 
-        raw_diff, S64 = natio.reduce_obs_mem(xyz, idx_h, idx_x, A)
+        raw_diff, S64 = natio.reduce_obs_mem(xyz, idx_h, idx_x, A, threads=0)
         return raw_diff, S64.astype(out_dtype)
 
     raw_diff = (xyz[:, idx_h, :] - xyz[:, idx_x, :]).astype(out_dtype, copy=False)

@@ -428,7 +428,6 @@ def stage_ct(
     force: bool = False,
     timestep: Optional[float] = None,
     device="cuda",
-    dtype=None,
 ):
     """Compute bond-vector statistics with the whole trajectory in memory.
     Writes {pref}_Ctext.dat, {pref}_Ctint.dat, {pref}_vecHistogram.npz /
@@ -438,8 +437,8 @@ def stage_ct(
     correlations (``orient.bond_obs_host``), which go to ``device`` (the
     card unless ``device="cpu"``) in one copy; there the raw and superposed
     bond vectors are formed and their C(t) taken by kernel A
-    (``autocorr.ct_palmer``).  ``dtype``: the device arithmetic's, by
-    default float32 on the card (kernel A's) and float64 on the CPU.
+    (``autocorr.ct_palmer``), in float32 on the card (kernel A's dtype) and
+    float64 on the CPU.
 
     ``timestep`` overrides the frame spacing reported by the trajectory
     loader (for formats that carry no time axis).  ``s2_mode`` "ired" and
@@ -452,7 +451,7 @@ def stage_ct(
     if do_vec_dist and vec_storage not in ("Histogram", "PhiTheta", "TextPhiTheta"):
         raise ValueError(f"unknown vec_storage {vec_storage!r}")
     dev = checked_device(device)
-    f = dtype or (torch.float32 if dev.type == "cuda" else torch.float64)
+    f = torch.float32 if dev.type == "cuda" else torch.float64
     if len(ref_pdbs) == 1:
         ref_pdbs = list(ref_pdbs) * len(traj_files)
 

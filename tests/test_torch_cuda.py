@@ -10,7 +10,8 @@ import numpy as np
 import pytest
 import torch
 
-from spinrelax_tpu_torch.entry import correlated_walk, finish_entry, hetero_cohort
+from spinrelax_tpu_torch.entry import (correlated_walk, finish_entry, hetero_cohort,
+                                       workflow_entry)
 from spinrelax_tpu_torch.fit.expfit import fit_ct_ladder
 from spinrelax_tpu_torch.fit.lm import fit_multiexp
 from spinrelax_tpu_torch.ops import autocorr as tac
@@ -450,3 +451,48 @@ def test_orient_on_card_matches_cpu_f64(gen):
     b = orient.bond_vectors_from_obs(raw, S)
     np.testing.assert_allclose(a.raw.cpu().numpy(), b.raw.numpy(), atol=1e-6)
     np.testing.assert_allclose(a.fitted.cpu().numpy(), b.fitted.numpy(), atol=1e-5)
+
+
+def test_dq_on_card_matches_cpu(gen):
+    """Delta-q in float64 on the card (statistics in lag blocks, sub-chunk
+    segment sums, the one-fetch finalise) against the CPU, in memory and
+    streamed: D to 1e-10 relative."""
+    from spinrelax_tpu_torch.core import quaternion as qt
+    from spinrelax_tpu_torch.ops import dq as tdq
+
+    w = torch.randn((20000, 3), generator=gen, device="cuda", dtype=torch.float64)
+    w = w * torch.sqrt(2.0 * torch.tensor([8e-4, 1.2e-3, 2.4e-3], device="cuda",
+                                          dtype=torch.float64))
+    th = w.norm(dim=1, keepdim=True)
+    q = torch.cat([torch.cos(th / 2), w / th * torch.sin(th / 2)], dim=1)
+    k = 1
+    while k < q.shape[0]:
+        q = torch.cat([q[:k], qt.qmult(q[:-k], q[k:])])
+        k *= 2
+    q = qt.qnorm(q)
+    grid = (1.0, 5.0, 500.0, 5.0)
+    card = tdq.analyse_dq(q, *grid, n_chunks=4)
+    cpu = tdq.analyse_dq(q.cpu(), *grid, n_chunks=4)
+    streamed = tdq.analyse_dq_streamed((q[i: i + 3000].cpu().numpy() for i in range(0, 20000, 3000)),
+                                       *grid, chunk_frames=2048, n_chunks=4, n_total=20000)
+    for r in (card, streamed):
+        np.testing.assert_allclose(r.D_axes, cpu.D_axes, rtol=1e-10)
+        np.testing.assert_allclose(r.D_iso, cpu.D_iso, rtol=1e-10)
+        np.testing.assert_allclose(r.iso_chunks, cpu.iso_chunks, atol=1e-12)
+
+
+def test_workflow_on_card_matches_cpu(gen, tmp_path):
+    """entry.workflow_entry on the card (kernel A in stage_ct, B and C in the
+    ladder) against the same workflow on the CPU in float64."""
+    from spinrelax_tpu_torch.io import xvg
+
+    for c in (cuda_acf.acf_lag_sums, cuda_lm.hgc_cuda, cuda_lm.cost_cuda):
+        c.launches = 0
+    card = workflow_entry(str(tmp_path / "card"), n_res=6, n_frames=3000, tau_memory=500.0)
+    assert cuda_acf.acf_lag_sums.launches == 2 and cuda_lm.hgc_cuda.launches > 0
+    cpu = workflow_entry(str(tmp_path / "cpu"), device="cpu", n_res=6, n_frames=3000,
+                         tau_memory=500.0)
+    np.testing.assert_allclose(card["diso"], cpu["diso"], rtol=1e-6)
+    for name in ("rotdif-0.5ns-600_R1.dat", "rotdif-0.5ns-850_NOE.dat"):
+        a, b = (xvg.load_matrix(str(tmp_path / d / name))[:, 1] for d in ("card", "cpu"))
+        assert np.median(np.abs(a - b) / np.abs(b)) < 1e-5

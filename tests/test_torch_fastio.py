@@ -59,6 +59,18 @@ def table(tmp_path_factory):
 
 # --- io.native: libfastio -------------------------------------------------------
 
+def test_library_is_the_jax_source_built_into_build_dir():
+    """csrc/fastio.cpp is the JAX package's source, unchanged; the library
+    lands in spinrelax_tpu_torch/build/ under a name carrying its hash."""
+    here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    src = open(os.path.join(here, "spinrelax_tpu", "native", "fastio.cpp"), "rb").read()
+    assert (_build.CSRC / "fastio.cpp").read_bytes() == src
+    assert tnat.available()
+    path = _build.host_library_path("fastio")
+    assert path.exists() and path.parent == _build.BUILD_DIR
+    assert path.name.startswith("libfastio_") and path.suffix == ".so"
+
+
 def test_load_table_and_headers_match_jax(table, tmp_path):
     fn, data = table
     got = tnat.load_table(fn)
