@@ -837,7 +837,7 @@ def phase_stage(torch, tac, cuda_acf, counters, gen, ubq):
                                                   allow_pickle=True)["data"])
                          for n in ("card", "cpu"))
         # The writer of _Ctext.dat / _Ctint.dat: libfastio's rows (the
-        # stage's route) against numpy's row formatter (PR 7's route) on
+        # stage's route) against numpy's row formatter (the route before libfastio) on
         # the same rows, the same bytes.
         rows = (card["res_ids"], tac.lag_times(dt, tau).numpy(),
                 np.stack([card["Ct"].T, card["dCt"].T], axis=-1))

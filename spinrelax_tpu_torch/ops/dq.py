@@ -303,7 +303,7 @@ def calculate_anisotropies(D):
 
 
 # ---------------------------------------------------------------------------
-# High-level driver
+# High-level entry points
 # ---------------------------------------------------------------------------
 
 

@@ -1,4 +1,4 @@
-"""Physical corrections applied by the workflow driver.
+"""Physical corrections applied by the workflow orchestrator.
 
 Replaces the awk embedded in run-all.bash:15-28: scaling of a simulated
 D_iso to experimental conditions via the Garcia-2000 water-viscosity

@@ -121,7 +121,7 @@ def stage_orientation(
 
 def _format_dq_headers(res: dqops.DqResult) -> Tuple[List[str], List[str]]:
     """Reproduce the reference's iso/aniso header formats exactly -- the
-    run-all driver greps Diso/Dani_L/Drho_L/Dani_S/Drho_S and the PAF
+    run-all script greps Diso/Dani_L/Drho_L/Dani_S/Drho_S and the PAF
     quaternion out of them (run-all.bash:393,412-416;
     calculate-dq-distribution.py:221-275)."""
     has_chunks = res.iso_tau_chunks.size > 0
