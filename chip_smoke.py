@@ -61,8 +61,9 @@ Builds the port's CUDA kernels from csrc/ and runs, in order:
    orientation colvar, Delta-q -> D tensor, stage_ct (kernel A twice),
    the DoF ladder (kernels B and C), rates and J(w) at both fields, held
    to the same workflow on the CPU in float64 (D_i and Diso 1e-6
-   relative, the anisotropies as printed, C(t) 2e-6, rates' median
-   relative gap 1e-5, rungs equal on >= 98 %), with each step's wall,
+   relative, the anisotropies as printed, C(t) 2e-6, rungs equal on
+   >= 98 %, every rate and J(w) value of a residue of equal rung 1e-5
+   relative plus a small atol), with each step's wall,
    the launches of A, B and C from the wrappers and the profiler, the
    device's idle share, and a second main() that skips every stage;
    (b) Delta-q at 10^6 frames of anisotropic Brownian tumbling made on
@@ -1086,24 +1087,36 @@ def phase_runall(torch, counters, ubq):
     rung = [fittedct.read_fittedct(str(d / f"{pref}_fittedCt.dat"), device="cpu")
             for d in (card_dir, cpu_dir)]
     rung = [m.mask.sum(1) * 2 + m.s2fast for m in rung]
-    share = float((rung[0] == rung[1]).double().mean())
+    same = rung[0] == rung[1]
+    share = float(same.double().mean())
     check(share >= 0.98, f"run-all rung equal to the CPU float64 ladder's on {share:.4f} of "
                          f"{len(rung[0])} residues (>= 0.98)")
+    # Rates and J(w) element by element, on the residues whose rung agrees
+    # (another rung is another model): |a - b| <= 1e-5 |b| + atol.  For the
+    # rates atol = 1e-5 max|b| of the file, so an NOE near zero is held to
+    # the file's scale; J(w) is printed with "%g", so its atol is one unit
+    # in the sixth printed digit of b.
     gaps = []
     for bf in ("600", "850"):
-        for f in ("R1", "R2", "NOE", "rho"):
-            a, b = (torch.from_numpy(xvg.load_matrix(d / f"{pref}-{bf}_{f}.dat")[:, 1])
-                    for d in (card_dir, cpu_dir))
-            gap = rel_gap(a, b)
-            gaps.append(float(gap.max()))
-            check(bool(torch.isfinite(a).all()) and float(gap.median()) <= 1e-5,
-                  f"run-all {bf} MHz {f} median relative gap to CPU float64 "
-                  f"{float(gap.median()):.2e} <= 1e-5 (max {float(gap.max()):.2e})")
-        a, b = (torch.from_numpy(xvg.load_sxydylist(d / f"{pref}-{bf}_Jw.dat")[2])
-                for d in (card_dir, cpu_dir))
-        check(float(rel_gap(a, b).median()) <= 1e-5,
-              f"run-all {bf} MHz J(w) median relative gap {float(rel_gap(a, b).median()):.2e} "
-              f"<= 1e-5")
+        for f in ("R1", "R2", "NOE", "rho", "Jw"):
+            if f == "Jw":
+                a, b = (torch.from_numpy(xvg.load_sxydylist(d / f"{pref}-{bf}_Jw.dat")[2])
+                        for d in (card_dir, cpu_dir))
+                atol = 10.0 ** (torch.floor(torch.log10(b.abs())) - 5)
+            else:
+                a, b = (torch.from_numpy(xvg.load_matrix(d / f"{pref}-{bf}_{f}.dat")[:, 1:2])
+                        for d in (card_dir, cpu_dir))
+                atol = 1e-5 * b.abs().max()
+            a, b, atol = a[same], b[same], torch.broadcast_to(atol, b.shape)[same]
+            excess = (a - b).abs() / (1e-5 * b.abs() + atol)
+            worst = int(excess.amax(1).argmax())
+            gap = float(rel_gap(a, b).max())
+            gaps.append(gap)
+            check(bool(torch.isfinite(a).all()) and float(excess.max()) <= 1.0,
+                  f"run-all {bf} MHz {f}: every value within 1e-5 |b| + atol of CPU float64 "
+                  f"on the {int(same.sum())} residues of equal rung (worst at residue index "
+                  f"{worst}: {float(excess.max()):.3f} of the allowance; max relative gap "
+                  f"{gap:.2e})")
     return dict(wall=wall, walls=card["walls"], busy=busy, launches=launches, kernels=kt,
                 cpu=cpu_s, share=share, rate_gap_max=max(gaps), decode=t_decode,
                 reduce=t_reduce)

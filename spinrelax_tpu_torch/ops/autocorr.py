@@ -22,7 +22,6 @@ NaN dCt, as the reference's 0/0 does.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from . import cuda_acf
@@ -306,13 +305,10 @@ def reformat_by_tau(vec_list, delta_t: float, tau_memory: float):
     """Concatenate per-trajectory (nFrames, nBonds, 3) arrays and reshape
     into Palmer chunks (nChunks, framesPerChunk, nBonds, 3), dropping
     remainder frames per source (calculate-Ct-from-traj.py:245-275).
-    Tensors stay tensors (on their device); anything else becomes numpy."""
+    Tensors stay on their device; numpy arrays become CPU tensors."""
     frames_per_chunk = int(tau_memory / delta_t)
-    used = [v[: (v.shape[0] // frames_per_chunk) * frames_per_chunk] for v in vec_list]
-    if torch.is_tensor(used[0]):
-        out = torch.cat(used)
-    else:
-        out = np.concatenate([np.asarray(v) for v in used], axis=0)
+    out = torch.cat([torch.as_tensor(v[: (v.shape[0] // frames_per_chunk) * frames_per_chunk])
+                     for v in vec_list])
     n_chunks = out.shape[0] // frames_per_chunk
     return out.reshape(n_chunks, frames_per_chunk, out.shape[-2], out.shape[-1])
 

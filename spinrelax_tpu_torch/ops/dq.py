@@ -17,6 +17,7 @@ caller asks for the CPU), as the reference computes in float64:
   (:data:`BLOCK_BYTES`), each block's pairs formed from zero-padded slices
   of q, so a pair past the end of the trajectory contributes a zero vector;
 - iso needs no pass of its own: sum |v|^2 is the trace of sum v v^T;
+- with sub-chunks, M is the sum of the chunks' sums;
 - the reference's uncertainty sub-chunks are segment sums (``index_add_``
   on the chunk id of each pair's first frame), their counts analytic;
 - the double-cover reduction of dq is left out: v v^T is the same, bit
@@ -123,7 +124,9 @@ class _PairSums:
         B, nv = self.tail.shape[0], part.shape[0]
         first = torch.cat([self.tail, part])
         # second frames: zero in the tail (those pairs were counted) and
-        # past the end, so such a pair's v is exactly zero
+        # past the end, so such a pair's v is exactly zero.  A block's rows
+        # are as many as its SHORTEST lag has pairs; its longer lags read
+        # up to max_lag frames into the padding.
         second = torch.cat([torch.zeros_like(self.tail), part,
                             part.new_zeros((self.max_lag, 4))])
         conj = qt.qconj(first)
@@ -140,8 +143,9 @@ class _PairSums:
             sec = torch.stack([second[d: d + n_rows] for d in self.lags[blk]])
             v = qt.qmult(conj[None, :n_rows], sec)[..., 1:]  # (Lb, n_rows, 3)
             idx = torch.as_tensor(blk, device=self.dev)
-            self.M.index_add_(0, idx, v.transpose(1, 2) @ v)
-            if C:
+            if not C:
+                self.M.index_add_(0, idx, v.transpose(1, 2) @ v)
+            else:
                 t = torch.arange(n_rows, device=self.dev) + (self.pos - B)
                 cid = torch.clamp(t[None, :] // self.nblock[idx][:, None], max=C - 1)
                 seg = (torch.arange(len(blk), device=self.dev)[:, None] * C + cid).reshape(-1)
@@ -160,7 +164,7 @@ class _PairSums:
             return 1.0 - 2.0 * torch.diagonal(M, dim1=-2, dim2=-1).sum(-1)
 
         cnt = torch.as_tensor(self.cnt, dtype=torch.float64, device=self.dev)
-        M = self.M / cnt[:, None, None]
+        M = (self.M_c.sum(1) if self.n_chunks else self.M) / cnt[:, None, None]
         if self.n_chunks:
             cnt_c = torch.as_tensor(_chunk_counts(n_total, self.lags, self.n_chunks),
                                     dtype=torch.float64, device=self.dev)
