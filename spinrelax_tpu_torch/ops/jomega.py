@@ -8,6 +8,7 @@ follow the dtype and device of the tensor they meet.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -187,6 +188,70 @@ def j_combine_symmtop(omega, v, dpar, dperp, S2, C, tau, comp_mask=None, zeta=1.
     if comp_mask is not None:
         term = term * comp_mask[..., None]
     return zeta * (J + torch.sum(term, dim=-2))
+
+
+def symmtop_g_factors(omega, dpar, dperp, S2, C, tau, comp_mask=None, zeta=1.0):
+    """Per-decay-mode Lorentzian factors G_j(w) of the axisymmetric
+    combined J, which is linear in the A coefficients:
+
+        j_combine_symmtop(v, ...) == sum_j A_j(v) G_j(w)
+
+    so the ensemble mean and sd of any rate linear in J follow from the
+    first and second A moments (:func:`a_moments_symmtop`,
+    ``ops.observables.rates_from_a_moments_newapi``).  ``dpar`` / ``dperp``
+    are tensors on the device of ``S2`` (or Python floats).
+
+    Shapes: S2 (...,), C/tau/comp_mask (..., K); returns (..., 3, nOm).
+    """
+    dpar = _like(dpar, S2)
+    D_J = d_coefficients_symmtop(dpar, _like(dperp, S2))  # (3,)
+    omega = _like(omega, S2)
+    safe_tau = torch.where(tau > 0, tau, torch.ones_like(tau))
+    lor0 = D_J[..., None] / (D_J[..., None] ** 2 + omega**2)  # (3, nOm)
+    G = S2[..., None, None] * lor0
+    Dk = D_J + 1.0 / safe_tau[..., None]  # (..., K, 3)
+    lork = Dk[..., None] / (Dk[..., None] ** 2 + omega**2)  # (..., K, 3, nOm)
+    Ck = C if comp_mask is None else C * comp_mask
+    G = G + torch.sum(Ck[..., None, None] * lork, dim=-3)
+    return zeta * G
+
+
+def a_moments_symmtop(vecs, weights=None):
+    """Weighted first moment and second *central* moment of the three
+    axisymmetric A coefficients over the sample axis, for both the prolate
+    and the oblate branch (the branch follows Daniso, which the optimiser
+    moves, so both are kept and one is picked on the device).
+
+    Normalised as :func:`core.stats.weighted_mean_std` (sum of weights,
+    guarded > 0), so rates rebuilt from these moments equal the per-sample
+    ensemble statistics to rounding.
+
+    vecs : (nRes, nSamp, 3) unit vectors; weights: (nRes, nSamp) or None.
+    Returns numpy float64 (mu_p, cov_p, mu_o, cov_o): mu (nRes, 3), cov
+    (nRes, 3, 3).  Host numpy, called once per geometry.
+    """
+    vecs = np.asarray(vecs, dtype=np.float64)
+    out = []
+    for prolate in (True, False):
+        z2 = vecs[..., 2 if prolate else 0] ** 2
+        onemz2 = 1.0 - z2
+        A = np.stack(
+            [3.0 * z2 * onemz2, 0.75 * onemz2**2, 0.25 * (3.0 * z2 - 1.0) ** 2],
+            axis=-1,
+        )  # (nRes, nSamp, 3)
+        if weights is None:
+            mu = A.mean(axis=1)
+            d = A - mu[:, None, :]
+            cov = np.einsum("rsj,rsk->rjk", d, d) / A.shape[1]
+        else:
+            w = np.asarray(weights, dtype=np.float64)
+            wsum = w.sum(axis=1)
+            safe = np.where(wsum > 0, wsum, 1.0)
+            mu = np.einsum("rs,rsj->rj", w, A) / safe[:, None]
+            d = A - mu[:, None, :]
+            cov = np.einsum("rs,rsj,rsk->rjk", w, d, d) / safe[:, None, None]
+        out.extend([mu, cov])
+    return tuple(out)
 
 
 def j_combine_ellipsoid(omega, v, D, S2, C, tau, comp_mask=None, zeta=1.0):
