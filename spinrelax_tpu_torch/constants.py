@@ -98,6 +98,10 @@ def field_from_mhz(freq_mhz: float) -> float:
     return 2.0 * math.pi * freq_mhz / 267.513
 
 
+def field_from_hz(freq_hz: float) -> float:
+    return 2.0 * math.pi * freq_hz / 267.513e6
+
+
 @dataclasses.dataclass(frozen=True)
 class NucleusPair:
     """Static description of an X-H spin pair at a given field.
