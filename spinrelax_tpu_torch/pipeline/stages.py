@@ -6,8 +6,8 @@ torch device, the card unless the caller asks for the CPU; the artefact
 formats are byte-compatible with the JAX package's and the reference's, so
 a stage of either package reads the other's files.  Ported: the
 orientation colvar, Delta-q -> D tensor, the in-memory and the streamed
-C(t) stages, the C(t) fit and the relaxation predictions.  The multi-field
-fit (``stage_multifield``) waits for ROADMAP item 12.
+C(t) stages, the C(t) fit, the relaxation predictions with the legacy
+single-field fits, and the multi-field global fit (``stage_multifield``).
 """
 
 from __future__ import annotations
@@ -665,14 +665,11 @@ def stage_relax(
     npz distribution), then ``ref_pdb`` [+ ``traj_file``] (vectors taken
     directly from structure/trajectory, no fitting).
 
-    The legacy fit against experiment (``expt_file`` + ``opt_mode``) waits
-    for ROADMAP item 12 and raises ``NotImplementedError`` before any
-    artefact is written.
+    With ``expt_file`` + ``opt_mode``, first fits global parameters
+    against a 3/6-column experimental table (legacy modes Diso / DisoS2 /
+    DisoCSA / DisoS2CSA / new, calculate-relaxations-from-Ct.py:865-1000)
+    on ``device`` (``fit.legacyfit.fit_legacy``).
     """
-    if expt_file is not None and opt_mode is not None:
-        raise NotImplementedError(
-            "stage_relax(expt_file=, opt_mode=): the legacy fit (fit/legacyfit.py) "
-            "comes with ROADMAP item 12")
     cts = fctio.read_fittedct(fittedct_file, device=device).with_zeta(zeta)
     pair = NucleusPair(isotope_a=BOND_ISOTOPES[nuclei], B0=field_from_mhz(freq_mhz),
                        time_unit=time_unit)
@@ -712,6 +709,57 @@ def stage_relax(
                                         ).numpy()
 
     sim_resid = cts.names
+    opt_header = ""
+    if expt_file is not None and opt_mode is not None:
+        from ..fit.legacyfit import fit_legacy
+
+        exp_resid, expblock = xvg.load_xys(expt_file)
+        exp_names = [str(int(x)) for x in exp_resid]
+        ny = expblock.shape[1]
+        if ny == 6:
+            exp = expblock.reshape(len(exp_resid), 3, 2)[..., 0]
+            exp_err = expblock.reshape(len(exp_resid), 3, 2)[..., 1]
+        elif ny == 3:
+            exp, exp_err = expblock, None
+        else:
+            raise ValueError(f"{expt_file}: expected 3 or 6 data columns")
+
+        # Residue-intersection filtering
+        # (calculate-relaxations-from-Ct.py:801-851).
+        shared = [n for n in sim_resid if n in exp_names]
+        if not shared:
+            raise ValueError("no overlap between experimental and simulated residues")
+        sim_idx = np.array([sim_resid.index(n) for n in shared])
+        exp_idx = np.array([exp_names.index(n) for n in shared])
+        result = fit_legacy(
+            opt_mode, pair, diffusion, cts.select(sim_idx),
+            exp[exp_idx], None if exp_err is None else exp_err[exp_idx],
+            vecs=None if vecs is None else vecs[sim_idx],
+            weights=None if weights is None else weights[sim_idx],
+            csa0=None if csa is None else np.asarray(csa)[sim_idx],
+            max_cycles=max_cycles, tol=tol, method=opt_method,
+        )
+        diffusion = diffusion.with_diso(result.diso)
+        zeta_eff = zeta * result.s2_scale
+        cts = cts.with_zeta(zeta_eff)
+        if csa is None:
+            csa = np.full(len(sim_resid), pair.csa_value)
+        csa = np.asarray(csa, dtype=float).copy()
+        csa[sim_idx] = result.csa
+        if opt_mode == "new":
+            xvg.print_xy(out_prefix + "_CSA_values.dat", sim_resid, csa)
+        lines = []
+        for name, val, scale, unit, was_fit in (
+            ("Diso", result.diso, 1.0, "ps^-1", True),
+            ("zeta", zeta_eff, 1.0, "a.u.", "S2" in opt_mode),
+            ("CSA", float(np.mean(csa)), 1e6, "ppm", "CSA" in opt_mode or opt_mode == "new"),
+            ("chi", np.sqrt(result.chisq), 1.0, "a.u.", True),
+        ):
+            status = "Optimised" if was_fit else "Fixed"
+            lines.append("# %s %s: %g %s" % (status, name, val * scale, unit))
+        opt_header = "\n".join(lines)
+        print(opt_header)
+
     if jomega:
         J, dJ = observables.predict_jomega(pair, diffusion, cts, vecs=vecs, weights=weights)
         omega = np.abs(np.asarray(pair.omega5()))
@@ -735,10 +783,12 @@ def stage_relax(
                                       csa=csa)
     host = {k: None if v is None else v.cpu().numpy() for k, v in rates._asdict().items()}
     for name in ("R1", "R2", "NOE", "rho"):
+        header = "" if name == "rho" else opt_header
         if host["d" + name] is not None:
-            xvg.print_xydy(f"{out_prefix}_{name}.dat", sim_resid, host[name], host["d" + name])
+            xvg.print_xydy(f"{out_prefix}_{name}.dat", sim_resid, host[name], host["d" + name],
+                           header=header)
         else:
-            xvg.print_xy(f"{out_prefix}_{name}.dat", sim_resid, host[name])
+            xvg.print_xy(f"{out_prefix}_{name}.dat", sim_resid, host[name], header=header)
     return rates
 
 
@@ -761,6 +811,129 @@ def stage_relax_theoretical(
     cts = CtModelSet.from_lists(["1", "2", "3"], [zeta] * 3, [[0.0]] * 3, [[99999.0]] * 3,
                                 device=device)
     return observables.predict_rates(pair, diffusion, cts, vecs=np.eye(3))
+
+
+# ---------------------------------------------------------------------------
+# Stage 6: multi-field global fitting (calculate-relaxations-multi-field)
+# ---------------------------------------------------------------------------
+
+
+def stage_multifield(
+    fittedct_file: str,
+    expt_files: Sequence[str],
+    out_prefix: str,
+    diffusion: Diffusion,
+    vec_file: Optional[str] = None,
+    zeta: float = DEFAULT_ZETA,
+    csa: Optional[np.ndarray] = None,
+    opt_params: Optional[Sequence[str]] = None,
+    max_cycles: int = 10,
+    tol: float = 1e-6,
+    method: str = "powell",
+    include_expt: bool = False,
+    ref_pdb: Optional[str] = None,
+    devices: int = 0,
+    device="cuda",
+):
+    """Fit global parameters against N experiments on ``device`` (the card
+    unless ``device="cpu"``, float64) and export per-experiment xvg
+    predictions (+ the optimised CSA table when rsCSA is fitted).
+
+    ``ref_pdb`` is the --refpdb alternative vector source (one X-H vector
+    per residue straight from the structure,
+    calculate-relaxations-multi-field.py:126-129).  ``devices`` > 0 (the
+    residue-sharded fit) waits for ROADMAP item 15 and raises
+    ``NotImplementedError`` before any file is read."""
+    if devices:
+        raise NotImplementedError(
+            "stage_multifield(devices=): the residue-sharded fit "
+            "(parallel/fit.shard_experiment_set) comes with ROADMAP item 15")
+    from ..fit.globalfit import EXPORT_SCALING, EXPORT_UNITS, GlobalFitter, _eval_all, host
+    from ..io.experiments import read_experiment
+    from ..models.experiments import ExperimentSet
+
+    cts = fctio.read_fittedct(fittedct_file, device=device).with_zeta(zeta)
+    vecs = weights = vec_names = None
+    if vec_file is not None:
+        vec_names, vecs, weights = vecio.load_vector_distribution(vec_file)
+    elif ref_pdb is not None:
+        top, ref_xyz = pdbio.read_structure(ref_pdb)
+        idx_h, idx_x, res_h = pdbio.bond_indices(top)
+        v = ref_xyz[0, idx_h, :] - ref_xyz[0, idx_x, :]
+        vecs = v / np.linalg.norm(v, axis=-1, keepdims=True)
+        vec_names = np.asarray(res_h)
+    expts = [read_experiment(f) for f in expt_files]
+    es = ExperimentSet.build(expts, cts, diffusion, vecs=vecs, weights=weights,
+                             vec_names=vec_names, csa=csa)
+
+    if opt_params:
+        state = GlobalFitter(es, list(opt_params)).run(max_cycles=max_cycles, tol=tol,
+                                                       method=method)
+        final = dict(diso=state.diso, aniso=state.aniso, zeta=state.zeta,
+                     csa=np.asarray(state.csa), chisq=state.chisq)
+    else:
+        csa0 = es.csa
+        if csa0 is None:
+            csa0 = np.full(es.n_residues, es.experiments[0].pair.csa_value)
+        final = dict(diso=float(np.asarray(diffusion.diso)),
+                     aniso=float(np.asarray(diffusion.aniso)),
+                     zeta=float(zeta), csa=np.asarray(csa0), chisq=None)
+
+    # Predictions at the final parameters, fetched in one read, exported
+    # per experiment (export_xvg, spectral_densities.py:1178-1194).
+    preds = _eval_all(es, final["diso"], final["aniso"], final["zeta"], final["csa"])
+    flat = host(*[x for pr in preds for x in pr if x is not None])
+    preds_h = []
+    for v, dv in preds:
+        va = flat.pop(0)
+        preds_h.append((va, None if dv is None else flat.pop(0)))
+    opt_list = list(opt_params) if opt_params else []
+    for e, (va, dva) in zip(es.experiments, preds_h):
+        mhz = round(e.pair.B0 * 267.513 / (2.0 * np.pi))
+        fn = "%s_%s%s_%iMHz_%s.xvg" % (out_prefix, e.pair.isotope_a, e.pair.isotope_b, mhz,
+                                        e.expt_type)
+        with open(fn, "w") as fp:
+            print("# Type %s" % e.expt_type, file=fp)
+            print("# NucleiA %s" % e.pair.isotope_a, file=fp)
+            print("# NucleiB %s" % e.pair.isotope_b, file=fp)
+            print("# Frequency %g %s" % (e.pair.B0 * 267.513 / (2 * np.pi), "MHz"), file=fp)
+            for name in ("Diso", "Daniso", "zeta", "CSA"):
+                val = {"Diso": final["diso"], "Daniso": final["aniso"], "zeta": final["zeta"],
+                       "CSA": float(np.mean(final["csa"]))}[name]
+                status = "Optimised" if name in opt_list else "Fixed"
+                if name == "CSA" and "rsCSA" in opt_list:
+                    status = "OptimisedMean"
+                print("# %s %s: %g %s"
+                      % (status, name, val * EXPORT_SCALING[name], EXPORT_UNITS[name]), file=fp)
+            if final["chisq"] is not None:
+                print("# Optimised chi: %g a.u." % np.sqrt(final["chisq"]), file=fp)
+            print("", file=fp)
+            print("@target s0", file=fp)
+            if dva is not None:
+                print("@type xydy", file=fp)
+                for n, yy, ee in zip(cts.names, va, dva):
+                    print("%s %g %g" % (n, yy, ee), file=fp)
+            else:
+                print("@type xy", file=fp)
+                for n, yy in zip(cts.names, va):
+                    print("%s %g" % (n, yy), file=fp)
+            print("&", file=fp)
+            if include_expt and e.raw is not None:
+                print("@target s1", file=fp)
+                d = e.raw
+                if d.errors is not None:
+                    print("@type xydy", file=fp)
+                    for n, yy, ee in zip(d.names, d.values, d.errors):
+                        print("%s %g %g" % (n, yy, ee), file=fp)
+                else:
+                    print("@type xy", file=fp)
+                    for n, yy in zip(d.names, d.values):
+                        print("%s %g" % (n, yy), file=fp)
+                print("&", file=fp)
+
+    if "rsCSA" in opt_list:
+        xvg.print_xy(out_prefix + "_CSA_opt.dat", cts.names, final["csa"])
+    return final
 
 
 # ---------------------------------------------------------------------------
