@@ -12,9 +12,11 @@ package's file format at the same path, so either package resumes over
 the other's artefacts; ``--force`` reruns everything.  The temperature /
 viscosity / D2O correction of D_iso reproduces run-all.bash:15-28.
 
-Not ported yet, each raising ``NotImplementedError`` before any stage
-runs: the multi-field fits (``-fit``, ROADMAP item 12) and ``-devices``
-(ROADMAP item 15).  The fitted-Ct plot waits for item 14.
+With ``-fit`` / ``-expfiles`` the multi-field global fit
+(``stages.stage_multifield``) runs once per mode after the relaxations.
+Not ported yet: ``-devices`` (ROADMAP item 15) raises
+``NotImplementedError`` before any stage runs; the fitted-Ct plot waits
+for item 14.
 """
 
 from __future__ import annotations
@@ -70,13 +72,9 @@ def run_workflow(cfg: WorkflowConfig, device="cuda") -> dict:
 
     Returns a summary: ``outpref``, the D_iso [ps^-1] and Daniso used,
     the PAF quaternion, and ``walls``, the host-clock seconds of each step
-    (orient, dq, ct, fit-ct, relax)."""
+    (orient, dq, ct, fit-ct, relax, and fit with ``-fit``)."""
     cfg.validate()
     io, tum, phy, exp = cfg.io, cfg.tumbling, cfg.physics, cfg.experiments
-    if exp.fit_modes:
-        raise NotImplementedError(
-            "run-all -fit: the multi-field fits (stage_multifield, fit/globalfit.py) "
-            "come with ROADMAP item 12")
     if io.devices > 0:
         raise NotImplementedError(
             "run-all -devices: sharding over several devices comes with ROADMAP item 15")
@@ -275,6 +273,16 @@ def run_workflow(cfg: WorkflowConfig, device="cuda") -> dict:
                 vec_file=vec_file, freq_mhz=bf, zeta=phy.zeta, jomega=True, device=dev,
             )
     lap("relax")
+
+    if exp.fit_modes:
+        for mode in exp.fit_modes:
+            stages.stage_multifield(
+                outpref + "_fittedCt.dat", list(exp.exp_files),
+                f"{outpref}-opt{mode.replace(',', '_')}",
+                diffusion, vec_file=vec_file, zeta=phy.zeta, csa=csa,
+                opt_params=mode.split(","), include_expt=True, device=dev,
+            )
+        lap("fit")
     print("= = run-all complete.")
     return dict(outpref=outpref, diso=float(diso), dani=float(dani),
                 quat=np.asarray(quat, dtype=float), walls=walls)

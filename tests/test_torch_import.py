@@ -32,7 +32,9 @@ MODULES = [
     "spinrelax_tpu_torch.io.dx", "spinrelax_tpu_torch.ops.dq",
     "spinrelax_tpu_torch.pipeline.corrections", "spinrelax_tpu_torch.pipeline.manifest",
     "spinrelax_tpu_torch.pipeline.config", "spinrelax_tpu_torch.pipeline.cli",
-    "spinrelax_tpu_torch.pipeline.runall",
+    "spinrelax_tpu_torch.pipeline.runall", "spinrelax_tpu_torch.io.experiments",
+    "spinrelax_tpu_torch.models.experiments", "spinrelax_tpu_torch.fit.scalar",
+    "spinrelax_tpu_torch.fit.globalfit", "spinrelax_tpu_torch.fit.legacyfit",
 ]
 
 

@@ -256,14 +256,11 @@ def test_two_folders_take_the_multi_replica_dq(system, tmp_path):
 
 def test_not_ported_options_raise_before_any_artefact(system, tmp_path):
     base = _cfg(tconfig, system)
+    fit = tconfig.ExperimentParams(fit_modes=("Diso",), exp_files=("e.dat",))
     cases = [(tconfig.WorkflowConfig(
-                  io=base.io, tumbling=base.tumbling,
-                  experiments=tconfig.ExperimentParams(fit_modes=("Diso",),
-                                                       exp_files=("e.dat",))), "item 12"),
-             (tconfig.WorkflowConfig(
                   io=tconfig.IOParams(outpref="rotdif", traj=system["xtc"],
                                       refpdb=system["ref"], stream_groups=2, devices=2),
-                  tumbling=base.tumbling), "item 15")]
+                  tumbling=base.tumbling, experiments=fit), "item 15")]
     with _in_dir(tmp_path):
         for cfg, item in cases:
             with pytest.raises(NotImplementedError, match=item):
@@ -272,16 +269,88 @@ def test_not_ported_options_raise_before_any_artefact(system, tmp_path):
             with pytest.raises(NotImplementedError, match="item 13"):
                 tstages.stage_ct([system["xtc"]], [system["ref"]], "x", 400.0,
                                  s2_mode=mode, device="cpu")
-        with pytest.raises(NotImplementedError, match="item 12"):
-            tstages.stage_relax("missing_fittedCt.dat", "x", Diffusion.isotropic(diso=1e-3),
-                                expt_file="e.dat", opt_mode="Diso", device="cpu")
         assert os.listdir(tmp_path) == []
         if not torch.cuda.is_available():
             with pytest.raises(RuntimeError, match="no CUDA device"):
                 trunall.run_workflow(base)
             with pytest.raises(RuntimeError, match="no CUDA device"):
+                trunall.run_workflow(tconfig.WorkflowConfig(io=base.io, tumbling=base.tumbling,
+                                                            experiments=fit))
+            with pytest.raises(RuntimeError, match="no CUDA device"):
                 workflow_entry(str(tmp_path / "w"))
             assert os.listdir(tmp_path) == []
+
+
+def _plausible_experiments(d, outdir):
+    """R1/R2/NOE at 600.133 and 850.13 MHz from the run's own C(t) models
+    and vectors at 0.9 x its Diso (new-API rates, 2 % errors), residue 3
+    left out of the 850 MHz NOE."""
+    from spinrelax_tpu_torch.constants import NucleusPair
+    from spinrelax_tpu_torch.io import experiments as texp
+    from spinrelax_tpu_torch.io import vectors as tvec
+    from spinrelax_tpu_torch.ops import observables as tobs
+
+    cts = tfct.read_fittedct(str(d / f"{PREF}_fittedCt.dat"), device="cpu").with_zeta(0.890023)
+    names, v, w = tvec.load_vector_distribution(str(d / f"{PREF}_vecHistogram.npz"))
+    m = re.search(r"Diso=(\S+) ps\^-1, Daniso=(\S+)", open(d / "stdout.txt").read())
+    diff = Diffusion.axisymmetric(diso=0.9 * float(m.group(1)), aniso=float(m.group(2)))
+    files = []
+    for f in (600.133, 850.13):
+        r = tobs.predict_rates_newapi(NucleusPair(B0=2 * np.pi * f / 267.513, time_unit="ps"),
+                                      diff, cts, vecs=v, weights=w)
+        for t in ("R1", "R2", "NOE"):
+            keep = np.asarray(names) != "3" if (f, t) == (850.13, "NOE") else slice(None)
+            y = getattr(r, t).numpy()
+            fn = str(outdir / f"exp_{t}_{int(f)}.dat")
+            texp.write_experiment(fn, texp.ExperimentData(
+                t, "15N", "1H", f, "MHz", np.asarray(names)[keep], y[keep],
+                0.02 * np.abs(y[keep])))
+            files.append(fn)
+    return files
+
+
+def test_fit_modes_match_jax(system, port_run, jax_run, tmp_path):
+    """run_workflow with fit_modes ("Diso", "Diso,rsCSA") and experiment
+    files: each package in a copy of the port's run directory (every
+    earlier stage skips), the stage_multifield artefacts of both within
+    Powell's 1e-4 relative (and one unit of a "%g" header's sixth digit)."""
+    from spinrelax_tpu.pipeline import plotting
+
+    src = tmp_path / "src"
+    shutil.copytree(port_run["dir"], src)
+    (src / "stdout.txt").write_text(jax_run["stdout"])
+    exp_files = _plausible_experiments(src, tmp_path)
+    dirs = {}
+    for pkg, conf in (("jax", jconfig), ("port", tconfig)):
+        d = dirs[pkg] = tmp_path / pkg
+        shutil.copytree(src, d)
+        cfg = _cfg(conf, system)
+        cfg = conf.WorkflowConfig(io=cfg.io, tumbling=cfg.tumbling, experiments=conf.ExperimentParams(
+            bfields_mhz=(600.133, 850.13), do_jomega=True, fit_modes=("Diso", "Diso,rsCSA"),
+            exp_files=tuple(exp_files)))
+        out = io.StringIO()
+        with _in_dir(d), contextlib.redirect_stdout(out), pytest.MonkeyPatch.context() as mp:
+            mp.setattr(plotting, "main", _no_plot)
+            if pkg == "jax":
+                jrunall.run_workflow(cfg)
+            else:
+                summary = trunall.run_workflow(cfg, device="cpu")
+        assert out.getvalue().lower().count("skipping") == 6, pkg
+    made = sorted(f for f in os.listdir(dirs["port"]) if "-opt" in f)
+    assert made == sorted(f for f in os.listdir(dirs["jax"]) if "-opt" in f)
+    assert len(made) == 2 * 6 + 1 and f"{PREF}-optDiso_rsCSA_CSA_opt.dat" in made
+    for f in made:
+        a, b = (open(dirs[p] / f).read().split() for p in ("port", "jax"))
+        assert len(a) == len(b), f
+        for x, y in zip(a, b):
+            try:
+                fx, fy = float(x), float(y)
+            except ValueError:
+                assert x == y, f
+                continue
+            assert abs(fx - fy) <= 1e-4 * abs(fy) + 10.0 ** (
+                np.floor(np.log10(abs(fy) or 1.0)) - 5), (f, x, y)
+    assert set(summary["walls"]) == {"orient", "dq", "ct", "fit-ct", "relax", "fit"}
 
 
 def test_config_flags_match_jax():
