@@ -238,8 +238,9 @@ class GlobalFitter:
 
     ``counts`` accumulates what the fit did: ``evaluations`` (objective
     calls of Powell, (f, g) calls of L-BFGS), ``lm_steps`` (steps the LM
-    ran, frozen ones included), ``lm_iterations`` (steps that were live)
-    and ``golden_rounds``."""
+    ran, frozen ones included), ``lm_iterations`` (steps that were live),
+    ``golden_rounds`` and ``uploads`` (copies of the parameters to the
+    device, one a Powell evaluation or L-BFGS iterate)."""
 
     def __init__(self, es: ExperimentSet, opt_vars: Sequence[str]):
         for v in opt_vars:
@@ -264,7 +265,8 @@ class GlobalFitter:
             zeta=float(host(zeta)[0]) if torch.is_tensor(zeta) else float(zeta),
             csa=np.asarray(csa0, dtype=float).copy(),
         )
-        self.counts = dict(evaluations=0, lm_steps=0, lm_iterations=0, golden_rounds=0)
+        self.counts = dict(evaluations=0, lm_steps=0, lm_iterations=0, golden_rounds=0,
+                           uploads=0)
 
     # -- parameter packing ---------------------------------------------
     def _get_globals(self) -> np.ndarray:
@@ -295,6 +297,7 @@ class GlobalFitter:
         """(diso, aniso, zeta, csa...) of the state on the device, in one
         copy."""
         s = self.state
+        self.counts["uploads"] += 1
         return torch.as_tensor(np.concatenate([[s.diso, s.aniso, s.zeta], s.csa]),
                                dtype=_F64, device=self.dev)
 

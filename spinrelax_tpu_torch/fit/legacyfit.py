@@ -68,7 +68,9 @@ def _make_chisq(pair: NucleusPair, diffusion: Diffusion, cts: CtModelSet,
 
     def _predict(diso, s2s, csa):
         d = _with_diso(diffusion, _arg(diso, dev))
-        c = dataclasses.replace(cts, zeta=base_zeta * _arg(s2s, dev))
+        # a Python-number scale multiplies as it is (no copy to the device)
+        c = dataclasses.replace(cts, zeta=base_zeta * (
+            s2s if isinstance(s2s, (int, float)) else _arg(s2s, dev)))
         rates = obs.predict_rates(pair, d, c, vecs=vecs_t, weights=weights_t,
                                   csa=_arg(csa, dev))
         v = torch.stack([rates.R1, rates.R2, rates.NOE], dim=-1)  # (nRes, 3)

@@ -6,6 +6,8 @@ imports no JAX, so it runs on a machine without it:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -511,3 +513,173 @@ def test_workflow_on_card_matches_cpu(gen, tmp_path):
                 a, b = (xvg.load_matrix(str(tmp_path / d / fn))[:, 1] for d in ("card", "cpu"))
                 atol = 1e-5 * np.abs(b).max()
             assert np.all(np.abs(a - b) <= 1e-5 * np.abs(b) + atol), fn
+
+
+# --- the multi-field global fit and the legacy fits (float64 on the card) ---
+
+def _fit_inputs(n_res=24, n_samp=64, seed=3, rscsa=False, fields=(600.133, 850.13)):
+    """C(t) models, a weighted vector ensemble and experiments at the truth
+    (Diso 4e-5, Daniso 1.5; a per-residue CSA with ``rscsa``), made from a
+    numpy seed on the CPU; every 5th residue left out of the last NOE."""
+    from spinrelax_tpu_torch.constants import NucleusPair, field_from_mhz
+    from spinrelax_tpu_torch.io.experiments import ExperimentData
+    from spinrelax_tpu_torch.models.ctmodel import CtModelSet
+    from spinrelax_tpu_torch.models.diffusion import Diffusion
+    from spinrelax_tpu_torch.ops import observables as obs
+
+    rng = np.random.default_rng(seed)
+    names = [str(i + 2) for i in range(n_res)]
+    lists = (names, rng.uniform(0.6, 0.9, n_res), list(rng.uniform(0.02, 0.1, (n_res, 2))),
+             list(np.stack([rng.uniform(5, 30, n_res), rng.uniform(100, 800, n_res)], -1)))
+    v = rng.normal(size=(n_res, n_samp, 3))
+    v /= np.linalg.norm(v, axis=-1, keepdims=True)
+    w = rng.uniform(0.5, 2.0, (n_res, n_samp))
+    csa = rng.uniform(-190e-6, -150e-6, n_res) if rscsa else None
+    cpu_cts = CtModelSet.from_lists(*lists, s2fast=[True] * n_res, zeta=0.89, sort=False,
+                                    device="cpu")
+    expts = []
+    for f in fields:
+        r = obs.predict_rates_newapi(NucleusPair(B0=field_from_mhz(f), time_unit="ps"),
+                                     Diffusion.axisymmetric(diso=4e-5, aniso=1.5), cpu_cts,
+                                     vecs=v, weights=w, csa=csa)
+        for t in ("R1", "R2", "NOE"):
+            keep = (np.arange(n_res) % 5 != 0) if (f, t) == (fields[-1], "NOE") else slice(None)
+            y = getattr(r, t).numpy()
+            e = np.maximum(getattr(r, "d" + t).numpy(), 1e-3)
+            expts.append(ExperimentData(t, "15N", "1H", f, "MHz", np.array(names)[keep],
+                                        y[keep], e[keep]))
+    return dict(lists=lists, v=v, w=w, csa=csa, expts=expts)
+
+
+def _fit_set(inp, device, diso=5e-5, aniso=1.2):
+    from spinrelax_tpu_torch.models.ctmodel import CtModelSet
+    from spinrelax_tpu_torch.models.diffusion import Diffusion
+    from spinrelax_tpu_torch.models.experiments import ExperimentSet
+
+    n = len(inp["lists"][0])
+    cts = CtModelSet.from_lists(*inp["lists"], s2fast=[True] * n, zeta=0.89, sort=False,
+                                device=device)
+    return ExperimentSet.build(inp["expts"], cts, Diffusion.axisymmetric(diso=diso, aniso=aniso),
+                               vecs=inp["v"], weights=inp["w"])
+
+
+@pytest.mark.parametrize("method", ["powell", "gradient", "device"])
+def test_global_fitter_on_card_matches_cpu(gen, method):
+    """GlobalFitter (Diso, Daniso) on the card against the CPU float64 fit:
+    Powell within its own 1e-4 relative, L-BFGS and the LM within 1e-6;
+    both at the truth."""
+    from spinrelax_tpu_torch.fit.globalfit import GlobalFitter
+
+    inp = _fit_inputs()
+    card, cpu = (GlobalFitter(_fit_set(inp, d), ["Diso", "Daniso"]).run(method=method)
+                 for d in ("cuda", "cpu"))
+    rtol = 1e-4 if method == "powell" else 1e-6
+    np.testing.assert_allclose([card.diso, card.aniso], [cpu.diso, cpu.aniso], rtol=rtol)
+    np.testing.assert_allclose([card.diso, card.aniso], [4e-5, 1.5], rtol=1e-3)
+
+
+def test_fused_rscsa_cycle_on_card_matches_cpu(gen):
+    """method='device' with (Diso, rsCSA): the fused cycle (LM, then the
+    golden walk) on the card against the CPU within 1e-6; the residues
+    it covers at the truth, the rest (none here) untouched."""
+    from spinrelax_tpu_torch.fit import globalfit
+
+    inp = _fit_inputs(rscsa=True, fields=(600.133, 750.13, 850.13))
+    fits = [globalfit.GlobalFitter(_fit_set(inp, d, diso=4.6e-5, aniso=1.5), ["Diso", "rsCSA"])
+            for d in ("cuda", "cpu")]
+    card, cpu = (f.run(method="device", max_cycles=10, tol=1e-8) for f in fits)
+    np.testing.assert_allclose(card.diso, cpu.diso, rtol=1e-6)
+    np.testing.assert_allclose(card.csa, cpu.csa, rtol=1e-6)
+    np.testing.assert_allclose(card.diso, 4e-5, rtol=1e-3)
+    np.testing.assert_allclose(card.csa, inp["csa"], rtol=5e-3)
+    assert fits[0].counts["golden_rounds"] > 0
+
+
+def test_lm_window_on_card_equals_step_by_step(gen):
+    """The LM read once per LM_WINDOW steps against the loop that reads its
+    flag before every step, on the card: the same bits, and one read a
+    window."""
+    from spinrelax_tpu_torch.fit import globalfit
+
+    fit = globalfit.GlobalFitter(_fit_set(_fit_inputs(), "cuda"), ["Diso", "Daniso"])
+    globalfit.host_reads.count = 0
+    windowed = fit._lm(*fit._params())
+    reads = globalfit.host_reads.count
+    eager = fit._lm(*fit._params(), _eager=True)
+    n_it = int(windowed[2])
+    assert 0 < n_it and reads == -(-n_it // globalfit.LM_WINDOW)
+    for a, b in zip([windowed[0], *windowed[1], windowed[2]],
+                    [eager[0], *eager[1], eager[2]]):
+        assert torch.equal(a, b)
+
+
+def test_fit_legacy_new_device_on_card_matches_cpu(gen):
+    """fit_legacy('new', method='device') on the card against the CPU within
+    1e-6, at the truth within tests/test_legacyfit.py's 2e-3 / 5e-3."""
+    from spinrelax_tpu_torch.constants import NucleusPair, field_from_mhz
+    from spinrelax_tpu_torch.fit.legacyfit import fit_legacy
+    from spinrelax_tpu_torch.models.ctmodel import CtModelSet
+    from spinrelax_tpu_torch.models.diffusion import Diffusion
+    from spinrelax_tpu_torch.ops import observables as obs
+
+    inp = _fit_inputs(rscsa=True)
+    n = len(inp["lists"][0])
+    pair = NucleusPair(B0=field_from_mhz(600.133), time_unit="ps")
+    cts = {d: CtModelSet.from_lists(*inp["lists"], s2fast=[True] * n, zeta=0.89, sort=False,
+                                    device=d) for d in ("cuda", "cpu")}
+    r = obs.predict_rates(pair, Diffusion.axisymmetric(diso=4e-5, aniso=1.5), cts["cpu"],
+                          vecs=inp["v"], weights=inp["w"], csa=inp["csa"])
+    exp = torch.stack([r.R1, r.R2, r.NOE], -1).numpy()
+    err = np.maximum(torch.stack([r.dR1, r.dR2, r.dNOE], -1).numpy(), 1e-3 * np.abs(exp))
+    card, cpu = (fit_legacy("new", pair, Diffusion.axisymmetric(diso=4.4e-5, aniso=1.5), cts[d],
+                            exp, err, vecs=inp["v"], weights=inp["w"], max_cycles=20, tol=1e-8,
+                            method="device") for d in ("cuda", "cpu"))
+    np.testing.assert_allclose(card.diso, cpu.diso, rtol=1e-6)
+    np.testing.assert_allclose(card.csa, cpu.csa, rtol=1e-6)
+    np.testing.assert_allclose(card.diso, 4e-5, rtol=2e-3)
+    np.testing.assert_allclose(card.csa, inp["csa"], rtol=5e-3)
+
+
+def test_stage_multifield_on_card_matches_cpu(gen, tmp_path):
+    """stage_multifield (Diso, rsCSA; Powell) on the card against the CPU:
+    without a fit the same bytes; with it every number of every file
+    within Powell's 1e-4 relative plus one unit of a '%g' sixth digit."""
+    from spinrelax_tpu_torch.core import geometry
+    from spinrelax_tpu_torch.io import experiments, fittedct, vectors
+    from spinrelax_tpu_torch.models.ctmodel import CtModelSet
+    from spinrelax_tpu_torch.models.diffusion import Diffusion
+    from spinrelax_tpu_torch.pipeline import stages
+
+    inp = _fit_inputs(rscsa=True)
+    n = len(inp["lists"][0])
+    cts = CtModelSet.from_lists(*inp["lists"], s2fast=[True] * n, sort=False, device="cpu")
+    fittedct.write_fittedct(str(tmp_path / "in_fittedCt.dat"), cts)
+    hist, ep, ec = geometry.lambert_histogram(torch.from_numpy(inp["v"]), 24, 12)
+    vectors.save_histogram(str(tmp_path / "in_vecHistogram.npz"), inp["lists"][0],
+                           hist.numpy(), ep.numpy(), ec.numpy())
+    files = []
+    for i, e in enumerate(inp["expts"]):
+        files.append(str(tmp_path / f"e{i}.dat"))
+        experiments.write_experiment(files[-1], e)
+    for opt in (None, ["Diso", "rsCSA"]):
+        for d in ("cuda", "cpu"):
+            (tmp_path / d).mkdir(exist_ok=True)
+            stages.stage_multifield(str(tmp_path / "in_fittedCt.dat"), files,
+                                    str(tmp_path / d / ("fit" if opt else "plain")),
+                                    Diffusion.axisymmetric(diso=4.6e-5, aniso=1.5),
+                                    vec_file=str(tmp_path / "in_vecHistogram.npz"),
+                                    opt_params=opt, include_expt=True, device=d)
+    made = sorted(os.listdir(tmp_path / "cpu"))
+    assert made == sorted(os.listdir(tmp_path / "cuda")) and "fit_CSA_opt.dat" in made
+    for f in made:
+        a, b = ((tmp_path / d / f).read_text() for d in ("cuda", "cpu"))
+        if f.startswith("plain"):
+            assert a == b, f
+            continue
+        for x, y in zip(a.split(), b.split(), strict=True):
+            try:
+                fx, fy = float(x), float(y)
+            except ValueError:
+                assert x == y, f
+                continue
+            assert abs(fx - fy) <= 1e-4 * abs(fy) + 10.0 ** (np.floor(np.log10(abs(fy) or 1)) - 5)
