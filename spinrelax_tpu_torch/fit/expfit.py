@@ -86,7 +86,7 @@ def _chisq_outlier_rows(sel_chi: np.ndarray, cap: int) -> np.ndarray:
     return flagged
 
 
-def _not_ported(what: str, item: int):
+def _not_ported(what: str, item):
     raise NotImplementedError(
         f"fit_ct_ladder: {what} is not ported yet (ROADMAP.md section 1 item {item})")
 
@@ -132,9 +132,9 @@ def fit_ct_ladder(
     if optimiser not in ("lm", "varpro"):
         raise ValueError(f"unknown optimiser {optimiser!r} (lm|varpro)")
     if optimiser == "varpro":
-        _not_ported("optimiser='varpro'", 12)
+        _not_ported("optimiser='varpro'", "12b")
     if stacked:
-        _not_ported("stacked=True", 12)
+        _not_ported("stacked=True", "12b")
     if mesh is not None:
         _not_ported("mesh", 15)
     if pipeline_rungs:
