@@ -346,9 +346,13 @@ class GlobalFitter:
         def resid(z):
             return residuals_total(self.es, *self._unpack(z, d0, a0, zeta0, csa0))
 
+        def resid_aux(z):
+            r = resid(z)
+            return r, r
+
         # jacfwd is vmap of jvp over the basis; with has_aux the residual
         # comes from the same primal evaluation.
-        jac = torch.func.jacfwd(lambda z: (resid(z), resid(z)), has_aux=True)
+        jac = torch.func.jacfwd(resid_aux, has_aux=True)
 
         def live_of(state):
             _z, lam, _f, it, moved = state
