@@ -415,11 +415,17 @@ def device_profile(torch, fn, complete=bool, cpu=True):
 
 def device_busy(prof):
     """(device-busy ms: the union of the card's kernel and copy intervals,
-    {kernel: (launches, total ms)}) of a finished torch.profiler run."""
+    {kernel: (launches, total ms)}) of a finished torch.profiler run, read
+    from the profiler's raw events (building its event tree costs
+    minutes for a run of 10^5-10^6 launches)."""
     from torch.autograd import DeviceType
 
-    spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    spans = []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            lo = e.start_ns() / 1e3
+            spans.append((lo, lo + e.duration_ns() / 1e3, e.name()))
+    spans.sort()
     busy, reach, per = 0.0, float("-inf"), {}
     for lo, hi, name in spans:
         busy += max(0.0, hi - max(lo, reach))
@@ -1635,8 +1641,8 @@ def phase_fit_large(torch, dev="cuda", profile=True, n_res=MBP["n_res"], n_samp=
                              ("gradient", ["Diso", "Daniso"], "flat"),
                              ("device", ["Diso", "Daniso"], "flat"),
                              ("device", ["Diso", "rsCSA"], "rs")):
-        # three fused cycles for rsCSA: each costs ~2 s of LM dispatch on
-        # the card at this size (PERF.md, PR 9)
+        # three fused cycles for rsCSA: each costs ~1 s of LM and golden
+        # dispatch on the card at this size (PERF.md, PR 9)
         kw = dict(method=method, max_cycles=3)
         es = make_set(dev, key, starts[key])
         fit = globalfit.GlobalFitter(es, opt)
