@@ -1297,7 +1297,7 @@ def header_value(path: Path, name: str) -> float:
 
 
 @contextlib.contextmanager
-def fit_log(torch, globalfit, profile: bool):
+def fit_log(globalfit, profile: bool):
     """Record every GlobalFitter.run inside: its variables, wall, counts,
     host reads and (``profile``) device-busy ms from torch.profiler,
     recording the card's activity only.  A profiled run's wall is not a
@@ -1311,9 +1311,8 @@ def fit_log(torch, globalfit, profile: bool):
         reads = globalfit.host_reads.count
         ctx = prof_ctx(activities=[ProfilerActivity.CUDA]) if profile else contextlib.nullcontext()
         t0 = time.perf_counter()
-        with ctx as prof:
+        with ctx as prof:  # run() ends in a read: the card is done
             out = run(self, *a, **k)
-            torch.cuda.synchronize() if profile else None
         wall = time.perf_counter() - t0
         log.append(dict(vars=",".join(self.global_vars + ["rsCSA"] * self.do_local), wall=wall,
                         counts=dict(self.counts), reads=globalfit.host_reads.count - reads,
@@ -1420,7 +1419,7 @@ def phase_fit(torch, counters, wf, dev="cuda", profile=True):
     for c in counters:
         c.launches = 0
     fresh = work / "fit_card"
-    with fit_log(torch, globalfit, False) as log:
+    with fit_log(globalfit, False) as log:
         _, wall_fresh = wall_s(torch, lambda: main_in(fresh, dev))
     launches = [c.launches for c in counters]
     check(launches[0] == 2 and launches[1] == launches[2] > 0,
@@ -1462,7 +1461,7 @@ def phase_fit(torch, counters, wf, dev="cuda", profile=True):
 
     # (ii) the same inputs on both devices: phase 8a's CPU directory, whose
     # earlier steps skip; the CPU's artefacts kept aside, then the card's
-    with fit_log(torch, globalfit, False) as cpu_log:
+    with fit_log(globalfit, False) as cpu_log:
         t0 = time.perf_counter()
         out = main_in(cpu_dir, "cpu")
         cpu_wall = time.perf_counter() - t0
@@ -1472,10 +1471,10 @@ def phase_fit(torch, counters, wf, dev="cuda", profile=True):
     kept.mkdir()
     for f in opt_files(cpu_dir):
         (cpu_dir / f).rename(kept / f)
-    with fit_log(torch, globalfit, False) as card_log:
+    with fit_log(globalfit, False) as card_log:
         _, card_wall = wall_s(torch, lambda: main_in(cpu_dir, dev))
     if profile:  # the same fits again, profiled: each one's device-busy time
-        with fit_log(torch, globalfit, True) as prof_log:
+        with fit_log(globalfit, True) as prof_log:
             main_in(cpu_dir, dev)
         for e, ep in zip(card_log, prof_log):
             e["busy"] = ep["busy"]
