@@ -1641,7 +1641,7 @@ def phase_fit_large(torch, dev="cuda", profile=True, n_res=MBP["n_res"], n_samp=
                              ("device", ["Diso", "Daniso"], "flat"),
                              ("device", ["Diso", "rsCSA"], "rs")):
         # three fused cycles for rsCSA: each costs ~1 s of LM and golden
-        # dispatch on the card at this size (PERF.md, PR 9)
+        # dispatch on the card at this size (PERF.md section 5)
         kw = dict(method=method, max_cycles=3)
         es = make_set(dev, key, starts[key])
         fit = globalfit.GlobalFitter(es, opt)
