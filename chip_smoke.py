@@ -97,6 +97,24 @@ Builds the port's CUDA kernels from csrc/ and runs, in order:
    its wall, evaluations or LM steps, host reads and device busy / idle
    share.
 
+10. the command line (python -m spinrelax_tpu_torch) on a raw solvated
+   system: phase 7a's solute (its first 5000 frames, its shell atoms in
+   nearest-neighbour order) drifting across images of a cubic 6.0 nm box
+   with 6900 three-site waters (21 931 atoms), wrapped, written as one
+   .xtc; (a) check, info and center (--output-group solute) as
+   subprocesses, center again through cli.main and once more under the
+   profiler (wall, frames/s, decode / encode shares, busy / idle share,
+   peak device memory), the three outputs the same bytes, the solute
+   within 2e-3 nm (two XTC roundings) of the unwrapped truth recentred,
+   and one batch against the CPU float64 center_solute (solute 1e-4 nm,
+   every atom 1e-4 nm modulo whole boxes, the molecules imaged a box away
+   counted, two card runs bit for bit); (b) the quick-start chain through
+   cli.main on the centred .xtc: orient, dq, ct (--Ct --S2 --vecHist),
+   ct --S2mode ired, ct --split 2 --S2mode wired, fit-ct, relax at
+   600.133 and 850.13 MHz, rho; each step's wall, kernel A/B/C launches
+   (wrappers and profiler) and idle share, held to the same chain on the
+   CPU in float64 (phase 8a's tolerances; iRED / wiRED S2 1e-4).
+
 Phases 3, 5 and 6 run their LM loop both ways in turns -- the CUDA graph
 of one step, and the eager loop that issues every step from the host --
 and hold the outputs equal bit for bit.  Kernel A is also timed against
@@ -1689,6 +1707,350 @@ def phase_fit_large(torch, dev="cuda", profile=True, n_res=MBP["n_res"], n_samp=
     return out
 
 
+# phase 10: the README's quick start through the port's command line on a
+# raw, solvated ubiquitin-sized system (phase 7a's solute, first 5000
+# frames; a cubic 6.0 nm box of 6 900 three-site waters, ~21 900 atoms)
+RAW = dict(n_frames=5000, box=6.0, n_waters=6900, batch=256, drift=0.05, water_step=0.096,
+           tau="2000")
+FIELDS_CLI = ("600.133", "850.13")
+
+
+def nn_order(x, start):
+    """A greedy nearest-neighbour path through the points x (n, 3) from
+    the point nearest ``start``: consecutive points close, as a protein's
+    atom order follows its bonds."""
+    import numpy as np
+
+    left = np.ones(len(x), bool)
+    cur, order = start, []
+    for _ in range(len(x)):
+        d = np.where(left, ((x - cur) ** 2).sum(1), np.inf)
+        i = int(np.argmin(d))
+        order.append(i)
+        left[i] = False
+        cur = x[i]
+    return np.array(order)
+
+
+def raw_system(torch, ubq, work: Path, dev="cuda") -> dict:
+    """Phase 10's raw trajectory: phase 7a's solute (its first 5000
+    frames; its 1018 shell atoms put in nearest-neighbour order, so that
+    consecutive atoms lie well inside half the box, the -pbc mol contract)
+    carried across images by a random-walk drift, in a cubic 6.0 nm box of
+    6900 rigid three-site waters (liquid density) that diffuse ~0.1 nm a
+    frame; every atom wrapped into the primary cell.  Made on the card,
+    written as raw.xtc (boxes, 1e-3 nm precision) + system.pdb, and the
+    solute's reference.pdb."""
+    import numpy as np
+
+    from spinrelax_tpu_torch.core import quaternion as qt
+    from spinrelax_tpu_torch.io import native
+    from spinrelax_tpu_torch.io import pdb as pdbio
+
+    t0 = time.perf_counter()
+    n_f, L, n_w = RAW["n_frames"], RAW["box"], RAW["n_waters"]
+    sol, _, times = next(native.iter_xtc(str(ubq["xtc"]), n_f, threads=0))
+    top, ref_xyz = pdbio.read_pdb(str(ubq["ref"]))
+    n_ring = 3 * UBQ["n_res"]
+    ref0 = ref_xyz[0]
+    perm = np.concatenate([np.arange(n_ring), n_ring + nn_order(ref0[n_ring:], ref0[n_ring - 1])])
+    sol, ref0 = np.ascontiguousarray(sol[:, perm]), ref0[perm]
+    step = float(np.linalg.norm(np.diff(ref0, axis=0), axis=1).max())
+    ref_fn = str(work / "reference.pdb")
+    pdbio.write_pdb(ref_fn, top, ref0[None])
+    gen = torch.Generator(device=dev).manual_seed(10)
+    cell = L / 20
+    g = torch.arange(20, device=dev, dtype=torch.float32)
+    grid = torch.stack(torch.meshgrid(g, g, g, indexing="ij"), -1).reshape(-1, 3)
+    pos = (grid[torch.randperm(8000, generator=gen, device=dev)[:n_w]] + 0.5) * cell
+    ang = np.deg2rad(104.52)
+    geom = 0.09572 * torch.tensor([[0, 0, 0], [1, 0, 0], [np.cos(ang), np.sin(ang), 0]],
+                                  device=dev, dtype=torch.float32)
+    R = qt.quat_to_mat(qt.qnorm(torch.randn(n_w, 4, generator=gen, device=dev)))
+    geom = torch.einsum("wij,aj->wai", R, geom)  # (n_w, 3, 3) a random orientation each
+    drift = torch.cumsum(RAW["drift"] * torch.randn(n_f, 1, 3, generator=gen, device=dev),
+                         dim=0)
+    truth = sol + drift.cpu().numpy() + L / 2
+    raw_fn, chunk = str(work / "raw.xtc"), 500
+    boxes = np.zeros((chunk, 3, 3), np.float32)
+    boxes[:, [0, 1, 2], [0, 1, 2]] = L
+    for lo in range(0, n_f, chunk):
+        hi = min(lo + chunk, n_f)
+        steps = RAW["water_step"] * torch.randn(hi - lo, n_w, 3, generator=gen, device=dev)
+        walk = pos + torch.cumsum(steps, dim=0)
+        pos = walk[-1]
+        wat = (walk[:, :, None, :] + geom[None]).reshape(hi - lo, 3 * n_w, 3)
+        solc = torch.from_numpy(truth[lo:hi]).to(dev)
+        raw = torch.remainder(torch.cat([solc, wat], dim=1), L).cpu().numpy()
+        native.write_xtc(raw_fn, raw, times=times[lo:hi], boxes=boxes[: hi - lo],
+                         append=lo > 0, step0=lo)
+        if lo == 0:
+            first = raw[:1]
+    sys_top = pdbio.Topology(
+        atom_names=list(top.atom_names) + ["OW", "HW1", "HW2"] * n_w,
+        res_seqs=np.concatenate([top.res_seqs, np.repeat(1300 + np.arange(n_w), 3)]),
+        res_names=list(top.res_names) + ["SOL"] * (3 * n_w),
+        chain_ids=list(top.chain_ids) + ["W"] * (3 * n_w),
+        occupancies=np.concatenate([top.occupancies, np.zeros(3 * n_w)]),
+        elements=list(top.elements) + ["O", "H", "H"] * n_w)
+    sys_fn = str(work / "system.pdb")
+    pdbio.write_pdb(sys_fn, sys_top, first)
+    n_atoms = sys_top.n_atoms
+    print(f"  raw system: {sol.shape[1]} solute atoms + {n_w} waters = {n_atoms} atoms, "
+          f"{n_f} frames, box {L} nm, {Path(raw_fn).stat().st_size / 1e6:.1f} MB .xtc, made in "
+          f"{time.perf_counter() - t0:.1f} s; longest step between consecutive solute atoms "
+          f"{step:.3f} nm (half the box {L / 2} nm)", flush=True)
+    want = truth - truth.mean(axis=1, keepdims=True) + L / 2
+    return dict(raw=raw_fn, sys=sys_fn, ref=ref_fn, want=want, n_atoms=n_atoms,
+                n_solute=sol.shape[1])
+
+
+def quiet(fn):
+    """fn() with its standard output kept -> (its value, the output)."""
+    import io
+
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        out = fn()
+    return out, log.getvalue()
+
+
+def d_arg(d: Path) -> str:
+    """relax's -D "Diso,Daniso" [1/ps] from a dq run's -aniso2.dat, by
+    run-all's rule (Diso in s^-1 -> ps^-1; the long or short axis whose
+    rhombicity is below one)."""
+    h = dq_header(d / "rotdif-aniso2.dat")
+    dani = h["Dani_L"] if h["Drho_L"] < 1.0 else h["Dani_S"]
+    return f"{h['Diso'] * 1e-12:.9e},{dani:.9f}"
+
+
+def rates_file(d: Path) -> str:
+    """rho's input: resid R1 R2 NOE at the first field, from relax's files."""
+    import numpy as np
+
+    from spinrelax_tpu_torch.io import xvg
+
+    m = [xvg.load_matrix(d / f"rotdif-600_{f}.dat") for f in ("R1", "R2", "NOE")]
+    fn = d / "rates-600.dat"
+    np.savetxt(fn, np.column_stack([m[0][:, 0]] + [x[:, 1] for x in m]), fmt="%.10g")
+    return str(fn)
+
+
+def chain_steps(sol: str, ref: str):
+    """The quick start after center, as (name, argv of a run directory d)."""
+    tau = RAW["tau"]
+    ct = ["ct", "-s", ref, "-f", sol, "-t", tau, "--S2"]
+
+    def relax(f):
+        return lambda d, pref: ["relax", "-f", pref + "_fittedCt.dat", "--distfn",
+                                pref + "_vecHistogram.npz", "-D", d_arg(d), "-F", f + "e6",
+                                "-o", f"{pref}-{f.split('.')[0]}"]
+
+    return [
+        ("orient", lambda d, pref: ["orient", "-f", sol, "-s", ref, "-o",
+                                    str(d / "colvar-qorient")]),
+        ("dq", lambda d, pref: ["dq", "-f", str(d / "colvar-qorient"), "-o", pref, "--mindt",
+                                "20", "--maxdt", tau, "--skip", "20", "--num_chunk", "4"]),
+        ("ct", lambda d, pref: ct + ["-o", pref, "--Ct", "--vecHist"]),
+        ("ct ired", lambda d, pref: ct + ["-o", str(d / "ired"), "--S2mode", "ired"]),
+        ("ct wired --split 2", lambda d, pref: ct + ["-o", str(d / "wired"), "--S2mode", "wired",
+                                                     "--split", "2"]),
+        ("fit-ct", lambda d, pref: ["fit-ct", "-f", pref + "_Ctint.dat", "-o", pref]),
+        ("relax 600.133", relax(FIELDS_CLI[0])),
+        ("relax 850.13", relax(FIELDS_CLI[1])),
+        ("rho", lambda d, pref: ["rho", "-f", rates_file(d), "-o", str(d / "rho.dat")]),
+    ]
+
+
+def phase_cli(torch, counters, ubq, work: Path, dev="cuda"):
+    """Phase 10: python -m spinrelax_tpu_torch on a raw solvated system
+    (10a: check, info, center) and the quick-start chain through cli.main
+    on the card (10b), held to the known truth and to the CPU in float64."""
+    print("phase 10: the command line on a raw solvated ubiquitin-sized system: (a) check, "
+          "info and center as python -m spinrelax_tpu_torch; (b) orient -> dq -> ct (outer, "
+          "iRED, wiRED) -> fit-ct -> relax -> rho through cli.main, vs the CPU in float64",
+          flush=True)
+    import os
+
+    import numpy as np
+
+    from spinrelax_tpu_torch.io import fittedct, native, xvg
+    from spinrelax_tpu_torch.ops.pbc import center_solute
+    from spinrelax_tpu_torch.io import pdb as pdbio
+    from spinrelax_tpu_torch.pipeline import cli
+
+    rs = raw_system(torch, ubq, work, dev)
+    L, n_sol, batch = RAW["box"], rs["n_solute"], RAW["batch"]
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    res = {}
+
+    def module(*args):
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, "-m", "spinrelax_tpu_torch", *args], cwd=work,
+                             env=env, capture_output=True, text=True, timeout=600)
+        secs = time.perf_counter() - t0
+        check(out.returncode == 0, f"python -m spinrelax_tpu_torch {args[0]} exited "
+                                   f"{out.returncode} in {secs:.1f} s"
+              + ("" if out.returncode == 0 else ": " + out.stderr[-1500:]))
+        return out.stdout, secs
+
+    # (a) the entry point
+    log, secs = module("check")
+    check("check PASSED" in log and "device cuda" in log,
+          f"check found the card, the host libraries and J(omega) on it ({secs:.1f} s)")
+    print("  " + "\n  ".join(ln for ln in log.splitlines() if "device" in ln), flush=True)
+    log, secs = module("info", rs["raw"])
+    check(f"{RAW['n_frames']} frames x {rs['n_atoms']} atoms" in log, "info: " + log.split("\n")[0])
+    print(f"  info ({secs:.1f} s): {log.splitlines()[0]}", flush=True)
+    center = ["center", "-f", rs["raw"], "-s", rs["sys"], "--output-group", "solute",
+              "--batch", str(batch), "-o"]
+    _, res["sub_wall"] = module(*center, str(work / "solute_sub.xtc"))
+    sol = str(work / "solute.xtc")
+    torch.cuda.reset_peak_memory_stats()
+    (rc, _), wall = wall_s(torch, lambda: quiet(lambda: cli.main(center + [sol], device=dev)))
+    peak = torch.cuda.max_memory_allocated() / 1e6
+    check(rc == 0, "center through cli.main")
+    busy, per = device_profile(
+        torch, lambda: quiet(lambda: cli.main(center + [str(work / "solute_prof.xtc")],
+                                              device=dev)))
+    outs = [Path(work / f).read_bytes() for f in ("solute.xtc", "solute_sub.xtc",
+                                                   "solute_prof.xtc")]
+    check(outs[0] == outs[1] == outs[2], "center's three runs (python -m, cli.main, profiled) "
+                                         "wrote the same bytes")
+    # the host's parts: the decode (as center reads, all cores) and the encode
+    t0 = time.perf_counter()
+    n_read = sum(x.shape[0] for x, _, _ in native.iter_xtc(rs["raw"], batch, threads=0))
+    t_dec = time.perf_counter() - t0
+    out_xyz, out_box, out_t = native.read_xtc(sol, threads=0)
+    t0 = time.perf_counter()
+    for lo in range(0, len(out_xyz), batch):
+        native.write_xtc(str(work / "encode.xtc"), out_xyz[lo : lo + batch],
+                         times=out_t[lo : lo + batch], boxes=out_box[lo : lo + batch],
+                         append=lo > 0, step0=lo)
+    t_enc = time.perf_counter() - t0
+    n_f = RAW["n_frames"]
+    check(n_read == n_f == len(out_xyz), f"center read {n_read} and wrote {len(out_xyz)} frames")
+    print(f"  center (cli.main, {n_f} frames x {rs['n_atoms']} atoms, batch {batch}): wall "
+          f"{wall:.3f} s = {n_f / wall:.1f} frames/s (python -m {res['sub_wall']:.1f} s with the "
+          f"interpreter's start); decode alone {t_dec:.3f} s = {t_dec / wall:.1%}, encode of the "
+          f"solute alone {t_enc:.3f} s = {t_enc / wall:.1%}, repair + copies + the rest "
+          f"{1 - (t_dec + t_enc) / wall:.1%}; device busy {busy:.2f} ms, idle share "
+          f"{1 - busy / (wall * 1e3):.1%}; peak device memory {peak:.1f} MB", flush=True)
+    # (i) the known truth
+    err = float(np.abs(out_xyz - rs["want"]).max())
+    check(out_xyz.shape == rs["want"].shape and err <= 2e-3,
+          f"center: every solute atom of every frame within {err:.2e} nm of the unwrapped "
+          f"solute recentred on the box centre (<= 2e-3: two XTC roundings)")
+    # (ii) the port's CPU float64 center_solute on one batch of decoded frames
+    top, _ = pdbio.read_pdb(rs["sys"])
+    x, boxes, _ = next(native.iter_xtc(rs["raw"], batch, threads=0))
+    box = np.einsum("fii->fi", boxes)
+    card = center_solute(x, box, top=top, batch=batch, device=dev)
+    again = center_solute(x, box, top=top, batch=batch, device=dev)
+    t0 = time.perf_counter()
+    cpu = center_solute(x.astype(np.float64), box, top=top, batch=batch, device="cpu")
+    t_cpu = time.perf_counter() - t0
+    check(np.array_equal(card, again), "center_solute: two card runs equal bit for bit")
+    e_sol = float(np.abs(card[:, :n_sol] - cpu[:, :n_sol]).max())
+    check(e_sol <= 1e-4, f"center_solute solute atoms max |card f32 - CPU f64| {e_sol:.2e} nm "
+                         f"<= 1e-4")
+    dd = card - cpu
+    k = np.round(dd / L)
+    e_mod = float(np.abs(dd - k * L).max())
+    moved = np.abs(k[:, n_sol:]).reshape(batch, -1, 3, 3).sum(axis=(2, 3)) > 0
+    check(e_mod <= 1e-4, f"center_solute every atom within {e_mod:.2e} nm of the CPU's modulo "
+                         f"whole boxes (<= 1e-4)")
+    print(f"  {int(moved.sum())} of {moved.size} water molecule-frames imaged one box away "
+          f"from the CPU float64 repair (ties at cell faces); the CPU float64 repair of "
+          f"{batch} frames took {t_cpu:.2f} s", flush=True)
+    res.update(wall=wall, frames_s=n_f / wall, decode=t_dec, encode=t_enc, busy=busy,
+               peak_mb=peak, err_truth=err, err_cpu=e_sol, moved=int(moved.sum()),
+               molecule_frames=int(moved.size), kernels_center=len(per))
+
+    # (b) the quick-start chain on the card and on the CPU in float64
+    steps = chain_steps(sol, rs["ref"])
+    dirs = {k: work / f"chain-{k}" for k in ("card", "prof", "cpu")}
+    walls, launches, prof, cpu_walls = {}, {}, {}, {}
+    for name, argv in steps:  # the card: walls and the wrappers' counts
+        d = dirs["card"]
+        d.mkdir(exist_ok=True)
+        for c in counters:
+            c.launches = 0
+        (rc, _), walls[name] = wall_s(torch, lambda: quiet(lambda: cli.main(
+            argv(d, str(d / "rotdif")), device=dev)))
+        launches[name] = [c.launches for c in counters]
+        check(rc == 0, f"{name} on the card")
+    for name, argv in steps:  # the card again, profiled
+        d = dirs["prof"]
+        d.mkdir(exist_ok=True)
+        n = launches[name]
+        prof[name] = device_profile(torch, lambda: quiet(lambda: cli.main(
+            argv(d, str(d / "rotdif")), device=dev)), lambda per: saw(per, A=n[0], B=n[1], C=n[2]))
+    for name, argv in steps:  # the CPU, float64
+        d = dirs["cpu"]
+        d.mkdir(exist_ok=True)
+        t0 = time.perf_counter()
+        quiet(lambda: cli.main(argv(d, str(d / "rotdif")), device="cpu"))
+        cpu_walls[name] = time.perf_counter() - t0
+    for name, _ in steps:
+        busy, per = prof[name]
+        kt = kernel_times(per)
+        seen = [kt.get(k, (0,))[0] for k in "ABC"]
+        check(seen == launches[name], f"{name}: profiler saw kernels A/B/C {seen} times = the "
+                                      f"wrappers' counts {launches[name]}")
+        print(f"  {name}: wall {walls[name]:.3f} s (CPU float64 {cpu_walls[name]:.3f} s); "
+              f"kernels A/B/C {launches[name]}; device busy {busy:.2f} ms, idle share "
+              f"{1 - busy / (walls[name] * 1e3):.1%}", flush=True)
+    total = [sum(v[i] for v in launches.values()) for i in range(3)]
+    check(launches["ct"][0] == 2 and total[0] == 2,
+          f"kernel A launched by ct only, twice (raw and superposed vectors): {total[0]}")
+    check(launches["fit-ct"][1] == launches["fit-ct"][2] == total[1] == total[2] > 0,
+          f"kernels B and C launched by fit-ct only, once a LM step: {total[1]} / {total[2]}")
+    card, cpu = dirs["card"], dirs["cpu"]
+    hc, hf = dq_header(card / "rotdif-aniso2.dat"), dq_header(cpu / "rotdif-aniso2.dat")
+    for k in ("D_0", "D_1", "D_2", "Diso"):
+        gap = abs(hc[k] - hf[k]) / abs(hf[k])
+        check(gap <= 1e-6, f"dq {k} {hc[k]:.6e} s^-1, relative gap to CPU float64 {gap:.2e} "
+                           f"<= 1e-6")
+    for f in ("rotdif_Ctint.dat", "rotdif_Ctext.dat"):
+        a, b = (xvg.load_sxydylist(d / f) for d in (card, cpu))
+        e = float(abs(a[2] - b[2]).max())
+        check(a[0] == b[0] and e <= 2e-6, f"ct {f} C(t) max abs vs CPU float64 {e:.3e} <= 2e-6")
+    for f in ("ired_S2.dat", "wired_S2.dat"):
+        a, b = (xvg.load_matrix(d / f) for d in (card, cpu))
+        e = float(np.abs(a[:, 1] - b[:, 1]).max())
+        check(a.shape == b.shape and np.isfinite(a).all() and e <= 1e-4,
+              f"{f.split('_')[0]} S2 max abs vs CPU float64 {e:.3e} <= 1e-4 (float32 eigh of "
+              f"{a.shape[0]} x {a.shape[0]} block matrices)")
+        res[f.split("_")[0] + "_err"] = e
+    rung = [fittedct.read_fittedct(str(d / "rotdif_fittedCt.dat"), device="cpu")
+            for d in (card, cpu)]
+    rung = [m.mask.sum(1) * 2 + m.s2fast for m in rung]
+    same = (rung[0] == rung[1]).numpy()
+    share = float(same.mean())
+    check(share >= 0.98, f"fit-ct rung equal to the CPU float64 ladder's on {share:.4f} of "
+                         f"{len(same)} residues (>= 0.98)")
+    # rates: phase 8a's rule, |a - b| <= 1e-5 |b| + atol on residues of equal rung
+    from spinrelax_tpu_torch.constants import GYROMAGNETIC_RATIOS
+
+    kappa = abs(GYROMAGNETIC_RATIOS["1H"] / GYROMAGNETIC_RATIOS["15N"])
+    worst = 0.0
+    for f in [f"rotdif-{b.split('.')[0]}_{r}.dat" for b in FIELDS_CLI
+              for r in ("R1", "R2", "NOE", "rho")] + ["rho.dat"]:
+        a, b = (xvg.load_matrix(d / f)[:, 1] for d in (card, cpu))
+        a, b = a[same], b[same]
+        atol = 2e-5 * kappa if "NOE" in f else 1e-5 * np.abs(b).max()
+        excess = float((np.abs(a - b) / (1e-5 * np.abs(b) + atol)).max())
+        worst = max(worst, float((np.abs(a - b) / np.abs(b)).max()))
+        check(np.isfinite(a).all() and excess <= 1.0,
+              f"{f}: every value within 1e-5 |b| + atol of CPU float64 on the "
+              f"{int(same.sum())} residues of equal rung ({excess:.3f} of the allowance)")
+    res.update(walls=walls, launches=launches, total=total, busy_chain={
+        k: v[0] for k, v in prof.items()}, cpu_walls=cpu_walls, rung_share=share,
+        rate_gap_max=worst)
+    return res
+
+
 def phase_acf_stage_shapes(torch, tac, cuda_acf, gen):
     """Kernel A against acf_sums_plain (torch.fft) at the stage's shapes:
     1024 bonds in the stage's (chunk, frame, bond, 3) layout."""
@@ -1768,6 +2130,7 @@ def main() -> int:
         wf = phase_runall(torch, counters, ubq)
         dq_long = phase_dq_long(torch, Path(work))
         fit = phase_fit(torch, counters, wf)
+        cli_run = phase_cli(torch, counters, ubq, Path(work))
     fit_large = phase_fit_large(torch)
 
     print(f"chip_smoke phases took {time.perf_counter() - t_start:.1f} s, build included",
@@ -1803,7 +2166,10 @@ def main() -> int:
           + ", ".join(f"{k} {v['wall']:.3f} s" for k, v in fit["legacy"].items())
           + f"; GlobalFitter at {MBP['n_res']} x {MBP['n_samp']}: "
           + ", ".join(f"{e['method']} {e['vars']} {e['wall']:.3f} s (CPU {e['cpu']:.3f})"
-                      for e in fit_large), flush=True)
+                      for e in fit_large)
+          + f"; center on {RAW['n_frames']} frames {cli_run['wall']:.3f} s "
+          f"({cli_run['frames_s']:.1f} frames/s), the quick-start chain "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in cli_run["walls"].items()), flush=True)
     if failures:
         print(f"chip_smoke FAILED ({len(failures)}):", *failures, sep="\n  ",
               file=sys.stderr)
@@ -1821,6 +2187,7 @@ def main() -> int:
              slab_plan_bound_by=a_times["long_by"],
              launches_stage=stage["launches"][0], launches_ct_entry=stage["launches_entry"][0],
              launches_runall=wf["launches"][0], launches_runall_fit=fit["launches"][0],
+             launches_cli=cli_run["total"][0],
              **{f"stage_{k}_{f}": t[x] for k, t in a_stage.items()
                 for f, x in (("ms", "ms"), ("plain_ms", "plain"), ("bound_ms", "bound"),
                              ("bound_by", "by"), ("max_abs_err", "err"))}),
@@ -1832,7 +2199,7 @@ def main() -> int:
              bound_by=fwd_t["B_by"], library_ms=None, launches_ladder=ladder["launches"][1],
              launches_finish=finish["launches"][1],
              launches_ct_entry=stage["launches_entry"][1], launches_runall=wf["launches"][1],
-             launches_runall_fit=fit["launches"][1],
+             launches_runall_fit=fit["launches"][1], launches_cli=cli_run["total"][1],
              **{f"{k}_{f}": t[x] for k, t in (("k5", k5), ("k8", k8))
                 for f, x in (("ms", "B"), ("plain_ms", "B_plain"), ("bound_ms", "B_bound"))}),
         dict(name="lm_cost", route="cuda", source=src + "lm_hgc.cu",
@@ -1842,7 +2209,7 @@ def main() -> int:
              bound_by=fwd_t["C_by"], library_ms=None, launches_ladder=ladder["launches"][2],
              launches_finish=finish["launches"][2],
              launches_ct_entry=stage["launches_entry"][2], launches_runall=wf["launches"][2],
-             launches_runall_fit=fit["launches"][2],
+             launches_runall_fit=fit["launches"][2], launches_cli=cli_run["total"][2],
              **{f"{k}_{f}": t[x] for k, t in (("k5", k5), ("k8", k8))
                 for f, x in (("ms", "C"), ("plain_ms", "C_plain"), ("bound_ms", "C_bound"))}),
     ]

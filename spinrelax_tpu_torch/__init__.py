@@ -10,8 +10,9 @@ counterpart for Hopper (``csrc/``), compiled with ``nvcc`` on first use
 tensor, its plain PyTorch version for a CPU tensor, and raises for
 anything else.  Importing the package needs neither ``nvcc`` nor a GPU.
 The entry points that place data (``entry.entry``,
-``convert.palmer_state_from_numpy``) run on the card unless the caller
-passes ``device="cpu"``.
+``convert.palmer_state_from_numpy``, every stage, and the command line
+``python -m spinrelax_tpu_torch <cmd>``) run on the card unless the caller
+passes ``device="cpu"`` (``pipeline.cli.main(argv, device="cpu")``).
 """
 
 import torch

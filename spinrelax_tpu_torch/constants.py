@@ -98,6 +98,12 @@ def field_from_mhz(freq_mhz: float) -> float:
     return 2.0 * math.pi * freq_mhz / 267.513
 
 
+def field_to_mhz(B0: float) -> float:
+    """1H frequency in MHz at a magnetic field B0 [T] (the inverse of
+    :func:`field_from_mhz`)."""
+    return B0 * 267.513 / (2.0 * math.pi)
+
+
 def field_from_hz(freq_hz: float) -> float:
     return 2.0 * math.pi * freq_hz / 267.513e6
 

@@ -21,9 +21,6 @@ import numpy as np
 
 from .zopen import fmt_name, topen
 
-_ITEM_14 = ("%s: the port reads and writes PDB structures only; the .gro, .psf and "
-            ".prmtop readers come with ROADMAP item 14")
-
 
 @dataclasses.dataclass
 class Topology:
@@ -231,7 +228,10 @@ def read_structure(fn: str) -> Tuple[Topology, np.ndarray]:
     both (the reference's GROMACS deployments produce either,
     create-reference-pdb.bash:63)."""
     if fmt_name(fn).endswith(".gro"):
-        raise NotImplementedError(_ITEM_14 % fn)
+        from . import gro
+
+        top, xyz, _boxes, _times = gro.read_gro(fn)
+        return top, xyz
     if fmt_name(fn).endswith((".psf", ".prmtop", ".parm7")):
         raise ValueError(
             f"{fn}: this topology format carries no coordinates — pass a "
@@ -246,16 +246,27 @@ def read_topology(fn: str) -> Topology:
     .psf (coordinate-less CHARMM/NAMD topology, io.psf), .gro, or PDB.
     For surfaces that also need coordinates use read_structure (which
     rejects .psf with a clear message)."""
-    if fmt_name(fn).endswith((".psf", ".prmtop", ".parm7")):
-        raise NotImplementedError(_ITEM_14 % fn)
+    if fmt_name(fn).endswith(".psf"):
+        from . import psf
+
+        top, _bonds = psf.read_psf(fn)
+        return top
+    if fmt_name(fn).endswith((".prmtop", ".parm7")):
+        from . import prmtop
+
+        top, _bonds = prmtop.read_prmtop(fn)
+        return top
     return read_structure(fn)[0]
 
 
 def write_structure(fn: str, top: Topology, xyz: np.ndarray):
     """Write a structure file, dispatching on extension (.gro or PDB)."""
     if fmt_name(fn).endswith(".gro"):
-        raise NotImplementedError(_ITEM_14 % fn)
-    write_pdb(fn, top, xyz)
+        from . import gro
+
+        gro.write_gro(fn, top, xyz)
+    else:
+        write_pdb(fn, top, xyz)
 
 
 def bond_indices(

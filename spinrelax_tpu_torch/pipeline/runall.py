@@ -14,9 +14,10 @@ viscosity / D2O correction of D_iso reproduces run-all.bash:15-28.
 
 With ``-fit`` / ``-expfiles`` the multi-field global fit
 (``stages.stage_multifield``) runs once per mode after the relaxations.
-Not ported yet: ``-devices`` (ROADMAP item 15) raises
-``NotImplementedError`` before any stage runs; the fitted-Ct plot waits
-for item 14.
+The fitted C(t) is plotted to ``{pref}_fittedCt.pdf`` (cosmetic: without
+matplotlib a note is printed and the run goes on).  Not ported yet:
+``-devices`` (ROADMAP item 15) raises ``NotImplementedError`` before any
+stage runs.
 """
 
 from __future__ import annotations
@@ -235,8 +236,13 @@ def run_workflow(cfg: WorkflowConfig, device="cuda") -> dict:
         record_stage(outpref, "fit-ct", [outpref + "_Ctint.dat"])
     else:
         print(" = = = Note: Pre-existing fitted-Ct file found, skipping.")
-    print("= = = NOTE: the fitted-Ct plot (_fittedCt.pdf) waits for ROADMAP item 14 "
-          "(pipeline/plotting.py)")
+    if not os.path.exists(outpref + "_fittedCt.pdf") or cfg.force:
+        try:
+            from .plotting import main as plot_main
+
+            plot_main(["-f", outpref + "_fittedCt.dat", "-o", outpref + "_fittedCt.pdf"])
+        except Exception as exc:  # plotting is cosmetic; never fatal
+            print(f"= = = NOTE: plotting skipped ({exc})")
     lap("fit-ct")
 
     # ------------------------------------------------------------------

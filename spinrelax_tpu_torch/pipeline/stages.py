@@ -6,8 +6,9 @@ torch device, the card unless the caller asks for the CPU; the artefact
 formats are byte-compatible with the JAX package's and the reference's, so
 a stage of either package reads the other's files.  Ported: the
 orientation colvar, Delta-q -> D tensor, the in-memory and the streamed
-C(t) stages, the C(t) fit, the relaxation predictions with the legacy
-single-field fits, and the multi-field global fit (``stage_multifield``).
+C(t) stages (outer-product and iRED / wiRED S2), the C(t) fit, the
+relaxation predictions with the legacy single-field fits, and the
+multi-field global fit (``stage_multifield``).
 """
 
 from __future__ import annotations
@@ -35,7 +36,7 @@ from ..io import xvg
 from ..io.zopen import is_gz, topen
 from ..models.ctmodel import CtModelSet
 from ..models.diffusion import Diffusion
-from ..ops import autocorr, observables, orient
+from ..ops import autocorr, ired, observables, orient
 from ..ops import dq as dqops
 
 
@@ -441,13 +442,11 @@ def stage_ct(
     float64 on the CPU.
 
     ``timestep`` overrides the frame spacing reported by the trajectory
-    loader (for formats that carry no time axis).  ``s2_mode`` "ired" and
-    "wired" wait for ROADMAP item 13 and raise ``NotImplementedError``."""
+    loader (for formats that carry no time axis).  ``s2_mode`` "ired" /
+    "wired" take S2 from the eigenmodes of the raw vectors' blocks
+    (``ops.ired``) and also write ``{pref}_iREDspectrum.dat``."""
     if s2_mode not in ("outer", "ired", "wired"):
         raise ValueError(f"unknown s2_mode {s2_mode!r}")
-    if do_s2 and s2_mode != "outer":
-        raise NotImplementedError(
-            f"s2_mode={s2_mode!r}: ops/ired.py comes with ROADMAP item 13")
     if do_vec_dist and vec_storage not in ("Histogram", "PhiTheta", "TextPhiTheta"):
         raise ValueError(f"unknown vec_storage {vec_storage!r}")
     dev = checked_device(device)
@@ -507,8 +506,11 @@ def stage_ct(
                               np.stack([Ct.T, dCt.T], axis=-1))
         out["Ct"], out["dCt"] = Ct, dCt
 
-    # Flatten chunks for the remaining statistics
+    # Flatten chunks for the remaining statistics; iRED works on the raw
+    # (lab-frame) vectors: the tumbling modes are separated spectrally.
     flat = vec_fit.reshape(-1, vec_fit.shape[-2], vec_fit.shape[-1])
+    raw_flat = (vec_raw.reshape(-1, vec_raw.shape[-2], vec_raw.shape[-1])
+                if do_s2 and s2_mode != "outer" else None)
     del vec_raw, vec_fit
     if q_rot is not None:
         flat = qt.rotate_vector(flat, torch.as_tensor(np.asarray(q_rot), dtype=f, device=dev))
@@ -540,7 +542,12 @@ def stage_ct(
                     print("&", file=fp)
 
     if do_s2:
-        if tau_memory is None:
+        if s2_mode != "outer":
+            if tau_memory is None:
+                raise ValueError("iRED/wiRED S2 needs a memory time")
+            fn = ired.calculate_s2_ired if s2_mode == "ired" else ired.calculate_s2_wired
+            s2 = _ired_spectrum_artefact(out_prefix, fn(raw_flat, delta_t, tau_memory / 10.0))
+        elif tau_memory is None:
             # Unblocked S2, value only (calculate-S2.py:122-125,143).
             s2 = autocorr.s2_outer(flat).cpu().numpy()
         else:
@@ -551,6 +558,24 @@ def stage_ct(
     out["res_ids"] = res_ids
     out["delta_t"] = delta_t
     return out
+
+
+def _ired_spectrum_artefact(out_prefix: str, res_i) -> np.ndarray:
+    """Write {pref}_iREDspectrum.dat (block-mean eigenvalues, descending,
+    with sqrt(n)-1 SEM; the reorientational 5-mode subspace leads) and
+    return the (nRes, 2) [S2, dS2] array -- shared by the in-memory and
+    streamed C(t) stages."""
+    s2 = np.stack([res_i.S2.cpu().numpy(), res_i.dS2.cpu().numpy()], axis=-1)
+    vals = res_i.eigenvalues.cpu().numpy()  # (nBlocks, nRes)
+    lam = np.mean(vals, axis=0)
+    dlam = np.std(vals, axis=0) / max(np.sqrt(vals.shape[0]) - 1.0, 1.0)
+    xvg.print_xydy(
+        out_prefix + "_iREDspectrum.dat",
+        np.arange(1, lam.shape[0] + 1), lam, dlam,
+        header="# iRED eigenmode spectrum (descending); "
+               "modes 1-5 span global reorientation",
+    )
+    return s2
 
 
 # ---------------------------------------------------------------------------
@@ -1063,17 +1088,18 @@ def stage_ct_streamed(
     numpy), and for ``parallel.streamed.run_finish`` the device
     accumulators ``acc`` and the chunk count ``n_chunks``.
 
-    Not ported yet: ``mesh`` (ROADMAP item 15) and ``s2_mode`` "ired" /
-    "wired" (ROADMAP item 13) raise ``NotImplementedError``.
+    ``s2_mode`` "ired" / "wired" stream the raw vectors through their own
+    per-block (nBonds, nBonds) accumulator (``ops.ired.IredStream``)
+    instead of the outer-product S2 sums.  Not ported yet: ``mesh``
+    (ROADMAP item 15) raises ``NotImplementedError``.
     """
     if mesh is not None:
         raise NotImplementedError(
             "stage_ct_streamed(mesh=...): the sharded stream comes with ROADMAP item 15")
     if s2_mode not in ("outer", "ired", "wired"):
         raise ValueError(f"unknown s2_mode {s2_mode!r}")
-    if do_s2 and s2_mode != "outer":
-        raise NotImplementedError(
-            f"s2_mode={s2_mode!r}: ops/ired.py (IredStream) comes with ROADMAP item 13")
+    do_s2_outer = bool(do_s2 and s2_mode == "outer")
+    ired_stream = None
     if do_vec_dist and vec_storage not in ("Histogram", "PhiTheta", "TextPhiTheta"):
         raise ValueError(f"unknown vec_storage {vec_storage!r}")
     dev = checked_device(device)
@@ -1106,13 +1132,21 @@ def stage_ct_streamed(
 
     def accumulate(vec_raw_g, vec_fit_g):
         """vec_*_g: (g, fpc, nBonds, 3) device tensors for one group."""
-        nonlocal n_chunks_total, pt_writer, frames_since_spill, vec_dtype
+        nonlocal n_chunks_total, pt_writer, frames_since_spill, vec_dtype, ired_stream
         g = vec_raw_g.shape[0]
         vec_dtype = vec_raw_g.dtype
+        if do_s2 and not do_s2_outer:
+            # Lab-frame (un-superposed) vectors, exactly like the
+            # in-memory stage: iRED separates tumbling spectrally.
+            if ired_stream is None:
+                wf = 5.0 if s2_mode == "ired" else 2.0
+                W = max(int(wf * (tau_memory / 10.0) / delta_t), 2)
+                ired_stream = ired.IredStream(vec_raw_g.shape[2], W)
+            ired_stream.update(vec_raw_g.reshape(-1, vec_raw_g.shape[2], 3))
         if not acc:
             acc.update(init_accumulators(
                 vec_raw_g.shape[2], fpc, vec_raw_g.dtype, dev, do_ct=do_ct,
-                do_s2=do_s2, do_vec_avg=do_vec_avg, do_hist=do_hist, hist_bins=hist_nb))
+                do_s2=do_s2_outer, do_vec_avg=do_vec_avg, do_hist=do_hist, hist_bins=hist_nb))
         # Zero-pad a partial final group to the fixed group size, so every
         # group step has one shape; padded chunks carry weight 0.
         g_pad = chunk_groups - g
@@ -1234,8 +1268,11 @@ def stage_ct_streamed(
             out["vec_file"] = pt_writer.fn
 
     if do_s2:
-        s2, ds2 = autocorr.palmer_pooled_stats(acc["s2_s"], acc["s2_s2"], R)
-        arr = np.stack([s2.cpu().numpy(), ds2.cpu().numpy()], axis=-1)
+        if do_s2_outer:
+            s2, ds2 = autocorr.palmer_pooled_stats(acc["s2_s"], acc["s2_s2"], R)
+            arr = np.stack([s2.cpu().numpy(), ds2.cpu().numpy()], axis=-1)
+        else:
+            arr = _ired_spectrum_artefact(out_prefix, ired_stream.result())
         xvg.print_xylist(out_prefix + "_S2.dat", res_ids, (arr.T) * zeta, cols=True)
         out["S2"] = arr
     out["acc"] = acc

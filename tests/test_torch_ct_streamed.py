@@ -238,8 +238,8 @@ def test_stage_options_not_ported_name_their_roadmap_item(system):
     args = ([system["xtc"]], [system["ref"]], str(system["tmp"] / "no"))
     with pytest.raises(NotImplementedError, match="item 15"):
         tstages.stage_ct_streamed(*args, tau_memory=TAU, mesh=object(), device="cpu")
-    for mode in ("ired", "wired"):
-        with pytest.raises(NotImplementedError, match="item 13"):
+    for mode in ("ired", "wired"):  # ported (item 13); 5 bonds are too few for 5 global modes
+        with pytest.raises(ValueError, match="more residues"):
             tstages.stage_ct_streamed(*args, tau_memory=TAU, s2_mode=mode, device="cpu")
     with pytest.raises(ValueError, match="s2_mode"):
         tstages.stage_ct_streamed(*args, tau_memory=TAU, s2_mode="other", device="cpu")

@@ -683,3 +683,71 @@ def test_stage_multifield_on_card_matches_cpu(gen, tmp_path):
                 assert x == y, f
                 continue
             assert abs(fx - fy) <= 1e-4 * abs(fy) + 10.0 ** (np.floor(np.log10(abs(fy) or 1)) - 5)
+
+
+def _raw_frames(n_frames, seed):
+    """A 30-atom chain and 60 waters wrapped into a 3.1 nm box, float32."""
+    from spinrelax_tpu_torch.io.pdb import Topology
+
+    rng = np.random.default_rng(seed)
+    box = np.array([3.1, 3.1, 3.1])
+    chain = np.cumsum(rng.normal(scale=0.1, size=(30, 3)), axis=0)
+    drift = np.cumsum(rng.normal(scale=0.3, size=(n_frames, 1, 3)), axis=0)
+    wat = (rng.uniform(0, 3.1, (n_frames, 60, 1, 3))
+           + np.array([[0, 0, 0], [0.08, 0.02, 0], [0, 0.08, 0.02]])).reshape(n_frames, 180, 3)
+    raw = np.mod(np.concatenate([chain[None] + drift, wat], axis=1), box).astype(np.float32)
+    top = Topology(atom_names=["CA"] * 30 + ["OW", "HW1", "HW2"] * 60,
+                   res_seqs=np.concatenate([np.arange(1, 31), np.repeat(np.arange(100, 160), 3)]),
+                   res_names=["ALA"] * 30 + ["SOL"] * 180, chain_ids=["A"] * 30 + ["W"] * 180,
+                   occupancies=np.ones(210), elements=[""] * 210)
+    return top, raw, box
+
+
+def test_center_solute_on_card_matches_cpu_f64(gen):
+    """center_solute on the card against the CPU in float64 (solute 1e-4 nm,
+    every atom within 1e-4 nm modulo whole boxes) and two card runs equal
+    bit for bit."""
+    from spinrelax_tpu_torch.ops.pbc import center_solute
+
+    top, raw, box = _raw_frames(300, seed=3)
+    card = center_solute(raw, box, top=top, batch=128)
+    again = center_solute(raw, box, top=top, batch=128)
+    assert card.dtype == np.float32 and np.array_equal(card, again)
+    cpu = center_solute(raw.astype(np.float64), box, top=top, device="cpu")
+    np.testing.assert_allclose(card[:, :30], cpu[:, :30], rtol=0, atol=1e-4)
+    d = card - cpu
+    np.testing.assert_allclose(d - np.round(d / box) * box, 0.0, atol=1e-4)
+
+
+def test_ired_on_card_matches_cpu_f64(gen):
+    """calculate_s2_ired and IredStream on the card (float32 vectors)
+    against the CPU in float64."""
+    from spinrelax_tpu_torch.ops import ired
+
+    v = _unit((3000, 71), gen)
+    cpu = ired.calculate_s2_ired(v.double().cpu(), 2.0, 200.0)
+    card = ired.calculate_s2_ired(v, 2.0, 200.0)
+    assert card.S2.is_cuda and card.S2.dtype == torch.float32
+    for k in ("S2", "dS2", "eigenvalues"):
+        err = float((getattr(card, k).double().cpu() - getattr(cpu, k)).abs().max())
+        assert err <= 1e-4, (k, err)
+    st = ired.IredStream(71, 500)
+    for off in range(0, 3000, 700):
+        st.update(v[off : off + 700])
+    err = float((st.result().S2.double().cpu() - cpu.S2).abs().max())
+    assert err <= 1e-4, err
+
+
+def test_python_m_check_on_card():
+    """python -m spinrelax_tpu_torch check exits 0 on the card."""
+    import subprocess
+    import sys
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-m", "spinrelax_tpu_torch", "check"], cwd=repo,
+                         env=dict(os.environ, PYTHONPATH=repo), capture_output=True,
+                         text=True, timeout=600)
+    assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-2000:]
+    assert "check PASSED" in out.stdout and "device cuda" in out.stdout

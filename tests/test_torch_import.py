@@ -35,6 +35,13 @@ MODULES = [
     "spinrelax_tpu_torch.pipeline.runall", "spinrelax_tpu_torch.io.experiments",
     "spinrelax_tpu_torch.models.experiments", "spinrelax_tpu_torch.fit.scalar",
     "spinrelax_tpu_torch.fit.globalfit", "spinrelax_tpu_torch.fit.legacyfit",
+    "spinrelax_tpu_torch.__main__", "spinrelax_tpu_torch.ops.pbc", "spinrelax_tpu_torch.ops.ired",
+    "spinrelax_tpu_torch.utils.profiling", "spinrelax_tpu_torch.pipeline.plotting",
+    "spinrelax_tpu_torch.io.gro", "spinrelax_tpu_torch.io.gmx", "spinrelax_tpu_torch.io.dcd",
+    "spinrelax_tpu_torch.io.amber", "spinrelax_tpu_torch.io.xyz", "spinrelax_tpu_torch.io.psf",
+    "spinrelax_tpu_torch.io.prmtop", "spinrelax_tpu_torch.io.ndx",
+    "spinrelax_tpu_torch.io.nmrstar", "spinrelax_tpu_torch.io.bmrb",
+    "spinrelax_tpu_torch.io.hydronmr",
 ]
 
 
@@ -50,7 +57,7 @@ def test_every_module_is_listed():
     assert found - {"spinrelax_tpu_torch.ops", "spinrelax_tpu_torch.fit",
                     "spinrelax_tpu_torch.parallel", "spinrelax_tpu_torch.core",
                     "spinrelax_tpu_torch.models", "spinrelax_tpu_torch.io",
-                    "spinrelax_tpu_torch.pipeline"} == set(MODULES)
+                    "spinrelax_tpu_torch.pipeline", "spinrelax_tpu_torch.utils"} == set(MODULES)
 
 
 def test_import_leaves_out_jax_and_toolchain():

@@ -34,6 +34,7 @@ from spinrelax_tpu_torch.io import fittedct as tfct
 from spinrelax_tpu_torch.io import native as tnat
 from spinrelax_tpu_torch.io import xvg
 from spinrelax_tpu_torch.models.diffusion import Diffusion
+from spinrelax_tpu_torch.pipeline import cli as tcli
 from spinrelax_tpu_torch.pipeline import config as tconfig
 from spinrelax_tpu_torch.pipeline import runall as trunall
 from spinrelax_tpu_torch.pipeline import stages as tstages
@@ -89,15 +90,12 @@ def _no_plot(argv):
 @pytest.fixture(scope="module")
 def jax_run(system):
     """The JAX package's run_workflow: its directory and printed output.
-    Its fitted-Ct plot (matplotlib, cosmetic) is left out, as the port
-    leaves it out."""
-    from spinrelax_tpu.pipeline import plotting
-
+    Both packages plot the fitted C(t) (matplotlib, cosmetic) into the
+    same _fittedCt.pdf."""
     d = system["tmp"] / "jax"
     d.mkdir()
     out = io.StringIO()
-    with _in_dir(d), contextlib.redirect_stdout(out), pytest.MonkeyPatch.context() as mp:
-        mp.setattr(plotting, "main", _no_plot)
+    with _in_dir(d), contextlib.redirect_stdout(out):
         jrunall.run_workflow(_cfg(jconfig, system))
     return dict(dir=d, stdout=out.getvalue())
 
@@ -265,10 +263,12 @@ def test_not_ported_options_raise_before_any_artefact(system, tmp_path):
         for cfg, item in cases:
             with pytest.raises(NotImplementedError, match=item):
                 trunall.run_workflow(cfg, device="cpu")
-        for mode in ("ired", "wired"):
-            with pytest.raises(NotImplementedError, match="item 13"):
-                tstages.stage_ct([system["xtc"]], [system["ref"]], "x", 400.0,
-                                 s2_mode=mode, device="cpu")
+        for argv, item in ((["fit-ct", "-f", "x_Ctint.dat", "--optimiser", "varpro"], "item 12b"),
+                           (["fit-ct", "-f", "x_Ctint.dat", "--devices", "2"], "item 15"),
+                           (["ct", "-s", system["ref"], "-f", system["xtc"], "-t", "400",
+                             "--split", "2", "--devices", "2"], "item 15")):
+            with pytest.raises(NotImplementedError, match=item):
+                tcli.main(argv, device="cpu")
         assert os.listdir(tmp_path) == []
         if not torch.cuda.is_available():
             with pytest.raises(RuntimeError, match="no CUDA device"):

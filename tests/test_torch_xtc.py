@@ -182,22 +182,34 @@ def test_trajectory_readers_match_jax(system, ext):
 
 
 @pytest.mark.parametrize("name", ["t.trr", "t.dcd", "t.gro", "t.nc", "t.mdcrd", "t.xyz", "t.h5"])
-def test_other_trajectory_formats_name_their_roadmap_item(name):
-    for call in (lambda: ttraj.load_trajectory(name),
-                 lambda: next(ttraj.iter_trajectory(name, 10)),
-                 lambda: ttraj.is_timeless(name)):
-        with pytest.raises(NotImplementedError, match="item 14"):
-            call()
+def test_other_trajectory_formats_name_their_roadmap_item(name, tmp_path):
+    """ROADMAP item 14 is done: every extension dispatches as in the JAX
+    package (tests/test_torch_formats.py reads each format); a missing
+    file fails in both with the same exception type, and is_timeless
+    agrees."""
+    fn = str(tmp_path / name)
+    for mod in (ttraj, jtraj):
+        assert mod.is_timeless(fn) == jtraj.is_timeless(fn)
+    for call in (lambda mod: mod.load_trajectory(fn, top_fn=fn),
+                 lambda mod: next(mod.iter_trajectory(fn, 10, top_fn=fn))):
+        errs = []
+        for mod in (ttraj, jtraj):
+            with pytest.raises((OSError, ValueError)) as exc:
+                call(mod)
+            errs.append(type(exc.value).__name__)
+        assert errs[0] == errs[1], errs
 
 
 def test_gz_and_structure_dispatch(tmp_path):
     with pytest.raises(ValueError, match="gzip"):
         ttraj.load_trajectory("t.xtc.gz")
-    for fn in ("ref.gro", "top.psf", "top.prmtop"):
-        with pytest.raises(NotImplementedError, match="item 14"):
-            tpdb.read_topology(fn)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tpdb.read_structure("ref.gro")
+    for fn in ("ref.gro", "top.psf", "top.prmtop"):  # each format's reader opens the file
+        with pytest.raises(FileNotFoundError):
+            tpdb.read_topology(str(tmp_path / fn))
+    with pytest.raises(FileNotFoundError):
+        tpdb.read_structure(str(tmp_path / "ref.gro"))
+    with pytest.raises(ValueError, match="no coordinates"):
+        tpdb.read_structure("top.psf")
 
 
 def test_text_writers_write_the_jax_packages_bytes(tmp_path, rng):
