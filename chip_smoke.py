@@ -36,6 +36,17 @@ Builds the port's CUDA kernels from csrc/ and runs, in order:
    trace), device busy, and on a 1024-row subset the rung selected on
    the card against the port's CPU float32 ladder (>= 98 % equal) and
    CPU float64 ladder (printed);
+5b. the varpro ladder and the stacked ladder (fit_ct_ladder(optimiser=
+   "varpro") and (stacked=True), over the generic LM fit.lm.lm_solve) on
+   the same cohort at the same width: median wall of 3 calls, steps, each
+   LM call's rows and iterations, device busy and idle share, peak device
+   memory, kernel B/C launches (from varpro's warm retries only, which run
+   fit.engine; counters and profiler), the graph loop equal to the eager
+   loop bit for bit, and on the 1024-row subset the rung equal to the CPU
+   float32 ladder's on >= 98 % of rows and the card in float64 within
+   1e-8 of the CPU in float64 (fitted C(t) and chisq, rung on every row);
+   then spectral_density's seven models (1e-12) and a batched legacy
+   do_expstyle_fit (1e-8) on the card against the CPU in float64;
 6. the streamed finish (run_finish: ladder -> axisymmetric J(omega) with
    64 weighted PAF samples -> ensemble rates) on phase 4's accumulators,
    held to the same finish on the CPU in float64 (median relative gap of
@@ -110,12 +121,13 @@ Builds the port's CUDA kernels from csrc/ and runs, in order:
    every atom 1e-4 nm modulo whole boxes, the molecules imaged a box away
    counted, two card runs bit for bit); (b) the quick-start chain through
    cli.main on the centred .xtc: orient, dq, ct (--Ct --S2 --vecHist),
-   ct --S2mode ired, ct --split 2 --S2mode wired, fit-ct, relax at
+   ct --S2mode ired, ct --split 2 --S2mode wired, fit-ct, fit-ct
+   --optimiser varpro, relax at
    600.133 and 850.13 MHz, rho; each step's wall, kernel A/B/C launches
    (wrappers and profiler) and idle share, held to the same chain on the
    CPU in float64 (phase 8a's tolerances; iRED / wiRED S2 1e-4).
 
-Phases 3, 5 and 6 run their LM loop both ways in turns -- the CUDA graph
+Phases 3, 5, 5b and 6 run their LM loops both ways in turns -- the CUDA graph
 of one step, and the eager loop that issues every step from the host --
 and hold the outputs equal bit for bit.  Kernel A is also timed against
 its plain version (torch.fft) at the stage's chunk lengths, 1024 bonds at
@@ -461,16 +473,20 @@ def saw(per, **counts) -> bool:
 
 
 @contextlib.contextmanager
-def eager_loop(engine):
-    """Inside, every LM of the port runs its steps one by one from the host
-    (the engine's test-only ``_eager``) instead of replaying a CUDA graph:
-    the loop the graph loop is held to, bit for bit, and timed against."""
-    graph_fit = engine.fit_multiexp_engine
-    engine.fit_multiexp_engine = functools.partial(graph_fit, _eager=True)
+def eager_loop(engine, lm=None):
+    """Inside, every LM of the port (the engine's and, given ``lm``, the
+    generic ``lm.lm_solve``) runs its steps one by one from the host (their
+    test-only ``_eager``) instead of replaying a CUDA graph: the loop the
+    graph loop is held to, bit for bit, and timed against."""
+    saved = [(engine, "fit_multiexp_engine")] + ([(lm, "lm_solve")] if lm else [])
+    graph_fns = [getattr(m, name) for m, name in saved]
+    for (m, name), fn in zip(saved, graph_fns):
+        setattr(m, name, functools.partial(fn, _eager=True))
     try:
         yield
     finally:
-        engine.fit_multiexp_engine = graph_fit
+        for (m, name), fn in zip(saved, graph_fns):
+            setattr(m, name, fn)
 
 
 def same_bits(torch, a, b) -> bool:
@@ -749,6 +765,147 @@ def phase_ladder(torch, counters, engine, hetero_cohort, fit_ct_ladder):
           f"subset ladders {time.perf_counter() - t0:.1f} s", flush=True)
     return dict(wall=walls[1], launches=launches, busy=busy, kernels=kt,
                 share32=share32, share64=share64, wall_eager=walls_e[1], busy_eager=busy_e)
+
+
+def curve_gap(torch, a, b, dt) -> float:
+    """Max abs gap between two CtModelSets' fitted C(t) on the lags dt."""
+    return float((a.eval(dt).double().cpu() - b.eval(dt).double().cpu()).abs().max())
+
+
+def phase_ladder_5b(torch, counters, engine, lm, hetero_cohort, fit_ct_ladder):
+    """Phase 5b: the varpro ladder and the stacked ladder at phase 5's width
+    (fit.lm.lm_solve; varpro's warm retries on kernels B and C), then
+    spectral_density's seven models and a legacy fit, card against CPU."""
+    print(f"phase 5b: varpro and stacked ladders (B {LADDER_B} x T {LADDER_T}, f32, weighted) "
+          f"on the card", flush=True)
+    import numpy as np
+
+    dt, y, dy = hetero_cohort(LADDER_B, LADDER_T)
+    names = [str(i) for i in range(LADDER_B)]
+    yc = torch.tensor(y, dtype=torch.float32, device="cuda")
+    dyc = torch.tensor(dy, dtype=torch.float32, device="cuda")
+    out = {}
+    for kind, kw in (("varpro", dict(optimiser="varpro")), ("stacked", dict(stacked=True))):
+        def run(n=LADDER_B, trace=None, kw=kw):
+            return fit_ct_ladder(names[:n], dt, yc[:n], dyc[:n], trace=trace, **kw)
+
+        run()  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mem0 = torch.cuda.memory_allocated()
+        walls = sorted(wall_s(torch, run)[1] for _ in range(3))
+        peak = torch.cuda.max_memory_allocated()
+        mem1 = torch.cuda.memory_allocated()
+        check(mem1 <= mem0, f"{kind}: the ladder keeps no graph pool after it returns "
+                            f"(allocated {mem0 / 1e6:.1f} MB before, {mem1 / 1e6:.1f} MB after)")
+        calls = []
+        for c in counters:
+            c.launches = 0
+        cts = run(trace=calls)
+        torch.cuda.synchronize()
+        launches = [c.launches for c in counters]
+        for c in calls:
+            print(f"  {kind} LM call {c['stage']} K={c['K']} S2 {c['s2_free']}: {c['rows']} rows, "
+                  f"slowest lane {c['iterations']} iterations, {c['steps']} steps run, kernel B "
+                  f"{c['launches_B']} launches, kernel C {c['launches_C']}", flush=True)
+        warm = [c for c in calls if c["stage"] == "warm"]
+        bc = (sum(c["launches_B"] for c in warm), sum(c["launches_C"] for c in warm))
+        if kind == "varpro":
+            check(len(warm) > 0 and bc[0] == launches[1] and bc[1] == launches[2]
+                  and bc[0] == bc[1] == sum(c["steps"] for c in warm) > 0,
+                  f"varpro: kernels B/C launched {launches[1]}/{launches[2]} times, all by its "
+                  f"{len(warm)} warm retries (fit_multiexp_warm over fit.engine), once a step")
+        else:
+            check(launches == [0, 0, 0], f"stacked: no kernel launched ({launches})")
+        check(all(c["launches_B"] == c["launches_C"] == 0 for c in calls if c["stage"] != "warm"),
+              f"{kind}: the generic LM calls launched neither B nor C")
+        ok = all(bool(torch.isfinite(getattr(cts, f)).all()) for f in ("S2", "C", "tau", "chisq"))
+        check(ok and bool((cts.mask.sum(1) >= 1).all()),
+              f"{kind}: model finite, >= 1 component a row")
+        busy, per = device_profile(torch, run,
+                                   lambda per: saw(per, B=launches[1], C=launches[2]))
+        kt = kernel_times(per)
+        seen = [kt.get(k, (0,))[0] for k in "BC"]
+        check(seen == launches[1:], f"{kind}: profiler saw kernels B/C {seen} times = the "
+                                    f"counters' {launches[1:]}")
+        with eager_loop(engine, lm):
+            eager, wall_e = wall_s(torch, run)
+        check(all(same_bits(torch, getattr(cts, f), getattr(eager, f))
+                  for f in ("S2", "C", "tau", "dC", "dtau", "chisq", "mask", "s2fast")),
+              f"{kind}: the graph loop's model equals the eager loop's bit for bit")
+        steps = sum(c["steps"] for c in calls)
+        print(f"  {kind}: wall median {walls[1]:.3f} s over 3 calls (min {walls[0]:.3f}, max "
+              f"{walls[2]:.3f}; eager loop {wall_e:.3f} s); {len(calls)} LM calls, {steps} steps; "
+              f"profiled call: {sum(n for n, _ in per.values())} device kernels and copies, "
+              f"device busy {busy:.2f} ms, idle share {1 - busy / (walls[1] * 1e3):.1%}; peak "
+              f"device memory {peak / 1e6:.1f} MB (before {mem0 / 1e6:.1f} MB); kernels B/C "
+              f"{launches[1]}/{launches[2]} launches", flush=True)
+        # the rung on the card against the CPU float32 ladder, and the card
+        # in float64 against the CPU in float64, on the first SUBSET rows
+        t0 = time.perf_counter()
+        card = rung_of(run(SUBSET))
+        cpu32 = fit_ct_ladder(names[:SUBSET], dt, *(torch.tensor(a[:SUBSET], dtype=torch.float32)
+                                                  for a in (y, dy)), **kw)
+        share32 = float((card == rung_of(cpu32)).double().mean())
+        check(share32 >= 0.98, f"{kind}: rung equal to the CPU float32 ladder's on {share32:.4f} "
+                               f"of {SUBSET} rows (>= 0.98)")
+        t64 = [fit_ct_ladder(names[:SUBSET], dt,
+                             *(torch.tensor(a[:SUBSET], dtype=torch.float64, device=d)
+                               for a in (y, dy)), **kw) for d in ("cuda", "cpu")]
+        same64 = bool((rung_of(t64[0]) == rung_of(t64[1])).all())
+        gap = curve_gap(torch, *t64, dt)
+        chi = float(((t64[0].chisq.cpu() - t64[1].chisq) / t64[1].chisq).abs().max())
+        check(same64 and gap <= 1e-8 and chi <= 1e-8,
+              f"{kind}: card float64 vs CPU float64 on {SUBSET} rows: rung equal on every row "
+              f"({same64}), fitted C(t) within {gap:.2e} and chisq within {chi:.2e} relative "
+              f"(<= 1e-8)")
+        print(f"  {kind}: subset ladders {time.perf_counter() - t0:.1f} s", flush=True)
+        out[kind] = dict(wall=walls[1], wall_eager=wall_e, busy=busy, peak_mb=peak / 1e6,
+                         launches=launches, steps=steps, calls=len(calls), share32=share32,
+                         gap64=gap, kernels=kt)
+
+    # spectral_density's seven models and a batched legacy fit, card vs CPU
+    from spinrelax_tpu_torch.fit.legacy_expfit import do_expstyle_fit, exp_decay
+    from spinrelax_tpu_torch.ops import jomega as jw
+
+    rng = np.random.default_rng(11)
+    v = rng.normal(size=(N_RES, 3))
+    v /= np.linalg.norm(v, axis=-1, keepdims=True)
+    S2, ti = rng.uniform(0.5, 0.95, N_RES), rng.uniform(10, 500, N_RES)
+    # no omega 0: there the ellipsoid's 6 Diso - 6 sqrt(Diso^2 - D2^2) cancels
+    # (the reference's quirk) and J carries its rounding amplified ~1e4
+    om = np.array([0.38, 3.4, 3.8, 4.2, 7.6])
+    D3 = np.array([1e-4, 2e-4, 3.5e-4])
+    worst = 0.0
+    for model, *args in (("rigid_sphere_T", np.float64(4242.0)),
+                         ("rigid_sphere_D", np.float64(4e-5)),
+                         ("rigid_symmtop_D", (5e-5, 3.5e-5), v), ("rigid_ellipsoid_D", D3, v),
+                         ("LS_classic_D", 4242.0, S2, ti), ("LS_symmtop_D", (3.5e-5, 5e-5), v, S2, ti),
+                         ("LS_ellipsoid_D", D3, v, S2, ti)):
+        on = [torch.tensor(a, device="cuda") if isinstance(a, (np.ndarray, np.float64)) else a
+              for a in args]
+        a = jw.spectral_density(model, torch.tensor(om, device="cuda"), *on)
+        b = jw.spectral_density(model, om, *args)
+        worst = max(worst, float(((a.cpu() - b) / b).abs().max()))
+        check(a.is_cuda, f"spectral_density {model} ran on the card")
+    check(worst <= 1e-12, f"spectral_density's seven models on the card vs the CPU, float64: "
+                          f"max relative gap {worst:.2e} <= 1e-12")
+    t = np.arange(1.0, 301.0)
+    truth = np.stack([rng.uniform(0.5, 0.7, N_RES), rng.uniform(0.1, 0.2, N_RES),
+                      rng.uniform(3, 10, N_RES), rng.uniform(0.05, 0.15, N_RES),
+                      rng.uniform(60, 200, N_RES)], 1)
+    yl = exp_decay(t, truth, 5).numpy() + 1e-4 * rng.normal(size=(N_RES, t.size))
+    (card, wall_l), cpu = wall_s(torch, lambda: do_expstyle_fit(5, t, yl)), \
+        do_expstyle_fit(5, t, yl, device="cpu")
+    gaps = [float(np.max(np.abs(a - b) / (np.abs(b) + 1e-14))) for a, b in zip(card, cpu)]
+    # chi and the fitted curve are flat at the optimum; the parameters and
+    # their uncertainties move with where each LM stops
+    check(max(gaps[0], gaps[3]) <= 1e-8 and max(gaps[1:3]) <= 1e-6,
+          f"do_expstyle_fit(5) on {N_RES} curves, card vs CPU float64: relative gaps chi "
+          f"{gaps[0]:.2e}, ymodel {gaps[3]:.2e} (<= 1e-8), params {gaps[1]:.2e}, perr "
+          f"{gaps[2]:.2e} (<= 1e-6); {wall_l:.3f} s on the card")
+    out["legacy_wall"] = wall_l
+    return out
 
 
 def phase_finish(torch, counters, engine, run_finish, Diffusion, paf_ensemble, acc, count):
@@ -1856,6 +2013,8 @@ def chain_steps(sol: str, ref: str):
         ("ct wired --split 2", lambda d, pref: ct + ["-o", str(d / "wired"), "--S2mode", "wired",
                                                      "--split", "2"]),
         ("fit-ct", lambda d, pref: ["fit-ct", "-f", pref + "_Ctint.dat", "-o", pref]),
+        ("fit-ct varpro", lambda d, pref: ["fit-ct", "-f", pref + "_Ctint.dat", "-o",
+                                           str(d / "varpro"), "--optimiser", "varpro"]),
         ("relax 600.133", relax(FIELDS_CLI[0])),
         ("relax 850.13", relax(FIELDS_CLI[1])),
         ("rho", lambda d, pref: ["rho", "-f", rates_file(d), "-o", str(d / "rho.dat")]),
@@ -2004,8 +2163,11 @@ def phase_cli(torch, counters, ubq, work: Path, dev="cuda"):
     total = [sum(v[i] for v in launches.values()) for i in range(3)]
     check(launches["ct"][0] == 2 and total[0] == 2,
           f"kernel A launched by ct only, twice (raw and superposed vectors): {total[0]}")
-    check(launches["fit-ct"][1] == launches["fit-ct"][2] == total[1] == total[2] > 0,
-          f"kernels B and C launched by fit-ct only, once a LM step: {total[1]} / {total[2]}")
+    fits = [launches[k][1:] for k in ("fit-ct", "fit-ct varpro")]
+    check(fits[0][0] == fits[0][1] > 0 and fits[1][0] == fits[1][1]
+          and fits[0][0] + fits[1][0] == total[1] == total[2],
+          f"kernels B and C launched by fit-ct ({fits[0][0]}) and fit-ct varpro's warm retries "
+          f"({fits[1][0]}) only, once a LM step: {total[1]} / {total[2]}")
     card, cpu = dirs["card"], dirs["cpu"]
     hc, hf = dq_header(card / "rotdif-aniso2.dat"), dq_header(cpu / "rotdif-aniso2.dat")
     for k in ("D_0", "D_1", "D_2", "Diso"):
@@ -2023,13 +2185,14 @@ def phase_cli(torch, counters, ubq, work: Path, dev="cuda"):
               f"{f.split('_')[0]} S2 max abs vs CPU float64 {e:.3e} <= 1e-4 (float32 eigh of "
               f"{a.shape[0]} x {a.shape[0]} block matrices)")
         res[f.split("_")[0] + "_err"] = e
-    rung = [fittedct.read_fittedct(str(d / "rotdif_fittedCt.dat"), device="cpu")
-            for d in (card, cpu)]
-    rung = [m.mask.sum(1) * 2 + m.s2fast for m in rung]
-    same = (rung[0] == rung[1]).numpy()
-    share = float(same.mean())
-    check(share >= 0.98, f"fit-ct rung equal to the CPU float64 ladder's on {share:.4f} of "
-                         f"{len(same)} residues (>= 0.98)")
+    for f in ("varpro_fittedCt.dat", "rotdif_fittedCt.dat"):  # rotdif's last: relax reads it
+        rung = [fittedct.read_fittedct(str(d / f), device="cpu") for d in (card, cpu)]
+        rung = [m.mask.sum(1) * 2 + m.s2fast for m in rung]
+        same = (rung[0] == rung[1]).numpy()
+        share = float(same.mean())
+        check(share >= 0.98, f"fit-ct ({f}) rung equal to the CPU float64 ladder's on "
+                             f"{share:.4f} of {len(same)} residues (>= 0.98)")
+        res["rung_share_" + f.split("_")[0]] = share
     # rates: phase 8a's rule, |a - b| <= 1e-5 |b| + atol on residues of equal rung
     from spinrelax_tpu_torch.constants import GYROMAGNETIC_RATIOS
 
@@ -2076,6 +2239,8 @@ def phase_acf_stage_shapes(torch, tac, cuda_acf, gen):
 
 
 def main() -> int:
+    """All phases (no arguments), or phase 5b alone (``chip_smoke.py 5b``:
+    no kernels line and no result line)."""
     if not (REPO / "spinrelax_tpu_torch" / "csrc").is_dir():
         print("chip_smoke: spinrelax_tpu_torch/ is not beside this script; run it "
               "from a checkout of the repository", file=sys.stderr)
@@ -2092,7 +2257,7 @@ def main() -> int:
 
     from spinrelax_tpu_torch import _build
     from spinrelax_tpu_torch.entry import correlated_walk, hetero_cohort, paf_ensemble
-    from spinrelax_tpu_torch.fit import engine
+    from spinrelax_tpu_torch.fit import engine, lm
     from spinrelax_tpu_torch.fit.expfit import fit_ct_ladder
     from spinrelax_tpu_torch.fit.lm import fit_multiexp
     from spinrelax_tpu_torch.models.diffusion import Diffusion
@@ -2106,6 +2271,15 @@ def main() -> int:
     print(f"built {_build.library_path().name} in {time.perf_counter() - t0:.1f} s",
           flush=True)
     print(sys.version.split()[0], torch.__version__, torch.version.cuda, flush=True)
+    counters = (cuda_acf.acf_lag_sums, cuda_lm.hgc_cuda, cuda_lm.cost_cuda)
+    if sys.argv[1:] == ["5b"]:  # phase 5b alone: no result lines
+        phase_ladder_5b(torch, counters, engine, lm, hetero_cohort, fit_ct_ladder)
+        print(f"phase 5b took {time.perf_counter() - t_start:.1f} s, build included on "
+              f"{gpu_line()}", flush=True)
+        if failures:
+            print(f"chip_smoke 5b FAILED ({len(failures)}):", *failures, sep="\n  ",
+                  file=sys.stderr)
+        return 1 if failures else 0
     gen = torch.Generator(device="cuda").manual_seed(20261016)
     t0 = time.perf_counter()
     vecs = torch.from_numpy(correlated_walk(N_REP, N_FRAMES, N_RES, seed=0)).cuda()
@@ -2115,12 +2289,12 @@ def main() -> int:
 
     a_err, a_times = phase_acf(torch, tac, cuda_acf, vecs, gen)
     b_err, c_err_, lm_times = phase_lm(torch, cuda_lm, gen)
-    counters = (cuda_acf.acf_lag_sums, cuda_lm.hgc_cuda, cuda_lm.cost_cuda)
     launches, fwd_s, busy_ms, fwd_eager_s, busy_eager_ms = phase_forward(
         torch, tac, counters, engine, make_forward, fit_multiexp, vecs)
     step_ms, acc, count = phase_stream(torch, tac, cuda_acf, vecs, gen)
     del vecs
     ladder = phase_ladder(torch, counters, engine, hetero_cohort, fit_ct_ladder)
+    ladder5b = phase_ladder_5b(torch, counters, engine, lm, hetero_cohort, fit_ct_ladder)
     finish = phase_finish(torch, counters, engine, run_finish, Diffusion, paf_ensemble, acc, count)
     del acc
     a_stage = phase_acf_stage_shapes(torch, tac, cuda_acf, gen)
@@ -2149,7 +2323,11 @@ def main() -> int:
           f"{lm_times['k5']['B']:.5f}/{lm_times['k5']['C']:.5f} ms, K 8 "
           f"{lm_times['k8']['B']:.5f}/{lm_times['k8']['C']:.5f} ms; ladder "
           f"{ladder['wall']:.3f} s, device busy {ladder['busy']:.2f} ms (eager loop "
-          f"{ladder['wall_eager']:.3f} s / {ladder['busy_eager']:.2f} ms); finish "
+          f"{ladder['wall_eager']:.3f} s / {ladder['busy_eager']:.2f} ms); "
+          + "; ".join(f"{k} ladder {v['wall']:.3f} s, device busy {v['busy']:.2f} ms (eager "
+                      f"loop {v['wall_eager']:.3f} s)" for k, v in ladder5b.items()
+                      if k != "legacy_wall")
+          + f"; do_expstyle_fit(5) on {N_RES} curves {ladder5b['legacy_wall']:.3f} s; finish "
           f"{finish['wall']:.3f} s, device busy {finish['busy']:.2f} ms (eager loop "
           f"{finish['wall_eager']:.3f} s / {finish['busy_eager']:.2f} ms); A at the stage's "
           f"shapes F 2000 {a_stage['f2000']['ms']:.4f} ms (FFT {a_stage['f2000']['plain']:.4f}), "
@@ -2182,6 +2360,8 @@ def main() -> int:
              launches_per_forward=launches[0], max_abs_err=a_err, tolerance=ACF_BOUND,
              ms=a_times["chunks"], plain_ms=a_times["plain"], bound_ms=a_times["bound"],
              bound_by=a_times["by"], library_ms=None, launches_ladder=ladder["launches"][0],
+             launches_ladder_varpro=ladder5b["varpro"]["launches"][0],
+             launches_ladder_stacked=ladder5b["stacked"]["launches"][0],
              launches_finish=finish["launches"][0], slab_plan_ms=a_times["long"],
              slab_plan_plain_ms=a_times["long_plain"], slab_plan_bound_ms=a_times["long_bound"],
              slab_plan_bound_by=a_times["long_by"],
@@ -2197,6 +2377,8 @@ def main() -> int:
              tolerance="rtol 3e-5 + atol 1e-4 (H), 1e-3 (g); rtol 1e-5 (cost)",
              ms=fwd_t["B"], plain_ms=fwd_t["B_plain"], bound_ms=fwd_t["B_bound"],
              bound_by=fwd_t["B_by"], library_ms=None, launches_ladder=ladder["launches"][1],
+             launches_ladder_varpro=ladder5b["varpro"]["launches"][1],
+             launches_ladder_stacked=ladder5b["stacked"]["launches"][1],
              launches_finish=finish["launches"][1],
              launches_ct_entry=stage["launches_entry"][1], launches_runall=wf["launches"][1],
              launches_runall_fit=fit["launches"][1], launches_cli=cli_run["total"][1],
@@ -2207,6 +2389,8 @@ def main() -> int:
              launches_per_forward=launches[2], max_abs_err=c_err_, tolerance="rtol 1e-5",
              ms=fwd_t["C"], plain_ms=fwd_t["C_plain"], bound_ms=fwd_t["C_bound"],
              bound_by=fwd_t["C_by"], library_ms=None, launches_ladder=ladder["launches"][2],
+             launches_ladder_varpro=ladder5b["varpro"]["launches"][2],
+             launches_ladder_stacked=ladder5b["stacked"]["launches"][2],
              launches_finish=finish["launches"][2],
              launches_ct_entry=stage["launches_entry"][2], launches_runall=wf["launches"][2],
              launches_runall_fit=fit["launches"][2], launches_cli=cli_run["total"][2],

@@ -179,3 +179,8 @@ class NucleusPair:
         """
         c = self.csa_value if csa_value is None else csa_value
         return (2.0 / 15.0) * c**2 * (self.gamma_a * self.B0) ** 2
+
+
+def omega_names(nuclei_a: str, nuclei_b: str):
+    """Labels of the five frequencies, in order (spectral_densities.py:127-134)."""
+    return ["0", nuclei_a, f"{nuclei_b}-{nuclei_a}", nuclei_b, f"{nuclei_b}+{nuclei_a}"]

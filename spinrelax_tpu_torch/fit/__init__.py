@@ -1,0 +1,1 @@
+from . import lm, expfit, legacy_expfit  # noqa: F401

@@ -33,7 +33,7 @@ import torch
 
 from ..ops import cuda_lm
 from .lm import (
-    MultiExpFit, _chol_solve_small, _finalise_multiexp, _init_multiexp,
+    MultiExpFit, _chol_solve_small, _finalise_multiexp, _init_multiexp, _mm,
     _multiexp_res_jac, _spd_inv_diag_small, _to_constrained, _to_unconstrained,
 )
 
@@ -58,40 +58,54 @@ def _run_eager(step, live, max_iter: int, window: int) -> int:
     return steps
 
 
-def _run_graph(step, live, max_iter: int, window: int) -> int:
+_SIDE_STREAMS: dict = {}
+
+
+def _run_graph(step, live, max_iter: int, window: int, counters=()) -> int:
     """Run ``step`` on the current CUDA device until ``live`` (a bool
     scalar tensor the step keeps) is false or ``max_iter`` steps are done:
     the first step eagerly on a side stream (it also warms up what the
     capture may not do: loading the kernel library, first allocations),
-    then one step captured in a CUDA graph and replayed.  The host reads
-    ``live`` once per ``window`` steps; the steps it overshoots by change
-    nothing (``step`` freezes finished lanes).  The graph and its memory
-    pool live only inside this call.  Returns the steps run; a capture or
-    replay that fails raises."""
+    then one step captured in a CUDA graph on the same stream and replayed
+    (:func:`_replay`).  The steps it overshoots by change nothing
+    (``step`` freezes finished lanes).  ``counters``: the launch counters
+    of the kernels one step launches (a replay calls no wrapper).  The
+    graph and its memory pool live only inside this call; the side stream
+    is one per device for the process (a new stream would get cuBLAS a
+    new workspace, kept for the process).  Returns the steps run; a
+    capture or replay that fails raises."""
     if max_iter < 1:
         return 0
     cur = torch.cuda.current_stream()
-    side = torch.cuda.Stream()
+    side = _SIDE_STREAMS.setdefault(cur.device, torch.cuda.Stream(cur.device))
     side.wait_stream(cur)
     with torch.cuda.stream(side):
         step()
     cur.wait_stream(side)
-    steps = 1
-    if steps == max_iter:
-        return steps
+    if max_iter == 1:
+        return 1
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):  # launches nothing; the wrappers do not count it
+    with torch.cuda.graph(graph, stream=side):  # launches nothing; no wrapper counts it
         step()
+    steps = _replay(graph.replay, live, 1, max_iter, window, counters)
+    del graph
+    return steps
+
+
+def _replay(replay, live, steps: int, max_iter: int, window: int, counters=()) -> int:
+    """Call ``replay`` from ``steps`` done up to ``max_iter``, reading
+    ``live`` once per ``window`` steps (at multiples of ``window``) and
+    stopping when it is false; each call adds one to every counter's
+    ``launches``.  Returns the steps run."""
     while steps < max_iter:
         n = min(window - steps % window, max_iter - steps)
         for _ in range(n):
-            graph.replay()
+            replay()
         steps += n
-        cuda_lm.hgc_cuda.launches += n  # a replay launches B and C once each
-        cuda_lm.cost_cuda.launches += n
+        for c in counters:
+            c.launches += n
         if not bool(live):
             break
-    del graph
     return steps
 
 
@@ -221,8 +235,11 @@ def fit_multiexp_engine(dt, decay, sigma, K: int, s2_free: bool,
         done.copy_(done | (~frozen & done_next))
         live.copy_(torch.any((it < max_iter) & ~done))
 
-    run = _run_graph if dev.type == "cuda" and not _eager else _run_eager
-    steps = run(step, live, max_iter, stall_window)
+    if dev.type == "cuda" and not _eager:  # a step launches kernels B and C once each
+        steps = _run_graph(step, live, max_iter, stall_window,
+                           (cuda_lm.hgc_cuda, cuda_lm.cost_cuda))
+    else:
+        steps = _run_eager(step, live, max_iter, stall_window)
     if info is not None:
         info.update(steps=steps, iterations=int(it.max()))
     p_fin = _to_constrained(t, lo, hi)  # (BS, P)
@@ -230,7 +247,7 @@ def fit_multiexp_engine(dt, decay, sigma, K: int, s2_free: bool,
     # --- covariance tail + finalisation ----------------------------------
     r_fin, Jp = _multiexp_res_jac(p_fin, dt, dec_s, sig_s, K, s2_free)
     cost_fin = 0.5 * torch.sum(r_fin * r_fin, dim=1)
-    H = Jp.transpose(1, 2) @ Jp
+    H = _mm(Jp.transpose(1, 2), Jp)
     dof = max(T - P, 1)
     red_chisq = torch.sum(r_fin * r_fin, dim=1) / dof
     dead = torch.diagonal(H, dim1=1, dim2=2) == 0.0

@@ -26,43 +26,59 @@ import torch
 from ..ops import cuda_lm
 from . import lm
 
-__all__ = ["fit_ct_walk", "traced_fit"]
+__all__ = ["fit_ct_walk", "traced", "traced_fit"]
 
 _MODEL = ("C", "tau", "dC", "dtau", "mask", "S2", "dS2", "chisq", "s2fast")
 
 
-def traced_fit(trace, stage: str, dt, decays, sigma, K: int, s2_free: bool,
-               n_starts: int = 1, init=None):
-    """One LM call of the ladder: ``lm.fit_multiexp`` over (B, T) decays,
-    or ``lm.fit_multiexp_warm`` from ``init`` = (C0, tau0, S20).  With a
-    ``trace`` list, appends {stage, K, s2_free, rows, starts, steps,
-    iterations, launches_B, launches_C}: the LM steps the engine ran and
-    the iterations its slowest lane needed (``fit.engine``'s ``info``; on
-    the card the steps round the iterations up to the host's next look),
-    and the launches of kernels B and C this call made, read from their
-    counters around it (0 on the CPU, the steps on the card)."""
+def traced(trace, record: dict, fn):
+    """Run ``fn(info)``, one LM call of the ladder; with a ``trace`` list,
+    append ``record`` plus the LM's steps and slowest lane's iterations
+    (its ``info``; on the card the steps round the iterations up to the
+    host's next look) and the launches of kernels B and C the call made,
+    read from their counters around it (0 on the CPU; on the card one
+    each a step of ``fit.engine``, none for ``lm.lm_solve``)."""
     before = (cuda_lm.hgc_cuda.launches, cuda_lm.cost_cuda.launches)
     info = None if trace is None else {}
-    if init is None:
-        out = lm.fit_multiexp(dt, decays, sigma, K, s2_free, n_starts=n_starts,
-                              info=info)
-    else:
-        out = lm.fit_multiexp_warm(dt, decays, sigma, *init, K, s2_free, info=info)
+    out = fn(info)
     if trace is not None:
-        trace.append(dict(stage=stage, K=K, s2_free=s2_free, rows=decays.shape[0],
-                          starts=n_starts, **info,
+        trace.append(dict(record, **info,
                           launches_B=cuda_lm.hgc_cuda.launches - before[0],
                           launches_C=cuda_lm.cost_cuda.launches - before[1]))
     return out
 
 
+def traced_fit(trace, stage: str, dt, decays, sigma, K: int, s2_free: bool,
+               n_starts: int = 1, init=None, optimiser: str = "lm"):
+    """One multi-exp fit of the ladder over (B, T) decays: the cold
+    ``lm.fit_multiexp`` (``optimiser="lm"``) or ``lm.fit_multiexp_varpro``
+    (``"varpro"``), or ``lm.fit_multiexp_warm`` from ``init`` = (C0, tau0,
+    S20), recorded by :func:`traced` as {stage, K, s2_free, rows, starts,
+    steps, iterations, launches_B, launches_C}."""
+    record = dict(stage=stage, K=K, s2_free=s2_free, rows=decays.shape[0],
+                  starts=n_starts)
+    if init is not None:
+        return traced(trace, record, lambda info: lm.fit_multiexp_warm(
+            dt, decays, sigma, *init, K, s2_free, info=info))
+    if optimiser == "varpro":
+        return traced(trace, record, lambda info: lm.fit_multiexp_varpro(
+            dt, decays, sigma, K, s2_free, info=info))
+    return traced(trace, record, lambda info: lm.fit_multiexp(
+        dt, decays, sigma, K, s2_free, n_starts=n_starts, info=info))
+
+
 def fit_ct_walk(dt, decays, sigma, chisq_threshold: float, specs, Kmax: int,
-                n_starts: int = 1, trace=None) -> dict:
+                n_starts: int = 1, trace=None, optimiser: str = "lm",
+                fit_rung=None) -> dict:
     """Run the ladder walk over (B, T) ``decays`` / ``sigma``.
 
     specs : (K, s2_free) per rung, in walk order; Kmax : max K of specs.
     trace : optional list; each rung's LM call appends its record
         (:func:`traced_fit`).
+    optimiser : the rungs' cold fit, "lm" or "varpro" (:func:`traced_fit`).
+    fit_rung : optional ``(i, rows) -> MultiExpFit`` giving rung i's fit of
+        the rows ``rows`` (its components [:K]) in place of a cold fit: the
+        stacked ladder's slices of its one LM.
 
     Returns a dict of tensors on the decays' device:
       C, tau, dC, dtau, mask (B, Kmax)  the selected model (tau pads 1,
@@ -101,10 +117,13 @@ def fit_ct_walk(dt, decays, sigma, chisq_threshold: float, specs, Kmax: int,
         ok = torch.zeros(B, dtype=torch.bool, device=dev)
         rows = torch.nonzero(act).squeeze(1)
         if rows.numel():
-            fit = traced_fit(trace, "rung", dt, decays[rows], sigma[rows], K, s2f,
-                             n_starts=n_starts)
+            if fit_rung is None:
+                fit = traced_fit(trace, "rung", dt, decays[rows], sigma[rows], K, s2f,
+                                 n_starts=n_starts, optimiser=optimiser)
+            else:
+                fit = fit_rung(i, rows)
             for k in ("C", "tau", "dC", "dtau"):
-                rung[k][rows, :K] = getattr(fit, k)
+                rung[k][rows, :K] = getattr(fit, k)[:, :K]
             for k in ("S2", "dS2", "chisq"):
                 rung[k][rows] = getattr(fit, k)
             ok[rows] = fit.ok_fit & fit.ok_err & fit.ok_sum

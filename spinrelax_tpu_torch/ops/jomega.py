@@ -8,6 +8,8 @@ follow the dtype and device of the tensor they meet.
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
@@ -138,6 +140,19 @@ def j_rigid_ellipsoid(omega, v, D):
     D_J, delta = d_coefficients_ellipsoid(_like(D, v))
     A_J = a_coefficients_ellipsoid(v, delta)
     return jsum(omega, A_J, D_J)
+
+
+def j_lipari_szabo(omega, tau_glob, S2, tau_int):
+    """Classic isotropic Lipari-Szabo (spectral_densities.py:2004-2007):
+    S2 tau_g / (1 + (w tau_g)^2) + (1 - S2) tau_e / (1 + (w tau_e)^2),
+    1/tau_e = 1/tau_g + 1/tau_int."""
+    ref = next((x for x in (S2, tau_int, tau_glob) if torch.is_tensor(x)), None)
+    S2 = _t(S2) if ref is None else _like(S2, ref)
+    tau_int, tau_glob, omega = (_like(x, S2) for x in (tau_int, tau_glob, omega))
+    tau_eff = tau_int * tau_glob / (tau_int + tau_glob)
+    return S2 * tau_glob / (1 + (omega * tau_glob) ** 2) + (1 - S2) * tau_eff / (
+        1 + (omega * tau_eff) ** 2
+    )
 
 
 def j_direct_transform(omega, C, tau, comp_mask=None):
@@ -274,3 +289,82 @@ def symmtop_from_diso_aniso(diso, aniso):
     """(Diso, Daniso) -> (Dpar, Dperp) (spectral_densities.py:535-540)."""
     dperp = 3.0 * diso / (2.0 + aniso)
     return aniso * dperp, dperp
+
+
+def j_lipari_szabo_aniso(omega, S2, tau_int, A_J, D_J):
+    """Lipari-Szabo applied to each anisotropic decay component
+    (d'Auvergne 2006 eq. 8.66; what the reference's
+    _J_combine_LS_anisotropic, spectral_densities.py:2012-2022, intends --
+    its loop body indexes J[i] with an undefined i).  A_J (..., J), D_J
+    broadcastable to it; S2, tau_int broadcastable to A_J's batch shape ->
+    (..., nOm)."""
+    A_J = _t(A_J)
+    D_J = torch.broadcast_to(_like(D_J, A_J), A_J.shape)
+    omega, S2, tau = (_like(x, A_J) for x in (omega, S2, tau_int))
+    D_eff = D_J + 1.0 / tau[..., None]
+    term = (
+        S2[..., None, None] * A_J[..., None] * D_J[..., None]
+        / (D_J[..., None] ** 2 + omega**2)
+        + (1.0 - S2)[..., None, None] * A_J[..., None] * D_eff[..., None]
+        / (D_eff[..., None] ** 2 + omega**2)
+    )
+    return torch.sum(term, dim=-2)
+
+
+def j_from_ct_dft(t, Ct, omega):
+    """The reference's dormant direct-DFT path (do_dft + interpolate_point,
+    spectral_densities.py:2252-2331): J(w) = Re{rfft(C(t))} as a
+    trapezoid-rule one-sided transform (the t = 0 sample counted half),
+    linearly interpolated between the bins 2 pi k / (N dt) (true for odd N
+    too) at |omega|, holding the last bin past Nyquist rather than
+    extrapolating.  t (T,) uniform, Ct (..., T), omega (nOm,) -> (..., nOm)
+    on Ct's device and dtype (cuFFT on the card: no TF32 setting applies)."""
+    Ct = _t(Ct)
+    t = _like(t, Ct)
+    omega = torch.abs(_like(omega, Ct)).contiguous()
+    dt = t[1] - t[0]
+    N = t.shape[-1]
+    G = torch.fft.rfft(Ct, dim=-1).real * dt - 0.5 * dt * Ct[..., 0:1]
+    om_grid = 2.0 * math.pi * torch.arange(N // 2 + 1, dtype=Ct.dtype, device=Ct.device) \
+        / (N * dt)
+    idx = torch.clamp(torch.searchsorted(om_grid, omega), 1, om_grid.shape[0] - 1)
+    x0 = om_grid[idx - 1]
+    x1 = om_grid[idx]
+    w1 = torch.clamp((omega - x0) / (x1 - x0), 0.0, 1.0)
+    return (1 - w1) * G[..., idx - 1] + w1 * G[..., idx]
+
+
+def spectral_density(model: str, omega, *args):
+    """J(w) by model name, as calculate_spectral_density
+    (spectral_densities.py:2107-2174), batched over vectors and sites:
+    rigid_sphere_T(tau), rigid_sphere_D(D), rigid_symmtop_D(D, v),
+    rigid_ellipsoid_D(D, v), LS_classic_D(tau_glob, S2, tau_int),
+    LS_symmtop_D(D, v, S2, tau_int), LS_ellipsoid_D(D, v, S2, tau_int).
+    D is a pair (Dpar, Dperp) or triple (Dx, Dy, Dz) of floats or a tensor;
+    an unknown model raises ValueError."""
+    if model == "rigid_sphere_T":
+        return j_rigid_sphere_tau(omega, args[0])
+    if model == "rigid_sphere_D":
+        return j_rigid_sphere_D(omega, args[0])
+    if model == "rigid_symmtop_D":
+        D, v = args
+        return j_rigid_symmtop(omega, _t(v), D[0], D[1])
+    if model == "rigid_ellipsoid_D":
+        D, v = args
+        return j_rigid_ellipsoid(omega, _t(v), D)
+    if model == "LS_classic_D":
+        tau_glob, S2, tau_int = args
+        return j_lipari_szabo(omega, tau_glob, _t(S2)[..., None], _t(tau_int)[..., None])
+    if model == "LS_symmtop_D":
+        D, v, S2, tau_int = args
+        v = _t(v)
+        D_J = d_coefficients_symmtop(_like(D[0], v), _like(D[1], v))
+        A_J = a_coefficients_symmtop(v, prolate=D[0] > D[1])
+        return j_lipari_szabo_aniso(omega, S2, tau_int, A_J, D_J)
+    if model == "LS_ellipsoid_D":
+        D, v, S2, tau_int = args
+        v = _t(v)
+        D_J, delta = d_coefficients_ellipsoid(_like(D, v))
+        A_J = a_coefficients_ellipsoid(v, delta)
+        return j_lipari_szabo_aniso(omega, S2, tau_int, A_J, D_J)
+    raise ValueError(f"unknown model given to spectral_density: {model!r}")

@@ -6,8 +6,7 @@ the reference's stage scripts plus the run-all orchestrator.
 runs every command's compute on the card; ``main(argv, device="cpu")``
 runs it on the CPU instead.  Not ported yet, each raising
 ``NotImplementedError`` before any file is read: ``ct --devices`` /
-``fit-ct --devices`` (sharding over several devices, ROADMAP item 15) and
-``fit-ct --optimiser varpro`` (ROADMAP item 12b).
+``fit-ct --devices`` (sharding over several devices, ROADMAP item 15).
 
     spinrelax center      <- center-solute-gromacs.bash (native trjconv)
     spinrelax orient      <- PLUMED QUATERNION + gmx steps (now native)
@@ -344,8 +343,8 @@ def cmd_fit_ct(argv, device="cuda"):
     p.add_argument("--nofast", action="store_true")
     p.add_argument("--optimiser", choices=("lm", "varpro"), default="lm",
                    help="lm = curve_fit-parity joint solve; varpro = "
-                        "variable projection (not ported yet: ROADMAP "
-                        "item 12b)")
+                        "variable projection (closed-form amplitudes per "
+                        "tau step)")
     p.add_argument("--nstarts", type=int, default=1,
                    help="batched multi-start: extra deterministic tau "
                         "starts per residue per ladder rung, best fit "
@@ -365,10 +364,6 @@ def cmd_fit_ct(argv, device="cuda"):
     a = p.parse_args(argv)
     from .stages import stage_fit_ct
 
-    if a.optimiser == "varpro":
-        raise NotImplementedError(
-            "fit-ct --optimiser varpro: the variable-projection fit comes with "
-            "ROADMAP item 12b")
     if a.devices > 0:
         raise NotImplementedError(
             "fit-ct --devices: the sharded ladder comes with ROADMAP item 15")

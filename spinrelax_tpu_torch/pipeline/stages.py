@@ -600,7 +600,8 @@ def stage_fit_ct(
     (``fit_ct_ladder``: kernels B and C on the card, float64 on the CPU)
     and write {pref}_fittedCt.dat; several files are averaged first, with
     their errors pooled, into {pref}_averageCt.dat.  ``optimiser="varpro"``
-    (item 12b) and ``mesh`` (item 15) raise ``NotImplementedError``."""
+    walks the ladder with the variable-projection fit (``fit_ct_ladder``);
+    ``mesh`` (item 15) raises ``NotImplementedError``."""
     out_fn = out_prefix + "_fittedCt.dat"
     legs, dts, cts, dcts = xvg.load_sxydylist(ct_files[0], "legend")
     dt = np.asarray(dts)[0]

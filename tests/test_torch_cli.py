@@ -126,6 +126,8 @@ def chain(tmp_path_factory):
                   "--S2", "--S2mode", "wired", "--split", "2"],
         "s2": ["s2", "-s", s["ref"], "-f", str(J / "solute.xtc"), "-o", "s2only", "-t", TAU],
         "fit-ct": ["fit-ct", "-f", str(J / "rotdif_Ctint.dat"), "-o", "rotdif"],
+        "fit-ct varpro": ["fit-ct", "-f", str(J / "rotdif_Ctint.dat"), "-o", "varpro",
+                          "--optimiser", "varpro"],
     }
     logs = {}
     for name, argv in steps.items():
@@ -247,6 +249,21 @@ def test_fit_and_relax_match_jax(chain):
     lines = [[ln for ln in chain["logs"]["theoretical", p].splitlines()
               if ln.startswith(("R1:", "R2:", "NOE:"))] for p in ("port", "jax")]
     assert lines[0] == lines[1] and len(lines[0]) == 3
+
+
+def test_fit_ct_varpro_matches_jax(chain):
+    """fit-ct --optimiser varpro on the chain's Ctint file writes the JAX
+    package's _fittedCt.dat: the same lines, every number equal as printed
+    or within 1e-8 relative."""
+    P, J = chain["dirs"]["port"], chain["dirs"]["jax"]
+    a, b = ((d / "varpro_fittedCt.dat").read_text().splitlines() for d in (P, J))
+    assert len(a) == len(b) and len(a) > 6
+    num = re.compile(r"[-+]?(?:\d+\.?\d*|\.\d+)(?:[eE][-+]?\d+)?")
+    for la, lb in zip(a, b):
+        assert num.sub("#", la) == num.sub("#", lb), (la, lb)
+        for x, y in zip(num.findall(la), num.findall(lb)):
+            assert x == y or abs(float(x) - float(y)) <= 1e-8 * abs(float(y)), (la, lb)
+    assert "Completed C(t)-fits" in chain["logs"]["fit-ct varpro", "port"]
 
 
 def test_rho_and_multifield_match_jax(chain):
@@ -406,11 +423,10 @@ def test_check_and_main_exits():
 
 
 def test_not_ported_options_raise_before_reading_files():
-    """--devices (ROADMAP item 15) and fit-ct --optimiser varpro (item
-    12b) raise NotImplementedError naming their item; the files named do
-    not exist, so nothing was read first."""
-    cases = [(["fit-ct", "-f", "absent_Ctint.dat", "--optimiser", "varpro"], "item 12b"),
-             (["fit-ct", "-f", "absent_Ctint.dat", "--devices", "2"], "item 15"),
+    """--devices (ROADMAP item 15) raises NotImplementedError naming its
+    item; the files named do not exist, so nothing was read first.  (fit-ct
+    --optimiser varpro runs: test_fit_ct_varpro_matches_jax.)"""
+    cases = [(["fit-ct", "-f", "absent_Ctint.dat", "--devices", "2"], "item 15"),
              (["ct", "-s", "absent.pdb", "-f", "absent.xtc", "-t", "100", "--split", "2",
                "--devices", "2"], "item 15"),
              (["run-all", "-sxtc", "absent.xtc", "-refpdb", "absent.pdb", "-stream", "2",

@@ -6,6 +6,7 @@ imports no JAX, so it runs on a machine without it:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import functools
 import os
 
 import numpy as np
@@ -751,3 +752,147 @@ def test_python_m_check_on_card():
                          text=True, timeout=600)
     assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-2000:]
     assert "check PASSED" in out.stdout and "device cuda" in out.stdout
+
+
+# --- the generic LM and the fits over it (fit.lm.lm_solve) -----------------
+
+def _twoexp(B, T, device, dtype=torch.float64):
+    """B two-exponential decays (seed 5) and the lm_solve arguments to fit
+    a1 e^(-t/tau1) + a2 e^(-t/tau2) to them in a box, on ``device``."""
+    rng = np.random.default_rng(5)
+    t = np.arange(1.0, T + 1.0)
+    a = rng.uniform(0.2, 0.6, (B, 2))
+    tau = np.stack([rng.uniform(4.0, 12.0, B), rng.uniform(50.0, 200.0, B)], 1)
+    y = (a[:, :, None] * np.exp(-t / tau[:, :, None])).sum(1) + 1e-4 * rng.normal(size=(B, T))
+    tt, yt = (torch.tensor(x, dtype=dtype, device=device) for x in (t, y))
+
+    def res(p):
+        return p[:, :1] * torch.exp(-tt / p[:, 1:2]) + p[:, 2:3] * torch.exp(-tt / p[:, 3:4]) - yt
+
+    box = [torch.tensor(x, dtype=dtype, device=device)
+           for x in ([0.3, 10.0, 0.3, 100.0], [0.0, 1e-3, 0.0, 1e-3], [1.0, 30.0, 1.0, 1e3])]
+    return res, box[0].expand(B, 4), box[1], box[2]
+
+
+@pytest.mark.parametrize("cov", ["chol", "pinv"])
+def test_lm_solve_on_card_matches_cpu_f64(gen, cov):
+    """lm_solve (forward-mode Jacobian, CUDA-graph loop) on the card in
+    float64 against the CPU in float64: params, perr and cost within 1e-8
+    relative; and its graph loop against its eager loop, bit for bit."""
+    from spinrelax_tpu_torch.fit.lm import lm_solve
+
+    card = lm_solve(*_twoexp(64, 150, "cuda"), cov=cov)
+    cpu = lm_solve(*_twoexp(64, 150, "cpu"), cov=cov)
+    for f in ("params", "perr", "cost"):
+        torch.testing.assert_close(getattr(card, f).cpu(), getattr(cpu, f), rtol=1e-8, atol=1e-14)
+    eager = lm_solve(*_twoexp(64, 150, "cuda"), cov=cov, _eager=True)
+    for a, b in zip(card, eager):
+        assert torch.equal(a, b)
+
+
+def _ladder_pair(kw, n=96, T=200):
+    """fit_ct_ladder(**kw) on entry.hetero_cohort(n, T), weighted, in
+    float64 on the card and on the CPU."""
+    dt, y, dy = hetero_cohort(n, T)
+    names = [str(i) for i in range(n)]
+    return [fit_ct_ladder(names, dt, *(torch.tensor(a, device=d) for a in (y, dy)), **kw)
+            for d in ("cuda", "cpu")], dt
+
+
+@pytest.mark.parametrize("kw", [dict(optimiser="varpro"), dict(stacked=True)])
+def test_varpro_and_stacked_ladders_on_card_match_cpu_f64(gen, kw):
+    """The varpro ladder (its warm retries over the generic LM: kernels B
+    and C take float32) and the stacked ladder in float64 on the card
+    against the CPU: the rung equal on every row, chisq and the fitted
+    model C(t) within 1e-8."""
+    (card, cpu), dt = _ladder_pair(kw)
+    assert card.S2.is_cuda
+    for f in ("mask", "s2fast"):
+        assert torch.equal(getattr(card, f).cpu(), getattr(cpu, f)), f
+    torch.testing.assert_close(card.chisq.cpu(), cpu.chisq, rtol=1e-8, atol=0)
+    torch.testing.assert_close(card.eval(dt).cpu(), cpu.eval(dt), rtol=0, atol=1e-8)
+
+
+def test_varpro_ladder_f32_ignores_tf32(gen):
+    """The varpro ladder in float32 on the card (warm retries on kernels B
+    and C) gives the same bits with TF32 and the lowest matmul precision
+    turned on as with them off: every product of the fits is IEEE
+    (fit.lm._mm); and its generic LM's graph loop equals its eager loop."""
+    from spinrelax_tpu_torch.fit import lm
+
+    dt, y, dy = hetero_cohort(256, 200)
+    names = [str(i) for i in range(256)]
+    yc, dyc = (torch.tensor(a, dtype=torch.float32, device="cuda") for a in (y, dy))
+    before = cuda_lm.hgc_cuda.launches
+    off = fit_ct_ladder(names, dt, yc, dyc, optimiser="varpro")
+    launched = cuda_lm.hgc_cuda.launches - before
+    prec = torch.get_float32_matmul_precision()
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.set_float32_matmul_precision("medium")
+        on = fit_ct_ladder(names, dt, yc, dyc, optimiser="varpro")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.set_float32_matmul_precision(prec)
+    graph_solve = lm.lm_solve
+    lm.lm_solve = functools.partial(graph_solve, _eager=True)
+    try:
+        eager = fit_ct_ladder(names, dt, yc, dyc, optimiser="varpro")
+    finally:
+        lm.lm_solve = graph_solve
+    for f in ("S2", "C", "tau", "dC", "dtau", "chisq", "mask", "s2fast"):
+        assert torch.equal(getattr(on, f), getattr(off, f)), f
+        assert torch.equal(getattr(eager, f), getattr(off, f)), f
+    assert launched > 0, "the warm retries launched kernel B"
+
+
+def test_do_expstyle_fit_batched_on_card_matches_cpu_f64(gen):
+    """legacy_expfit.do_expstyle_fit on a (64, T) batch (num_pars 5) in
+    float64 on the card against the CPU: params, perr, ymodel and chi
+    within 1e-8."""
+    from spinrelax_tpu_torch.fit.legacy_expfit import do_expstyle_fit, exp_decay
+
+    rng = np.random.default_rng(2)
+    t = np.arange(1.0, 301.0)
+    truth = np.stack([rng.uniform(0.5, 0.7, 64), rng.uniform(0.1, 0.2, 64),
+                      rng.uniform(3, 10, 64), rng.uniform(0.05, 0.15, 64),
+                      rng.uniform(60, 200, 64)], 1)
+    y = exp_decay(t, truth, 5).numpy() + 1e-4 * rng.normal(size=(64, t.size))
+    card = do_expstyle_fit(5, t, y, device="cuda")
+    cpu = do_expstyle_fit(5, t, y, device="cpu")
+    for a, b in zip(card, cpu):
+        np.testing.assert_allclose(a, b, rtol=1e-8, atol=1e-14)
+
+
+def test_spectral_density_and_dft_on_card_match_cpu_f64(gen):
+    """spectral_density's seven models and j_from_ct_dft (cuFFT) in
+    float64 on the card against the CPU: 1e-12 relative (the DFT 1e-12 of
+    its largest value).  No omega 0: there the ellipsoid's
+    6 Diso - 6 sqrt(Diso^2 - D2^2) cancels (the reference's quirk, see
+    tests/test_torch_spectral.py)."""
+    from spinrelax_tpu_torch.ops import jomega as jw
+
+    rng = np.random.default_rng(3)
+    v = rng.normal(size=(16, 3))
+    v /= np.linalg.norm(v, axis=-1, keepdims=True)
+    S2, ti = rng.uniform(0.5, 0.95, 16), rng.uniform(10, 500, 16)
+    om = np.linspace(0.01, 0.3, 5)  # at 0 the ellipsoid's D coefficient cancels
+    D3 = np.array([1e-4, 2e-4, 3.5e-4])
+    cases = [("rigid_sphere_T", np.float64(2000.0)), ("rigid_sphere_D", np.float64(8e-5)),
+             ("rigid_symmtop_D", (3e-4, 1.5e-4), v), ("rigid_ellipsoid_D", D3, v),
+             ("LS_classic_D", 2000.0, S2, ti), ("LS_symmtop_D", (1.5e-4, 3e-4), v, S2, ti),
+             ("LS_ellipsoid_D", D3, v, S2, ti)]
+    for model, *args in cases:  # arrays to the card; D pairs stay Python floats
+        dev_args = [torch.tensor(a, device="cuda") if isinstance(a, (np.ndarray, np.float64))
+                    else a for a in args]
+        card = jw.spectral_density(model, torch.tensor(om, device="cuda"), *dev_args)
+        cpu = jw.spectral_density(model, om, *args)
+        assert card.is_cuda
+        torch.testing.assert_close(card.cpu(), cpu, rtol=1e-12, atol=0, msg=model)
+    t = np.arange(0, 4001) * 2.0
+    Ct = np.exp(-t[None] / rng.uniform(20, 200, (8, 1))) + 1e-3 * rng.normal(size=(8, t.size))
+    omd = np.array([0.0, 0.003, 0.1, 1.0, 2.0])
+    card = jw.j_from_ct_dft(torch.tensor(t, device="cuda"), torch.tensor(Ct, device="cuda"), omd)
+    cpu = jw.j_from_ct_dft(t, Ct, omd)
+    assert card.is_cuda
+    torch.testing.assert_close(card.cpu(), cpu, rtol=0, atol=1e-12 * float(cpu.abs().max()))

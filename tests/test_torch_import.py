@@ -35,6 +35,7 @@ MODULES = [
     "spinrelax_tpu_torch.pipeline.runall", "spinrelax_tpu_torch.io.experiments",
     "spinrelax_tpu_torch.models.experiments", "spinrelax_tpu_torch.fit.scalar",
     "spinrelax_tpu_torch.fit.globalfit", "spinrelax_tpu_torch.fit.legacyfit",
+    "spinrelax_tpu_torch.fit.legacy_expfit",
     "spinrelax_tpu_torch.__main__", "spinrelax_tpu_torch.ops.pbc", "spinrelax_tpu_torch.ops.ired",
     "spinrelax_tpu_torch.utils.profiling", "spinrelax_tpu_torch.pipeline.plotting",
     "spinrelax_tpu_torch.io.gro", "spinrelax_tpu_torch.io.gmx", "spinrelax_tpu_torch.io.dcd",

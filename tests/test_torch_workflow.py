@@ -263,8 +263,8 @@ def test_not_ported_options_raise_before_any_artefact(system, tmp_path):
         for cfg, item in cases:
             with pytest.raises(NotImplementedError, match=item):
                 trunall.run_workflow(cfg, device="cpu")
-        for argv, item in ((["fit-ct", "-f", "x_Ctint.dat", "--optimiser", "varpro"], "item 12b"),
-                           (["fit-ct", "-f", "x_Ctint.dat", "--devices", "2"], "item 15"),
+        # fit-ct --optimiser varpro runs (test_torch_cli.py::test_fit_ct_varpro_matches_jax)
+        for argv, item in ((["fit-ct", "-f", "x_Ctint.dat", "--devices", "2"], "item 15"),
                            (["ct", "-s", system["ref"], "-f", system["xtc"], "-t", "400",
                              "--split", "2", "--devices", "2"], "item 15")):
             with pytest.raises(NotImplementedError, match=item):
