@@ -127,6 +127,23 @@ Builds the port's CUDA kernels from csrc/ and runs, in order:
    (wrappers and profiler) and idle share, held to the same chain on the
    CPU in float64 (phase 8a's tolerances; iRED / wiRED S2 1e-4).
 
+11. the sharded paths (``parallel/``) on a one-rank NCCL group
+   (``parallel.launch.start_one_rank``), at full width, each against its
+   unsharded twin in this process: (a) ShardedCtStream over phase 4's ten
+   groups (accumulators within 1e-6 of phase 4's, C(t) within 2e-6 of
+   float64; kernel A's launches, the wall a group, the all-reduces' share
+   of the busy time); (b) make_sharded_forward at phase 3's shape and
+   tolerances; (c) run_sharded_finish on (a)'s accumulators against phase
+   6's finish (rung equal on >= 98 %, rates within 1e-5 on equal rungs)
+   and the CPU in float64; (d) shard_experiment_set at phase 9b's size:
+   chisq_total within 1e-10, the device and Powell fits on (Diso, Daniso)
+   within 1e-6 / 1e-4 of the unsharded card fits; (e) ct --split 2,
+   fit-ct, multifield --opt Diso --method device and run-all -stream 2 on
+   phase 7a's file through cli.main with and without --devices 1: the
+   same files, byte for byte.  Each prints its wall, A/B/C launches and
+   idle share.  ``chip_smoke.py 11`` runs phase 11 alone (after phases 4
+   and 6, whose data it takes).
+
 Phases 3, 5, 5b and 6 run their LM loops both ways in turns -- the CUDA graph
 of one step, and the eager loop that issues every step from the host --
 and hold the outputs equal bit for bit.  Kernel A is also timed against
@@ -672,7 +689,7 @@ def phase_stream(torch, tac, cuda_acf, vecs, gen):
     print(f"  group step (kernel A + statistics) median {med:.4f} ms over "
           f"{n_groups - 1} steps; {N_REP * N_FRAMES * N_RES / (med * 1e-3):.4e} "
           f"frames*vectors/s", flush=True)
-    return med, acc, n_groups * N_REP
+    return med, acc, n_groups * N_REP, axis, rmean
 
 
 def rung_of(cts):
@@ -949,7 +966,8 @@ def phase_finish(torch, counters, engine, run_finish, Diffusion, paf_ensemble, a
                       for k, (n, us) in sorted(kernel_times(per).items()))
           + f"; eager loop: wall median of 3 {secs_e:.3f} s, device busy {busy_e:.2f} ms, "
             f"idle share {1 - busy_e / (secs_e * 1e3):.1%}", flush=True)
-    return dict(wall=secs, launches=launches, busy=busy, wall_eager=secs_e, busy_eager=busy_e)
+    return dict(wall=secs, launches=launches, busy=busy, wall_eager=secs_e, busy_eager=busy_e,
+                kw=kw, out=out, ref=ref)
 
 
 def moved_share(a, b) -> float:
@@ -1733,15 +1751,14 @@ def phase_fit(torch, counters, wf, dev="cuda", profile=True):
                 fits=card_log, cpu_fits=cpu_log, legacy=legacy, worst=worst)
 
 
-def phase_fit_large(torch, dev="cuda", profile=True, n_res=MBP["n_res"], n_samp=MBP["n_samp"]):
-    """(b) GlobalFitter at a large protein's size on the card, against the
-    CPU in float64."""
-    print(f"phase 9b: GlobalFitter on {n_res} residues x {n_samp} weighted samples, R1/R2/NOE "
-          f"at {len(MBP['fields'])} fields, made on the card, vs the CPU in float64", flush=True)
+def mbp_system(torch, dev="cuda", n_res=MBP["n_res"], n_samp=MBP["n_samp"]):
+    """Phase 9b's inputs, made on ``dev`` from a seed: the C(t) models on
+    ``dev`` and the CPU, experiments at the truth with one CSA ("flat") or
+    a CSA per residue ("rs"), and ``make_set(device, key, start)``, the
+    ExperimentSet of those (its device arrays and moments made)."""
     import numpy as np
 
     from spinrelax_tpu_torch.constants import DEFAULT_ZETA, NucleusPair, field_from_mhz
-    from spinrelax_tpu_torch.fit import globalfit
     from spinrelax_tpu_torch.io.experiments import ExperimentData
     from spinrelax_tpu_torch.models.ctmodel import CtModelSet
     from spinrelax_tpu_torch.models.diffusion import Diffusion
@@ -1789,6 +1806,24 @@ def phase_fit_large(torch, dev="cuda", profile=True, n_res=MBP["n_res"], n_samp=
         return es
 
     starts = {"flat": (1.15 * diso_true, 1.1), "rs": (1.1 * diso_true, MBP["aniso"])}
+    return dict(cts=cts, csa_true=csa_true, diso_true=diso_true, starts=starts,
+                make_set=make_set)
+
+
+def phase_fit_large(torch, dev="cuda", profile=True, n_res=MBP["n_res"], n_samp=MBP["n_samp"]):
+    """(b) GlobalFitter at a large protein's size on the card, against the
+    CPU in float64."""
+    print(f"phase 9b: GlobalFitter on {n_res} residues x {n_samp} weighted samples, R1/R2/NOE "
+          f"at {len(MBP['fields'])} fields, made on the card, vs the CPU in float64", flush=True)
+    import numpy as np
+
+    from spinrelax_tpu_torch.constants import NucleusPair
+    from spinrelax_tpu_torch.fit import globalfit
+
+    f64 = torch.float64
+    mbp = mbp_system(torch, dev, n_res, n_samp)
+    cts, csa_true, diso_true = mbp["cts"], mbp["csa_true"], mbp["diso_true"]
+    starts, make_set = mbp["starts"], mbp["make_set"]
     # the collapsed chi-square against the per-sample one on the card
     for key in ("flat", "rs"):
         es = make_set(dev, key, starts[key])
@@ -2238,9 +2273,317 @@ def phase_acf_stage_shapes(torch, tac, cuda_acf, gen):
     return out
 
 
+# phase 11: the sharded paths (parallel/) on the one card, a one-rank NCCL
+# group, each against its unsharded twin in this process
+MF_TRUTH = dict(tau=4300.0, aniso=1.2)  # phase 11e's experiments
+
+
+def nccl_ms(per) -> float:
+    """Device ms of the NCCL kernels in a device_profile table."""
+    return sum(ms for name, (_, ms) in per.items() if "nccl" in name.lower())
+
+
+def same_dirs(a: Path, b: Path):
+    """(same file names, [names whose bytes differ]) of two run directories,
+    leaving out the manifest (it records the directory's paths) and the
+    plot."""
+    def files(d):
+        return sorted(p.name for p in d.iterdir()
+                      if p.is_file() and not p.name.endswith((".manifest.json", ".pdf")))
+
+    fa, fb = files(a), files(b)
+    return fa == fb and bool(fa), [f for f in fa if f in fb
+                                   and (a / f).read_bytes() != (b / f).read_bytes()]
+
+
+def phase_sharded(torch, counters, engine, vecs, stream4, finish6, ubq):
+    """Phase 11: ShardedCtStream, make_sharded_forward, run_sharded_finish,
+    the residue-sharded multi-field fit and the --devices command lines on
+    a one-rank NCCL group at full width, each held to its unsharded twin."""
+    print("phase 11: the sharded paths on a one-rank NCCL group (launch.start_one_rank), held "
+          "to their unsharded twins", flush=True)
+    import io
+
+    import numpy as np
+
+    from spinrelax_tpu_torch.constants import NucleusPair, field_from_mhz
+    from spinrelax_tpu_torch.fit import globalfit
+    from spinrelax_tpu_torch.io import experiments, fittedct, vectors
+    from spinrelax_tpu_torch.models.diffusion import Diffusion
+    from spinrelax_tpu_torch.ops import observables
+    from spinrelax_tpu_torch.parallel import launch
+    from spinrelax_tpu_torch.parallel.fit import shard_experiment_set
+    from spinrelax_tpu_torch.parallel.mesh import dims, make_mesh
+    from spinrelax_tpu_torch.parallel.pipeline import make_forward, make_sharded_forward
+    from spinrelax_tpu_torch.parallel.streamed import (
+        ShardedCtStream, run_finish, run_sharded_finish)
+    from spinrelax_tpu_torch.pipeline import cli
+
+    gpu = gpu_line()
+    t0 = time.perf_counter()
+    launch.start_one_rank("cuda")
+    mesh = make_mesh(1, device="cuda")
+    print(f"  one-rank NCCL group and mesh {dims(mesh)} in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    out = {}
+
+    def reset():
+        for c in counters:
+            c.launches = 0
+
+    def read():
+        return [c.launches for c in counters]
+
+    def sub_line(name, wall, launches, busy, extra=""):
+        print(f"  {name}: wall {wall:.4f} s, launches A/B/C {launches}, device busy "
+              f"{busy:.2f} ms, idle share {1 - busy / (wall * 1e3):.1%}{extra} on {gpu}",
+              flush=True)
+
+    # 11a: the stream over phase 4's ten groups
+    axis, acc4, count4, rmean = stream4["axis"], stream4["acc"], stream4["count"], stream4["rmean"]
+
+    def group(g):
+        return torch.nn.functional.normalize(axis + 0.6 * vecs.roll(g, dims=2), dim=-1)
+
+    stream = ShardedCtStream(mesh, N_FRAMES, N_RES, dtype=torch.float32)
+    reset()
+    walls = []
+    for g in range(10):
+        grp = group(g)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stream.update(grp)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        del grp
+    launches = read()
+    check(launches[0] == 10, f"11a: ShardedCtStream launched kernel A {launches[0]} times "
+                             f"in 10 groups")
+    acc_s, acc_s2, count = stream.accumulators()
+    check(int(count) == count4, f"11a: {int(count)} chunks streamed = phase 4's {count4}")
+    gaps = [float((a - b).abs().max() / b.abs().max()) for a, b in zip((acc_s, acc_s2), acc4)]
+    check(max(gaps) <= 1e-6, f"11a: accumulators within {max(gaps):.2e} (<= 1e-6, relative to "
+                             f"their largest) of phase 4's unsharded stream")
+    Ct, dCt = stream.finalize()
+    err = float((Ct.double() - rmean).abs().max())
+    check(err <= 2e-6, f"11a: C(t) max abs err {err:.3e} <= 2e-6 against float64")
+    grp = group(0)
+    scratch = ShardedCtStream(mesh, N_FRAMES, N_RES, dtype=torch.float32)
+    busy, per = device_profile(torch, lambda: scratch.update(grp), lambda per: saw(per, A=1))
+    del grp, scratch
+    a_prof = kernel_times(per).get("A", (0, 0.0))
+    check(a_prof[0] == 1, f"11a: the profiler saw kernel A {a_prof[0]} times in one update")
+    wall = sorted(walls[1:])[4]
+    share = nccl_ms(per) / busy
+    # one all-reduce's host-clock cost at one rank: 200 of a 0-d tensor
+    x = torch.zeros((), device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        torch.distributed.all_reduce(x)
+    torch.cuda.synchronize()
+    ar_us = (time.perf_counter() - t0) / 200 * 1e6
+    sub_line("11a ShardedCtStream.update (32 x 1000 x 1024)", wall, launches, busy,
+             f" (profiled update); median of 9 groups; kernel A {a_prof[1]:.2f} us; the "
+             f"three all-reduces {nccl_ms(per) * 1e3:.2f} us = {share:.2%} of the busy time; "
+             f"an all-reduce of a 0-d tensor {ar_us:.1f} us on the host clock; "
+             f"accumulators within {max(gaps):.2e} of phase 4's; C(t) {err:.2e} of float64")
+    out["11a"] = dict(wall=wall, launches=launches, busy=busy, allreduce_share=share,
+                      allreduce_us=ar_us)
+
+    # 11b: the sharded forward against the forward of phase 3
+    kw = dict(tau_iso=4242.0, delta_t=1.0, n_components=2)
+    fwd, sfwd = make_forward(**kw), make_sharded_forward(mesh, **kw)
+    ref = fwd(vecs)
+    reset()
+    got, _ = wall_s(torch, lambda: sfwd(vecs))
+    launches = read()
+    check(launches[0] == 1 and launches[1] > 0 and launches[1] == launches[2],
+          f"11b: sharded forward launched A/B/C {launches}")
+    w_plain, w_shard = [], []
+    for _ in range(3):  # in turns
+        w_plain.append(wall_s(torch, lambda: fwd(vecs))[1])
+        w_shard.append(wall_s(torch, lambda: sfwd(vecs))[1])
+    busy, _ = device_profile(torch, lambda: sfwd(vecs))
+    err = float((got.Ct.double() - ref.Ct.double()).abs().max())
+    check(err <= 2e-6, f"11b: Ct max abs vs the unsharded forward {err:.3e} <= 2e-6")
+    for k in ("R1", "R2", "NOE", "rho"):
+        a, b = getattr(got, k).double(), getattr(ref, k).double()
+        check(bool(torch.isfinite(a).all()), f"11b: {k} finite")
+        med = float(rel_gap(a, b).median())
+        check(med < 1e-4, f"11b: {k} median relative gap {med:.3e} < 1e-4")
+    wall = sorted(w_shard)[1]
+    sub_line("11b make_sharded_forward (32 x 1000 x 1024, K 2)", wall, launches, busy,
+             f"; unsharded twin {sorted(w_plain)[1]:.4f} s (medians of 3, in turns)")
+    out["11b"] = dict(wall=wall, wall_plain=sorted(w_plain)[1], launches=launches, busy=busy)
+    del ref, got
+
+    # 11c: the sharded finish on 11a's accumulators against phase 6's finish
+    fkw = finish6["kw"]
+    reset()
+    got, _ = wall_s(torch, lambda: run_sharded_finish(mesh, acc_s, acc_s2, count, **fkw))
+    launches = read()
+    check(launches[1] > 0 and launches[1] == launches[2],
+          f"11c: sharded finish launched B/C {launches[1]}/{launches[2]}")
+    w_plain, w_shard = [], []
+    for _ in range(3):
+        w_plain.append(wall_s(torch, lambda: run_finish(*acc4, count4, **fkw))[1])
+        w_shard.append(wall_s(torch, lambda: run_sharded_finish(
+            mesh, acc_s, acc_s2, count, **fkw))[1])
+    busy, _ = device_profile(torch, lambda: run_sharded_finish(mesh, acc_s, acc_s2, count, **fkw))
+    twin, cpu = finish6["out"], finish6["ref"]
+    same = (rung_of(got.cts) == rung_of(twin.cts))
+    share = float(same.double().mean())
+    check(share >= 0.98, f"11c: rung equal to phase 6's on {share:.4f} of rows (>= 0.98)")
+    for f in ("R1", "R2", "NOE", "rho", "dR1", "dR2", "dNOE", "drho"):
+        a, b = getattr(got, f).double().cpu(), getattr(twin, f).double().cpu()
+        gap = float(rel_gap(a[same], b[same]).max())
+        check(gap <= 1e-5, f"11c: {f} within {gap:.2e} (<= 1e-5) of phase 6's on equal rungs")
+    for f in ("R1", "R2", "NOE", "rho"):
+        med = float(rel_gap(getattr(got, f).double().cpu(), getattr(cpu, f)).median())
+        check(med < 1e-4, f"11c: {f} median relative gap to the CPU float64 finish {med:.3e}")
+    wall = sorted(w_shard)[1]
+    sub_line("11c run_sharded_finish (1024 residues, 64 samples)", wall, launches, busy,
+             f"; unsharded twin {sorted(w_plain)[1]:.4f} s; rung equal on {share:.4f}")
+    out["11c"] = dict(wall=wall, wall_plain=sorted(w_plain)[1], launches=launches, busy=busy)
+
+    # 11d: the residue-sharded multi-field fit at phase 9b's size
+    mbp = mbp_system(torch)
+    make_set, start = mbp["make_set"], mbp["starts"]["flat"]
+    es = make_set("cuda", "flat", start)
+    p = (torch.tensor(start[0], dtype=torch.float64, device="cuda"),
+         torch.tensor(start[1], dtype=torch.float64, device="cuda"), mbp["cts"]["cuda"].zeta,
+         torch.full((es.n_residues,), NucleusPair().csa_value, dtype=torch.float64,
+                    device="cuda"))
+    es_sh = shard_experiment_set(es, mesh)
+    a, b = float(globalfit.chisq_total(es_sh, *p)), float(globalfit.chisq_total(es, *p))
+    check(abs(a / b - 1) <= 1e-10, f"11d: chisq_total sharded {a:.12g} = unsharded {b:.12g} "
+                                   f"(gap {abs(a / b - 1):.2e} <= 1e-10)")
+    out["11d"] = {}
+    for method, rtol in (("device", 1e-6), ("powell", 1e-4)):
+        es = make_set("cuda", "flat", start)  # each set made outside the timed fits
+        sh = shard_experiment_set(make_set("cuda", "flat", start), mesh)
+        sh.device_arrays()
+        sh.symmtop_a_moments_device()
+
+        def fit(s):
+            return wall_s(torch, lambda: globalfit.GlobalFitter(s, ["Diso", "Daniso"]).run(
+                method=method))
+
+        # in turns: unsharded, sharded, sharded, unsharded; each wall the mean of two
+        want, w0 = fit(es)
+        reset()
+        got, w1 = fit(sh)
+        launches = read()
+        (_, w2), (_, w3) = fit(sh), fit(es)
+        wall, w_plain = (w1 + w2) / 2, (w0 + w3) / 2
+        busy, _ = device_profile(torch, lambda: globalfit.GlobalFitter(
+            sh, ["Diso", "Daniso"]).run(method=method), cpu=False)
+        gaps = [abs(got.diso / want.diso - 1), abs(got.aniso / want.aniso - 1)]
+        check(max(gaps) <= rtol, f"11d {method}: Diso, Daniso within {rtol:g} of the unsharded "
+                                 f"card fit (gaps {gaps[0]:.2e}, {gaps[1]:.2e})")
+        sub_line(f"11d GlobalFitter {method} Diso,Daniso, sharded 370 x 2592", wall, launches,
+                 busy, f"; unsharded twin {w_plain:.4f} s")
+        out["11d"][method] = dict(wall=wall, wall_plain=w_plain, busy=busy)
+
+    # 11e: the command lines with and without --devices 1 write the same bytes
+    root = Path(ubq["dir"]) / "sharded"
+    root.mkdir(exist_ok=True)
+    tau = str(UBQ["tau"])
+
+    def ct(d):
+        return ["ct", "-s", ubq["ref"], "-f", ubq["xtc"], "-t", tau, "--Ct", "--S2",
+                "--vecHist", "--split", "2", "-o", str(d / "u")]
+
+    def fit_ct(d):
+        return ["fit-ct", "-f", str(d / "u_Ctint.dat"), "-o", str(d / "u")]
+
+    def multifield(d):
+        return ["multifield", *sorted(str(q) for q in root.glob("expt_*.dat")), "-f",
+                str(d / "u_fittedCt.dat"), "--distfn", str(d / "u_vecHistogram.npz"), "--tau",
+                str(MF_TRUTH["tau"] * 1.1), "--aniso", str(MF_TRUTH["aniso"]), "--opt", "Diso",
+                "--method", "device", "-o", str(d / "mf")]
+
+    def run_all(d):
+        return ["run-all", "-sxtc", ubq["xtc"], "-refpdb", ubq["ref"], "-t_mem", tau,
+                "-num_chunks", "4", "-Bfields", "600.133", "-stream", "2", "-out",
+                str(d / "rotdif"), "-qfile", str(d / "colvar-qorient")]
+
+    def experiments_at_truth(d):
+        """R1, R2, NOE at 600.133 MHz from the plain run's fitted C(t) and
+        vectors at a truth, 2 % errors, for multifield."""
+        cts = fittedct.read_fittedct(str(d / "u_fittedCt.dat"), device="cpu")
+        names, v, w = vectors.load_vector_distribution(str(d / "u_vecHistogram.npz"))
+        r = observables.predict_rates_newapi(
+            NucleusPair(B0=field_from_mhz(600.133), time_unit="ps"),
+            Diffusion.axisymmetric(tau=MF_TRUTH["tau"], aniso=MF_TRUTH["aniso"]),
+            cts.with_zeta(0.890023), vecs=v, weights=w)
+        for t in ("R1", "R2", "NOE"):
+            y = getattr(r, t).numpy()
+            experiments.write_experiment(str(root / f"expt_{t}.dat"), experiments.ExperimentData(
+                t, "15N", "1H", 600.133, "MHz", np.asarray(names), y, 0.02 * np.abs(y)))
+
+    plain, sharded = root / "plain", root / "devices1"
+    plain.mkdir(exist_ok=True)
+    sharded.mkdir(exist_ok=True)
+    out["11e"] = {}
+    for name, argv, need in (("ct --split 2", ct, (0,)), ("fit-ct", fit_ct, (1, 2)),
+                             ("multifield --opt Diso --method device", multifield, ()),
+                             ("run-all -stream 2", run_all, (0, 1, 2))):
+        flag = "-devices" if name.startswith("run-all") else "--devices"
+        box = {}
+
+        def run_sharded():
+            reset()
+            box["wall"] = wall_s(torch, lambda: cli.main(argv(sharded) + [flag, "1"],
+                                                         device="cuda"))[1]
+            box["launches"] = read()
+
+        with contextlib.redirect_stdout(io.StringIO()):
+            _, w_plain = wall_s(torch, lambda: cli.main(argv(plain), device="cuda"))
+            # one profiled run (the card's activity only): its wall, launches, busy
+            busy, _ = device_profile(torch, run_sharded, cpu=False)
+        wall, launches = box["wall"], box["launches"]
+        if name == "fit-ct":
+            experiments_at_truth(plain)
+        for k in need:
+            check(launches[k] > 0, f"11e {name} {flag} 1: kernel {'ABC'[k]} launched "
+                                   f"{launches[k]} times")
+        names_ok, differ = same_dirs(plain, sharded)
+        check(names_ok and not differ, f"11e {name}: with and without {flag} 1 the same files "
+                                       f"and bytes (differ: {differ})")
+        sub_line(f"11e {name} {flag} 1", wall, launches, busy,
+                 f" (profiled run); without the flag {w_plain:.4f} s; same bytes "
+                 f"{names_ok and not differ}")
+        out["11e"][name] = dict(wall=wall, wall_plain=w_plain, launches=launches)
+    return out
+
+
+def sharded_launches(r, k: int) -> dict:
+    """Kernel ``k``'s launches (0 A, 1 B, 2 C) on each of phase 11's paths."""
+    out = {f"launches_sharded_{key}": r[sub]["launches"][k]
+           for key, sub in (("stream", "11a"), ("forward", "11b"), ("finish", "11c"))}
+    for name, v in r["11e"].items():
+        out["launches_sharded_" + name.split()[0].replace("-", "_")] = v["launches"][k]
+    return out
+
+
+def sharded_line(r) -> str:
+    """Phase 11's walls, sharded against unsharded, on one line."""
+    return ("sharded (one-rank NCCL group): stream update "
+            f"{r['11a']['wall'] * 1e3:.3f} ms (all-reduces {r['11a']['allreduce_share']:.2%} "
+            f"of busy; {r['11a']['allreduce_us']:.1f} us each on the host), forward {r['11b']['wall']:.4f} s (unsharded {r['11b']['wall_plain']:.4f}), "
+            f"finish {r['11c']['wall']:.4f} s (unsharded {r['11c']['wall_plain']:.4f}), "
+            + ", ".join(f"fit {k} {v['wall']:.3f} s (unsharded {v['wall_plain']:.3f})"
+                        for k, v in r["11d"].items())
+            + ", " + ", ".join(f"{k} --devices 1 {v['wall']:.3f} s (without {v['wall_plain']:.3f})"
+                               for k, v in r["11e"].items()))
+
+
 def main() -> int:
-    """All phases (no arguments), or phase 5b alone (``chip_smoke.py 5b``:
-    no kernels line and no result line)."""
+    """All phases (no arguments), or phase 5b or phase 11 alone
+    (``chip_smoke.py 5b``, ``chip_smoke.py 11``: no kernels line and no
+    result line)."""
     if not (REPO / "spinrelax_tpu_torch" / "csrc").is_dir():
         print("chip_smoke: spinrelax_tpu_torch/ is not beside this script; run it "
               "from a checkout of the repository", file=sys.stderr)
@@ -2283,6 +2626,23 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(20261016)
     t0 = time.perf_counter()
     vecs = torch.from_numpy(correlated_walk(N_REP, N_FRAMES, N_RES, seed=0)).cuda()
+    if sys.argv[1:] == ["11"]:  # phase 11 alone, on phases 4 and 6's data: no result lines
+        _, acc, count, axis, rmean = phase_stream(torch, tac, cuda_acf, vecs, gen)
+        finish = phase_finish(torch, counters, engine, run_finish, Diffusion, paf_ensemble,
+                              acc, count)
+        with tempfile.TemporaryDirectory() as work:
+            sharded = phase_sharded(torch, counters, engine, vecs,
+                                    dict(acc=acc, count=count, axis=axis, rmean=rmean), finish,
+                                    ubiquitin_system(Path(work)))
+        from spinrelax_tpu_torch.parallel import launch
+
+        launch.stop()
+        print(f"phase 11 took {time.perf_counter() - t_start:.1f} s, build and phases 4, 6 "
+              f"included, on {gpu_line()}: {sharded_line(sharded)}", flush=True)
+        if failures:
+            print(f"chip_smoke 11 FAILED ({len(failures)}):", *failures, sep="\n  ",
+                  file=sys.stderr)
+        return 1 if failures else 0
     print(f"input: correlated walk {tuple(vecs.shape)} float32 "
           f"({vecs.numel() * 4 / 1e6:.0f} MB) in {time.perf_counter() - t0:.1f} s",
           flush=True)
@@ -2291,12 +2651,11 @@ def main() -> int:
     b_err, c_err_, lm_times = phase_lm(torch, cuda_lm, gen)
     launches, fwd_s, busy_ms, fwd_eager_s, busy_eager_ms = phase_forward(
         torch, tac, counters, engine, make_forward, fit_multiexp, vecs)
-    step_ms, acc, count = phase_stream(torch, tac, cuda_acf, vecs, gen)
-    del vecs
+    step_ms, acc, count, axis, rmean = phase_stream(torch, tac, cuda_acf, vecs, gen)
+    stream4 = dict(acc=acc, count=count, axis=axis, rmean=rmean)
     ladder = phase_ladder(torch, counters, engine, hetero_cohort, fit_ct_ladder)
     ladder5b = phase_ladder_5b(torch, counters, engine, lm, hetero_cohort, fit_ct_ladder)
     finish = phase_finish(torch, counters, engine, run_finish, Diffusion, paf_ensemble, acc, count)
-    del acc
     a_stage = phase_acf_stage_shapes(torch, tac, cuda_acf, gen)
     with tempfile.TemporaryDirectory() as work:
         ubq = ubiquitin_system(Path(work))
@@ -2304,8 +2663,15 @@ def main() -> int:
         wf = phase_runall(torch, counters, ubq)
         dq_long = phase_dq_long(torch, Path(work))
         fit = phase_fit(torch, counters, wf)
+        # before phase 10, which writes its own solute.xtc and reference.pdb
+        # over phase 7a's
+        sharded = phase_sharded(torch, counters, engine, vecs, stream4, finish, ubq)
+        del vecs, acc, stream4
         cli_run = phase_cli(torch, counters, ubq, Path(work))
     fit_large = phase_fit_large(torch)
+    from spinrelax_tpu_torch.parallel import launch
+
+    launch.stop()  # the one-rank NCCL group of phase 11
 
     print(f"chip_smoke phases took {time.perf_counter() - t_start:.1f} s, build included",
           flush=True)
@@ -2347,7 +2713,8 @@ def main() -> int:
                       for e in fit_large)
           + f"; center on {RAW['n_frames']} frames {cli_run['wall']:.3f} s "
           f"({cli_run['frames_s']:.1f} frames/s), the quick-start chain "
-          + ", ".join(f"{k} {v:.3f} s" for k, v in cli_run["walls"].items()), flush=True)
+          + ", ".join(f"{k} {v:.3f} s" for k, v in cli_run["walls"].items())
+          + "; " + sharded_line(sharded), flush=True)
     if failures:
         print(f"chip_smoke FAILED ({len(failures)}):", *failures, sep="\n  ",
               file=sys.stderr)
@@ -2368,6 +2735,7 @@ def main() -> int:
              launches_stage=stage["launches"][0], launches_ct_entry=stage["launches_entry"][0],
              launches_runall=wf["launches"][0], launches_runall_fit=fit["launches"][0],
              launches_cli=cli_run["total"][0],
+             **sharded_launches(sharded, 0),
              **{f"stage_{k}_{f}": t[x] for k, t in a_stage.items()
                 for f, x in (("ms", "ms"), ("plain_ms", "plain"), ("bound_ms", "bound"),
                              ("bound_by", "by"), ("max_abs_err", "err"))}),
@@ -2382,6 +2750,7 @@ def main() -> int:
              launches_finish=finish["launches"][1],
              launches_ct_entry=stage["launches_entry"][1], launches_runall=wf["launches"][1],
              launches_runall_fit=fit["launches"][1], launches_cli=cli_run["total"][1],
+             **sharded_launches(sharded, 1),
              **{f"{k}_{f}": t[x] for k, t in (("k5", k5), ("k8", k8))
                 for f, x in (("ms", "B"), ("plain_ms", "B_plain"), ("bound_ms", "B_bound"))}),
         dict(name="lm_cost", route="cuda", source=src + "lm_hgc.cu",
@@ -2394,6 +2763,7 @@ def main() -> int:
              launches_finish=finish["launches"][2],
              launches_ct_entry=stage["launches_entry"][2], launches_runall=wf["launches"][2],
              launches_runall_fit=fit["launches"][2], launches_cli=cli_run["total"][2],
+             **sharded_launches(sharded, 2),
              **{f"{k}_{f}": t[x] for k, t in (("k5", k5), ("k8", k8))
                 for f, x in (("ms", "C"), ("plain_ms", "C_plain"), ("bound_ms", "C_bound"))}),
     ]

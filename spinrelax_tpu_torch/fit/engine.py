@@ -34,7 +34,7 @@ import torch
 from ..ops import cuda_lm
 from .lm import (
     MultiExpFit, _chol_solve_small, _finalise_multiexp, _init_multiexp, _mm,
-    _multiexp_res_jac, _spd_inv_diag_small, _to_constrained, _to_unconstrained,
+    _multiexp_res_jac, _sigmoid, _spd_inv_diag_small, _to_constrained, _to_unconstrained,
 )
 
 
@@ -198,7 +198,7 @@ def fit_multiexp_engine(dt, decay, sigma, K: int, s2_free: bool,
         it, so steps past the last live lane's end are no-ops."""
         frozen = done | (it >= max_iter)
         H_p, g_p, c_old = cuda_lm.hgc(pt_of_t(t), y_t, isg_t, dt, K, s2_free)
-        s = torch.sigmoid(t)
+        s = _sigmoid(t)
         D = span * s * (1.0 - s)  # (BS, P) chain rule
         H = H_p * D[:, :, None] * D[:, None, :]
         g = g_p * D

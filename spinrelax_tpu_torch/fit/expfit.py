@@ -32,7 +32,7 @@ import torch
 from .. import checked_device
 from ..models.ctmodel import CtModelSet
 from .lm import fit_multiexp_ladder
-from .walk import fit_ct_walk, traced, traced_fit
+from .walk import fit_ct_walk, on_mesh, traced, traced_fit
 
 LADDER_WITH_FAST = (2, 3, 5, 7, 9)
 LADDER_NO_FAST = (2, 4, 6, 8)
@@ -97,11 +97,12 @@ def _chisq_outlier_rows(sel_chi: np.ndarray, cap: int) -> np.ndarray:
     return flagged
 
 
-def _stacked_walk(dt, dec, sig, chisq_threshold, specs, Kmax, trace):
+def _stacked_walk(dt, dec, sig, chisq_threshold, specs, Kmax, trace, mesh=None):
     """The ``stacked=True`` ladder: every rung of every row in one
     ``lm.fit_multiexp_ladder`` (from each rung's log-spaced taus, the
-    decays tiled on their device), then the walk over its per-rung slices
-    (expfit.py:331-342, 581-613, 637-657)."""
+    decays tiled on their device; with a mesh, of the rank's rows), then
+    the walk over its per-rung slices (expfit.py:331-342, 581-613,
+    637-657)."""
     B, f, dev = dec.shape[0], dec.dtype, dec.device
     dt_np = dt.cpu().numpy().astype(float)
     step = float(np.mean(dt_np[1:] - dt_np[:-1]))
@@ -109,8 +110,10 @@ def _stacked_walk(dt, dec, sig, chisq_threshold, specs, Kmax, trace):
     for i, (K, _) in enumerate(specs):
         tau0_rows[i, :K] = np.logspace(np.log10(step), np.log10(dt_np[-1] * 2.0), K + 2)[1:-1]
     record = dict(stage="stacked", K=Kmax, s2_free=None, rows=len(specs) * B, starts=1)
-    fit = traced(trace, record, lambda info: fit_multiexp_ladder(
-        dt, dec, sig, torch.as_tensor(tau0_rows, dtype=f, device=dev), specs, Kmax, info=info))
+    tau0 = torch.as_tensor(tau0_rows, dtype=f, device=dev)
+    fit = traced(trace, record, lambda info: on_mesh(
+        mesh, lambda d, s: fit_multiexp_ladder(dt, d, s, tau0, specs, Kmax, info=info),
+        (dec, sig), rungs=len(specs)))
     return fit_ct_walk(dt, dec, sig, chisq_threshold, specs, Kmax,
                        fit_rung=lambda i, rows: type(fit)(*(a[i * B + rows] for a in fit)))
 
@@ -149,7 +152,11 @@ def fit_ct_ladder(
     ValueError as in the JAX package.  ``trace``, a list, receives one
     record per LM call: its stage (rung, warm, multistart, resume, outlier,
     stacked), K, S2 freedom, rows, starts, steps, iterations and kernel B/C
-    launches (:func:`fit.walk.traced`).
+    launches (:func:`fit.walk.traced`).  ``mesh``, a ("rep", "res") mesh:
+    every rank passes the same rows; each LM fits the rank's slice of its
+    rows (kernels B and C on the card) and one gather of the packed results
+    feeds the same selection walk and escalation on every rank
+    (:func:`fit.walk.on_mesh`).
 
     Tensor inputs stay on their device and dtype; numpy inputs go to
     ``device`` (the card unless ``device="cpu"``), in float32 on the card
@@ -162,9 +169,6 @@ def fit_ct_ladder(
         raise ValueError("optimiser='varpro' uses per-rung solves (stacked=False)")
     if n_starts > 1 and (optimiser != "lm" or stacked):
         raise ValueError("n_starts > 1 requires optimiser='lm', stacked=False")
-    if mesh is not None:
-        raise NotImplementedError(
-            "fit_ct_ladder: mesh is not ported yet (ROADMAP.md section 1 item 15)")
     if pipeline_rungs:
         raise NotImplementedError(
             "fit_ct_ladder: pipeline_rungs=True is not ported, on purpose: it is a hook "
@@ -198,10 +202,10 @@ def fit_ct_ladder(
     R = len(specs)
 
     if stacked:
-        w = _stacked_walk(dt_t, dec, sig, chisq_threshold, specs, Kmax, trace)
+        w = _stacked_walk(dt_t, dec, sig, chisq_threshold, specs, Kmax, trace, mesh)
     else:
         w = fit_ct_walk(dt_t, dec, sig, chisq_threshold, specs, Kmax, n_starts, trace,
-                        optimiser=optimiser)
+                        optimiser=optimiser, mesh=mesh)
     sel_idx, sel_chi = w["sel_idx"], w["sel_chi"]
     selected = {k: w[k] for k in ("C", "tau", "dC", "dtau", "mask", "S2", "dS2",
                                   "chisq", "s2fast")}
@@ -237,11 +241,11 @@ def fit_ct_ladder(
             C0, tau0, S20 = _warm_p0(selected, retry, specs[i - 1][0], K, s2f,
                                      beg_mean, step)
             resc = traced_fit(trace, "warm", dt_t, dec[retry], sig[retry], K, s2f,
-                              init=(C0, tau0, S20))._asdict()
+                              init=(C0, tau0, S20), mesh=mesh)._asdict()
             ok_r = _ok(resc)
             if escalate:
                 m = traced_fit(trace, "multistart", dt_t, dec[retry], sig[retry], K, s2f,
-                               n_starts=retry_starts)._asdict()
+                               n_starts=retry_starts, mesh=mesh)._asdict()
                 use_m = _ok(m) & (~ok_r | (m["chisq"] < resc["chisq"]))
                 for k in resc:
                     u = use_m[:, None] if resc[k].ndim == 2 else use_m
@@ -259,7 +263,7 @@ def fit_ct_ladder(
             if cont.numel():
                 # Rows adopted by an earlier retry walk on: rung i's cold fit.
                 c = traced_fit(trace, "resume", dt_t, dec[cont], sig[cont], K, s2f,
-                               n_starts=n_starts, optimiser=optimiser)._asdict()
+                               n_starts=n_starts, optimiser=optimiser, mesh=mesh)._asdict()
                 ok_c = _ok(c)
                 brk_c = ~ok_c | (c["chisq"] >= sel_chi[cont] * chisq_threshold)
                 take_c = ok_c & ~brk_c
@@ -288,7 +292,7 @@ def fit_ct_ladder(
             if rows.numel() == 0:
                 continue
             m = traced_fit(trace, "outlier", dt_t, dec[rows], sig[rows], K, s2f,
-                           n_starts=retry_starts)._asdict()
+                           n_starts=retry_starts, mesh=mesh)._asdict()
             better = _ok(m) & (m["chisq"] < sel_chi[rows])
             if bool(better.any()):
                 rows_b = rows[better]

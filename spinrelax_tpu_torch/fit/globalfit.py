@@ -186,16 +186,27 @@ def _combined_weight(err, dv, like):
     return torch.where(w > 0, w, 1.0)
 
 
-def chisq_total(es: ExperimentSet, diso, aniso, zeta, csa):
+def chisq_total(es: ExperimentSet, diso, aniso, zeta, csa, reduce: bool = True):
     """Reference chi-square: per-experiment masked mean of
     (v-t)^2 / (dTarget^2 + dSim^2), summed over experiments / nExpt
-    (spectral_densities.py:803-818, 1409-1413).  A 0-d tensor."""
+    (spectral_densities.py:803-818, 1409-1413).  A 0-d tensor.
+
+    Of a residue-sharded set, the sum over every rank; ``reduce=False``
+    gives this rank's share of it instead (differentiable: the shares'
+    gradients sum to the gradient)."""
     preds = _eval_all(es, diso, aniso, zeta, csa)
-    total = 0.0
-    for (t, err, m), (v, dv) in zip(es.device_arrays().targets, preds):
+    arr = es.device_arrays()
+    nums = []
+    for (t, err, m), (v, dv) in zip(arr.targets, preds):
         sq = (v - t) ** 2
         w = _combined_weight(err, dv, sq)
-        total = total + torch.sum(m * sq / w) / torch.clamp(torch.sum(m), min=1.0)
+        nums.append(torch.sum(m * sq / w))
+    nums = torch.stack(nums)
+    if reduce:
+        nums = es.residue_sum(nums)
+    total = 0.0
+    for num, cnt in zip(nums, arr.counts):
+        total = total + num / torch.clamp(cnt, min=1.0)
     return total / len(es.experiments)
 
 
@@ -205,10 +216,11 @@ def residuals_total(es: ExperimentSet, diso, aniso, zeta, csa):
     least-squares form the device LM takes."""
     preds = _eval_all(es, diso, aniso, zeta, csa)
     n_e = len(es.experiments)
+    arr = es.device_arrays()
     rs = []
-    for (t, err, m), (v, dv) in zip(es.device_arrays().targets, preds):
+    for (t, err, m), (v, dv), cnt in zip(arr.targets, preds, arr.counts):
         w = _combined_weight(err, dv, v)
-        norm = torch.clamp(torch.sum(m), min=1.0) * n_e
+        norm = torch.clamp(cnt, min=1.0) * n_e
         # sqrt(m/norm) does not depend on the parameters (w does): the
         # mask outside the w-bearing factor keeps the Jacobian of masked
         # entries exactly 0 instead of NaN.
@@ -255,9 +267,18 @@ class GlobalFitter:
         self.global_vars = [v for v in opt_vars if v != "rsCSA"]
         self.do_local = "rsCSA" in opt_vars
         self._idx = {v: i for i, v in enumerate(self.global_vars)}
+        # The state's CSA covers every rank's residues; a sharded set's
+        # rank uploads and fits its own slice of it.
+        self._sl = slice(None)
         csa0 = es.csa
+        if es.mesh is not None:
+            from ..parallel.mesh import residue_sharding
+
+            self._sl = residue_sharding(es.mesh, es.n_global)
+            if csa0 is not None:
+                csa0 = host(es.gather_residues(_arg(csa0, self.dev)))[0]
         if csa0 is None:
-            csa0 = np.full(es.n_residues, es.experiments[0].pair.csa_value)
+            csa0 = np.full(es.n_global, es.experiments[0].pair.csa_value)
         zeta = es.cts.zeta
         self.state = FitState(
             diso=float(np.asarray(es.diffusion.diso)),
@@ -295,10 +316,10 @@ class GlobalFitter:
 
     def _packed(self) -> torch.Tensor:
         """(diso, aniso, zeta, csa...) of the state on the device, in one
-        copy."""
+        copy (the csa of this rank's residues)."""
         s = self.state
         self.counts["uploads"] += 1
-        return torch.as_tensor(np.concatenate([[s.diso, s.aniso, s.zeta], s.csa]),
+        return torch.as_tensor(np.concatenate([[s.diso, s.aniso, s.zeta], s.csa[self._sl]]),
                                dtype=_F64, device=self.dev)
 
     def _params(self):
@@ -314,16 +335,22 @@ class GlobalFitter:
         return self.chisq()
 
     # -- the device LM ------------------------------------------------------
-    def _unpack(self, z, d0, a0, zeta0, csa0):
+    def _csa_mean(self, csa):
+        """Mean of the CSA over every rank's residues."""
+        if self.es.mesh is None:
+            return torch.mean(csa)
+        return self.es.residue_sum(torch.sum(csa)) / self.es.n_global
+
+    def _unpack(self, z, d0, a0, zeta0, csa0, ref=None):
         """Positive parameters in log space (x = x0 e^z): z = 0 is the
         current value and positivity is structural.  CSA (sign-free) moves
-        linearly in units of its magnitude."""
+        linearly in units of its magnitude (``ref``, the mean of csa0)."""
         idx = self._idx
         d = d0 * torch.exp(z[idx["Diso"]]) if "Diso" in idx else d0
         a = a0 * torch.exp(z[idx["Daniso"]]) if "Daniso" in idx else a0
         zz = zeta0 * torch.exp(z[idx["zeta"]]) if "zeta" in idx else zeta0
         if "CSA" in idx:
-            ref = torch.mean(csa0)
+            ref = self._csa_mean(csa0) if ref is None else ref
             val = ref + z[idx["CSA"]] * torch.clamp(torch.abs(ref), min=1e-6)
             c = torch.zeros_like(csa0) + val
         else:
@@ -342,9 +369,11 @@ class GlobalFitter:
         every step instead, as a while loop does."""
         n_p = len(self._idx)
         eye = torch.eye(n_p, dtype=_F64, device=self.dev)
+        es = self.es
+        ref = self._csa_mean(csa0) if "CSA" in self._idx else None
 
         def resid(z):
-            return residuals_total(self.es, *self._unpack(z, d0, a0, zeta0, csa0))
+            return residuals_total(es, *self._unpack(z, d0, a0, zeta0, csa0, ref))
 
         def resid_aux(z):
             r = resid(z)
@@ -361,13 +390,13 @@ class GlobalFitter:
         def step(state):
             z, lam, f, it, moved = state
             live = live_of(state)
-            J, r = jac(z)  # (nR, n_p), (nR,)
-            g = J.T @ r
-            H = J.T @ J
+            J, r = jac(z)  # (nR, n_p), (nR,) of this rank's residues
+            Hg = es.residue_sum(torch.cat([J.T @ J, (J.T @ r)[:, None]], dim=1))
+            H, g = Hg[:, :n_p], Hg[:, n_p]
             dz = _chol_solve_small(H + lam * eye, -g)
             z_new = z + dz
             r_new = resid(z_new)
-            f_new = torch.sum(r_new * r_new)
+            f_new = es.residue_sum(torch.sum(r_new * r_new))
             ok = f_new < f
             new = (
                 torch.where(ok, z_new, z),
@@ -380,7 +409,7 @@ class GlobalFitter:
 
         z0 = torch.zeros(n_p, dtype=_F64, device=self.dev)
         r0 = resid(z0)
-        f0 = torch.sum(r0 * r0)
+        f0 = es.residue_sum(torch.sum(r0 * r0))
         state = (z0, torch.full_like(f0, 1e-3), f0,
                  torch.zeros((), dtype=torch.int64, device=self.dev),
                  torch.full_like(f0, float("inf")))
@@ -398,7 +427,7 @@ class GlobalFitter:
                     break
         self.counts["lm_steps"] += steps
         z, _lam, f, it, _moved = state
-        return f, self._unpack(z, d0, a0, zeta0, csa0), it
+        return f, self._unpack(z, d0, a0, zeta0, csa0, ref), it
 
     def _solve_device(self, d0, a0, zeta0, csa0, _eager: bool = False):
         """The device LM from the given start; one packed read of its
@@ -429,7 +458,10 @@ class GlobalFitter:
             best = golden_vec(f, lo, hi, n_iter=n_iter)
             self.counts["golden_rounds"] += 1
             at_edge = torch.minimum(best - lo, hi - best) < 0.01 * hw
-            if r == max_expand - 1 or not bool(host(torch.any(at_edge & covered))[0]):
+            if r == max_expand - 1:
+                break
+            n_edge = self.es.residue_sum(torch.sum(at_edge & covered))
+            if not bool(host(n_edge)[0]):
                 break
             hw = torch.where(at_edge, 2.0 * hw, hw)
         return best
@@ -442,7 +474,7 @@ class GlobalFitter:
         _f, (d1, a1, z1, _c), it = self._lm(d0, a0, zeta0, csa0, _eager=_eager)
         best = self._golden_walk(d1, a1, z1, csa0, *_LOCAL_STEP_DEFAULTS)
         csa1 = torch.where(self.es.device_arrays().covered, best, csa0)
-        h = host(torch.stack([d1, a1, z1, it.to(_F64)]), csa1)
+        h = host(torch.stack([d1, a1, z1, it.to(_F64)]), self.es.gather_residues(csa1))
         self.counts["lm_iterations"] += int(h[0][3])
         return h[0][0], h[0][1], h[0][2], h[1]
 
@@ -468,10 +500,12 @@ class GlobalFitter:
                 self._set_globals(np.atleast_1d(x))
                 self.counts["evaluations"] += 1
                 p = self._packed().requires_grad_(True)
-                f = chisq_total(self.es, p[0], p[1], p[2], p[3:])
+                # this rank's share of chisq; the shares' gradients sum
+                f = chisq_total(self.es, p[0], p[1], p[2], p[3:], reduce=False)
                 (g,) = torch.autograd.grad(f, p)
                 # dchi/dCSA_scalar = sum_i dchi/dcsa_i
-                h = host(torch.stack([f.detach(), g[0], g[1], g[2], torch.sum(g[3:])]))[0]
+                h = host(self.es.residue_sum(
+                    torch.stack([f.detach(), g[0], g[1], g[2], torch.sum(g[3:])])))[0]
                 return float(h[0]), np.array([h[which[v]] for v in self.global_vars])
 
             # Parameters scaled to O(1) for L-BFGS; jac=True takes (f, g)
@@ -504,8 +538,9 @@ class GlobalFitter:
         s = self.state
         d, a, z, csa0 = self._params()
         best = self._golden_walk(d, a, z, csa0, half_width, n_iter, max_expand)
-        covered = np.asarray(self.es.coverage_counts()) > 0
-        s.csa = np.where(covered, host(best)[0], s.csa)
+        covered = self.es.gather_residues(self.es.device_arrays().covered)
+        best, covered = host(self.es.gather_residues(best), covered)
+        s.csa = np.where(covered > 0, best, s.csa)
 
     def run(
         self,

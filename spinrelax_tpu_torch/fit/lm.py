@@ -46,7 +46,7 @@ def _to_unconstrained(p, lo, hi):
 
 
 def _to_constrained(t, lo, hi):
-    return lo + (hi - lo) * torch.sigmoid(t)
+    return lo + (hi - lo) * _sigmoid(t)
 
 
 def _sigmoid(t):

@@ -26,7 +26,7 @@ import torch
 from ..ops import cuda_lm
 from . import lm
 
-__all__ = ["fit_ct_walk", "traced", "traced_fit"]
+__all__ = ["fit_ct_walk", "on_mesh", "traced", "traced_fit"]
 
 _MODEL = ("C", "tau", "dC", "dtau", "mask", "S2", "dS2", "chisq", "s2fast")
 
@@ -48,28 +48,59 @@ def traced(trace, record: dict, fn):
     return out
 
 
+def on_mesh(mesh, fit, arrays, rungs: int = 1):
+    """``fit(*arrays)`` -> MultiExpFit over the rows of ``arrays`` (equal
+    leading axes); with a mesh, each rank fits its residue slice
+    (``parallel.mesh.pad_and_shard``: row-0 copies pad to a multiple of
+    the rank count) and one gather of the packed fields gives every rank
+    the whole fit.  ``rungs``: the fit returns ``rungs`` rung-major copies
+    of the rows (``lm.fit_multiexp_ladder``)."""
+    if mesh is None:
+        return fit(*arrays)
+    from ..parallel import mesh as pm
+
+    local, n = pm.pad_and_shard(mesh, arrays)
+    out = fit(*local)
+    b = local[0].shape[0]
+    f = out.C.dtype
+    cols = [a.reshape(rungs, b, -1).to(f) for a in out]
+    packed = pm.all_gather(torch.cat(cols, dim=2), pm.group(mesh), dim=1)[:, :n]
+    fields, i = [], 0
+    for a, c in zip(out, cols):
+        v = packed[:, :, i : i + c.shape[2]].reshape((rungs * n,) + tuple(a.shape[1:]))
+        fields.append(v > 0.5 if a.dtype == torch.bool else v.to(a.dtype))
+        i += c.shape[2]
+    return type(out)(*fields)
+
+
 def traced_fit(trace, stage: str, dt, decays, sigma, K: int, s2_free: bool,
-               n_starts: int = 1, init=None, optimiser: str = "lm"):
+               n_starts: int = 1, init=None, optimiser: str = "lm", mesh=None):
     """One multi-exp fit of the ladder over (B, T) decays: the cold
     ``lm.fit_multiexp`` (``optimiser="lm"``) or ``lm.fit_multiexp_varpro``
     (``"varpro"``), or ``lm.fit_multiexp_warm`` from ``init`` = (C0, tau0,
     S20), recorded by :func:`traced` as {stage, K, s2_free, rows, starts,
-    steps, iterations, launches_B, launches_C}."""
+    steps, iterations, launches_B, launches_C}; with a ``mesh``, on this
+    rank's rows and gathered (:func:`on_mesh`; the record's steps,
+    iterations and launches are this rank's)."""
     record = dict(stage=stage, K=K, s2_free=s2_free, rows=decays.shape[0],
                   starts=n_starts)
+    rows = (decays, sigma) + tuple(init or ())
     if init is not None:
-        return traced(trace, record, lambda info: lm.fit_multiexp_warm(
-            dt, decays, sigma, *init, K, s2_free, info=info))
-    if optimiser == "varpro":
-        return traced(trace, record, lambda info: lm.fit_multiexp_varpro(
-            dt, decays, sigma, K, s2_free, info=info))
-    return traced(trace, record, lambda info: lm.fit_multiexp(
-        dt, decays, sigma, K, s2_free, n_starts=n_starts, info=info))
+        def fit(info, d, s, *p0):
+            return lm.fit_multiexp_warm(dt, d, s, *p0, K, s2_free, info=info)
+    elif optimiser == "varpro":
+        def fit(info, d, s):
+            return lm.fit_multiexp_varpro(dt, d, s, K, s2_free, info=info)
+    else:
+        def fit(info, d, s):
+            return lm.fit_multiexp(dt, d, s, K, s2_free, n_starts=n_starts, info=info)
+    return traced(trace, record,
+                  lambda info: on_mesh(mesh, lambda *a: fit(info, *a), rows))
 
 
 def fit_ct_walk(dt, decays, sigma, chisq_threshold: float, specs, Kmax: int,
                 n_starts: int = 1, trace=None, optimiser: str = "lm",
-                fit_rung=None) -> dict:
+                fit_rung=None, mesh=None) -> dict:
     """Run the ladder walk over (B, T) ``decays`` / ``sigma``.
 
     specs : (K, s2_free) per rung, in walk order; Kmax : max K of specs.
@@ -79,6 +110,9 @@ def fit_ct_walk(dt, decays, sigma, chisq_threshold: float, specs, Kmax: int,
     fit_rung : optional ``(i, rows) -> MultiExpFit`` giving rung i's fit of
         the rows ``rows`` (its components [:K]) in place of a cold fit: the
         stacked ladder's slices of its one LM.
+    mesh : optional ("rep", "res") mesh: each rung's LM runs on the rank's
+        slice of the rows, and the walk runs on every rank over the
+        gathered fits (:func:`on_mesh`).
 
     Returns a dict of tensors on the decays' device:
       C, tau, dC, dtau, mask (B, Kmax)  the selected model (tau pads 1,
@@ -119,7 +153,7 @@ def fit_ct_walk(dt, decays, sigma, chisq_threshold: float, specs, Kmax: int,
         if rows.numel():
             if fit_rung is None:
                 fit = traced_fit(trace, "rung", dt, decays[rows], sigma[rows], K, s2f,
-                                 n_starts=n_starts, optimiser=optimiser)
+                                 n_starts=n_starts, optimiser=optimiser, mesh=mesh)
             else:
                 fit = fit_rung(i, rows)
             for k in ("C", "tau", "dC", "dtau"):

@@ -44,7 +44,8 @@ class DeviceArrays:
     float64: per experiment (target, error or None, mask) and the index of
     its pair in ``pairs`` (the unique NucleusPairs, in first-seen order);
     ``omega`` the pairs' omega5 grids concatenated (5 * nPairs,); the
-    vector ensemble and its weights; ``covered`` (nRes,) bool."""
+    vector ensemble and its weights; ``covered`` (nRes,) bool; ``counts``
+    each experiment's covered residues, over every rank of a sharded set."""
 
     targets: list
     pair_of: List[int]
@@ -53,6 +54,7 @@ class DeviceArrays:
     vecs: Optional[torch.Tensor]
     weights: Optional[torch.Tensor]
     covered: torch.Tensor
+    counts: List[torch.Tensor]  # per experiment: residues covered (all ranks)
 
 
 @dataclasses.dataclass
@@ -65,6 +67,10 @@ class ExperimentSet:
     vecs: Optional[np.ndarray] = None  # (nRes, nSamp, 3)
     weights: Optional[np.ndarray] = None  # (nRes, nSamp)
     csa: Optional[np.ndarray] = None  # (nRes,) residue-specific CSA or None
+    # Residue-sharded sets (parallel.fit.shard_experiment_set): the mesh,
+    # and the residue count over every rank (padding included).
+    mesh: object = None
+    n_total: Optional[int] = None
 
     @property
     def n_experiments(self) -> int:
@@ -77,6 +83,31 @@ class ExperimentSet:
     @property
     def device(self) -> torch.device:
         return self.cts.S2.device
+
+    @property
+    def n_global(self) -> int:
+        """Residues over every rank (the set's own count when unsharded)."""
+        return self.n_residues if self.n_total is None else self.n_total
+
+    def residue_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """``x``, this rank's sums over its residues, summed over every rank
+        of a sharded set's mesh (one all-reduce; a new tensor, outside
+        autograd); ``x`` itself when the set is not sharded.  Every sum over
+        residues of the fit goes through here."""
+        if self.mesh is None:
+            return x
+        from ..parallel import mesh as pm
+
+        return pm.all_reduce(x.detach().clone(), self.mesh)
+
+    def gather_residues(self, x: torch.Tensor) -> torch.Tensor:
+        """A per-residue (nRes, ...) tensor of a sharded set from every
+        rank (``parallel.mesh.fetch``); ``x`` itself when not sharded."""
+        if self.mesh is None:
+            return x
+        from ..parallel import mesh as pm
+
+        return pm.fetch(x, self.mesh)
 
     def symmtop_a_moments(self):
         """Cached numpy (mu_p, cov_p, mu_o, cov_o) A-coefficient moments of
@@ -125,6 +156,7 @@ class ExperimentSet:
             vecs=t(self.vecs),
             weights=t(self.weights),
             covered=torch.as_tensor(self.coverage_counts() > 0, device=dev),
+            counts=[self.residue_sum(torch.sum(t(e.mask))) for e in self.experiments],
         )
         object.__setattr__(self, "_device_arrays", cached)
         return cached

@@ -189,6 +189,17 @@ def palmer_group_update_pretiled(vt: torch.Tensor, acc_s: torch.Tensor,
     Returns the updated accumulators (new tensors); finalise with
     :func:`palmer_pooled_stats` on the total chunk count.
     """
+    s, s2 = palmer_group_sums_pretiled(vt, n_group, n_res)
+    return acc_s + s, acc_s2 + s2
+
+
+def palmer_group_sums_pretiled(vt: torch.Tensor, n_group: int, n_res: int,
+                               weights=None):
+    """The group's own shifted sums (sum_chunks w e, sum_chunks w e**2),
+    each (nDeltas, n_res), of tile-layout input (kernel A on the card):
+    what :func:`palmer_group_update_pretiled` adds to the accumulators.
+    ``weights`` : optional (n_group,) chunk weights (0.0 for padded
+    chunks)."""
     n_tiles, _, n_frames, _ = vt.shape
     n_deltas = n_frames // 2
     b = n_group * n_res
@@ -203,11 +214,10 @@ def palmer_group_update_pretiled(vt: torch.Tensor, acc_s: torch.Tensor,
     # palmer_pooled_stats convention: accumulate e = per - 1 and e**2.
     e = -1.5 + 1.5 * s / _n_vals(n_frames, n_deltas, vt)[:, None]
     e = e.reshape(n_deltas, n_group, n_res)
-    return acc_s + e.sum(dim=1), acc_s2 + (e**2).sum(dim=1)
-
-
-_MESH = ("mesh= shards a stream over several devices; the port's multi-device "
-         "stream comes with ROADMAP item 15")
+    if weights is None:
+        return e.sum(dim=1), (e**2).sum(dim=1)
+    w = weights[None, :, None]
+    return torch.sum(w * e, dim=1), torch.sum(w * e**2, dim=1)
 
 
 def stream_update(group: torch.Tensor, acc_s: torch.Tensor, acc_s2: torch.Tensor,
@@ -263,9 +273,26 @@ def ct_palmer_streamed(chunk_iter, n_frames_per_chunk: int, mesh=None):
     chunk_iter yields (g, n_frames_per_chunk, nRes, 3) tensors (g may
     vary); per-chunk lag means accumulate into running sum / sum of
     squares, so the result equals :func:`ct_palmer` over the concatenated
-    chunks.  Returns Ct, dCt : (nDeltas, nRes)."""
+    chunks.  Returns Ct, dCt : (nDeltas, nRes).
+
+    mesh : optional ("rep", "res") mesh (``parallel.mesh.make_mesh``) --
+        every rank feeds the same groups; each group's chunks shard over
+        "rep" and its residues over "res"
+        (``parallel.streamed.ShardedCtStream``: kernel A on each rank's
+        block, one all-reduce over "rep" per sum), and every rank returns
+        the whole result."""
     if mesh is not None:
-        raise NotImplementedError(_MESH)
+        from ..parallel.streamed import ShardedCtStream
+
+        stream = None
+        for group in chunk_iter:
+            if stream is None:
+                stream = ShardedCtStream(mesh, n_frames_per_chunk, group.shape[2],
+                                         dtype=torch.as_tensor(group[:0]).dtype)
+            stream.update(group)
+        if stream is None:
+            raise ValueError("empty chunk iterator")
+        return stream.finalize()
     acc_s, acc_s2, n_rep = stream_accumulate(chunk_iter, n_frames_per_chunk)
     return palmer_pooled_stats(acc_s, acc_s2, float(n_rep))
 
@@ -276,9 +303,13 @@ def ct_palmer_scan(vecs: torch.Tensor, batch: int = 1, mesh=None):
     per-lag sum and sum of squares (population std via E[x^2] - E[x]^2).
 
     vecs : (nReplicates, nFrames, nResidues, 3); nReplicates % batch == 0.
+    mesh : optional ("rep", "res") mesh: each ``batch`` of replicates goes
+        through the sharded stream (:func:`ct_palmer_streamed`).
     """
     if mesh is not None:
-        raise NotImplementedError(_MESH)
+        return ct_palmer_streamed((vecs[off : off + batch]
+                                   for off in range(0, vecs.shape[0], batch)),
+                                  vecs.shape[1], mesh=mesh)
     n_rep = vecs.shape[0]
     if n_rep % batch != 0:
         raise ValueError(f"nReplicates ({n_rep}) must be divisible by batch ({batch})")

@@ -60,16 +60,21 @@ def hgc_plain(p, y, isg, dt, K: int, s2_free: bool):
                for k in range(K)]
     if s2_free:
         planes.append(isg.expand_as(r))
-    J = torch.stack(planes)  # (P, T, B), already * isg
-    H = torch.einsum("itb,jtb->bij", J, J)
-    g = torch.einsum("itb,tb->bi", J, r)
-    return H, g, 0.5 * torch.sum(r * r, dim=0)
+    # Problem-major (B, T, P) and (B, T): every problem's sums over the
+    # lags take the same order whatever the batch's size (a lag-major sum
+    # over a (T, 1) column would take another on the CPU).
+    J = torch.stack(planes, dim=-1).transpose(0, 1).contiguous()  # already * isg
+    rb = r.T.contiguous()
+    H = J.transpose(1, 2) @ J
+    g = (J.transpose(1, 2) @ rb[:, :, None])[:, :, 0]
+    return H, g, 0.5 * torch.sum(rb * rb, dim=1)
 
 
 def cost_plain(p, y, isg, dt, K: int, s2_free: bool):
     """Plain version of kernel C: 0.5 ||r||^2 (B,)."""
     r, _ = _residual(p, y, isg, dt, K, s2_free)
-    return 0.5 * torch.sum(r * r, dim=0)
+    rb = r.T.contiguous()
+    return 0.5 * torch.sum(rb * rb, dim=1)
 
 
 def check_shapes(name, p, y, isg, dt, K, s2_free):

@@ -4,9 +4,14 @@ the reference's stage scripts plus the run-all orchestrator.
     python -m spinrelax_tpu_torch <command> [arguments]
 
 runs every command's compute on the card; ``main(argv, device="cpu")``
-runs it on the CPU instead.  Not ported yet, each raising
-``NotImplementedError`` before any file is read: ``ct --devices`` /
-``fit-ct --devices`` (sharding over several devices, ROADMAP item 15).
+runs it on the CPU instead.  ``ct --split G --devices N``, ``fit-ct
+--devices N`` and ``multifield --devices N`` shard their compute over a
+("rep", "res") mesh of N processes, one per device:
+
+    torchrun --nproc-per-node N -m spinrelax_tpu_torch ct ... --split G --devices N
+
+(``--devices 1`` needs no launcher: the process starts its own one-rank
+group); rank 0 writes the artefacts.
 
     spinrelax center      <- center-solute-gromacs.bash (native trjconv)
     spinrelax orient      <- PLUMED QUATERNION + gmx steps (now native)
@@ -246,8 +251,8 @@ def cmd_ct(argv, device="cuda"):
                         "(e.g. a DCD's float32-quantised DELTA)")
     p.add_argument("--devices", type=int, default=0, metavar="N",
                    help="with --split: shard the streamed C(t) "
-                        "accumulation over N devices (not ported yet: "
-                        "ROADMAP item 15)")
+                        "accumulation over an N-device ('rep','res') mesh "
+                        "(one process per device, started by torchrun)")
     p.add_argument("--help_sel", action="store_true",
                    help="display help for selection texts and exit")
     if "--help_sel" in argv:
@@ -272,9 +277,6 @@ def cmd_ct(argv, device="cuda"):
     storage = "Histogram" if a.do_hist else ("PhiTheta" if a.binary else "TextPhiTheta")
     if a.devices > 0 and a.split_groups <= 0:
         sys.exit("= = = ERROR: --devices requires the streaming path (--split N).")
-    if a.devices > 0:
-        raise NotImplementedError(
-            "ct --devices: the sharded C(t) stream comes with ROADMAP item 15")
     if a.tau is None:
         # Reference semantics (calculate-Ct-from-traj.py:358-360): S2 and
         # vector statistics are legal without a memory time (unblocked, no
@@ -291,13 +293,18 @@ def cmd_ct(argv, device="cuda"):
             sys.exit("= = = ERROR: --S2mode ired/wired needs a tumbling "
                      "estimate; pass -t/--tau.")
     if a.split_groups > 0:
+        mesh = None
+        if a.devices > 0:
+            from ..parallel.mesh import make_mesh
+
+            mesh = make_mesh(a.devices, device=device)
         stage_ct_streamed(
             a.infn, a.topfn, a.outpref, a.tau,
             chunk_groups=a.split_groups, timestep=a.timestep,
             q_rot=q_rot, h_sel=a.Hsel, x_sel=a.Xsel, fit_sel=a.fitsel,
             zeta=a.zeta, do_ct=a.do_ct, do_s2=a.do_s2, s2_mode=a.S2mode,
             do_vec_dist=(a.do_vec or a.do_hist), do_vec_avg=a.do_avg,
-            vec_storage=storage, hist_bins=a.histBin, device=device,
+            vec_storage=storage, hist_bins=a.histBin, mesh=mesh, device=device,
         )
     else:
         stage_ct(
@@ -358,15 +365,16 @@ def cmd_fit_ct(argv, device="cuda"):
                         "robustness at ~zero clean-workload cost; 1 "
                         "disables)")
     p.add_argument("--devices", type=int, default=0, metavar="N",
-                   help="shard the batched ladder fits over the first N "
-                        "local devices (0 = single-device; not ported yet: "
-                        "ROADMAP item 15)")
+                   help="shard the batched ladder fits over an N-device mesh "
+                        "(0 = single-device; one process per device)")
     a = p.parse_args(argv)
     from .stages import stage_fit_ct
 
+    mesh = None
     if a.devices > 0:
-        raise NotImplementedError(
-            "fit-ct --devices: the sharded ladder comes with ROADMAP item 15")
+        from ..parallel.mesh import make_mesh
+
+        mesh = make_mesh(a.devices, device=device)
     stage_fit_ct(
         a.infn, a.outpref,
         n_components=None if a.nc < 0 else a.nc,
@@ -374,6 +382,7 @@ def cmd_fit_ct(argv, device="cuda"):
         optimiser=a.optimiser,
         n_starts=a.nstarts,
         retry_starts=a.retry_starts,
+        mesh=mesh,
         device=device,
     )
     print(" = = Completed C(t)-fits.")

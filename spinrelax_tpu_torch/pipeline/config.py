@@ -22,8 +22,8 @@ single source of truth for both levels:
       run_workflow(cfg)
 
 Port of ``spinrelax_tpu/pipeline/config.py``: the same flags, fields and
-defaults.  ``devices`` > 0 (the sharded stream and fits) waits for ROADMAP
-item 15 in the port's ``run_workflow``.
+defaults.  ``devices`` > 0 runs the sharded stream and fits over a mesh of
+that many processes, one per device (``run_workflow``).
 """
 
 from __future__ import annotations
@@ -140,8 +140,8 @@ _FLAG_TABLE = [
     ("-devices", (), "io", "devices", {
         "type": int, "metavar": "N",
         "help": "shard the streamed C(t) accumulation (-stream) and the "
-                "multi-field fits (-fit) over N devices (not ported yet: "
-                "ROADMAP item 15)"}),
+                "multi-field fits (-fit) over an N-device ('rep','res') mesh, "
+                "one process per device, started by torchrun"}),
     ("-t_mem", (), "tumbling", "tau_mem", {"type": float, "help": "memory time [ps]"}),
     ("-num_chunks", (), "tumbling", "num_chunks", {"type": int}),
     ("-D_ext", (), "tumbling", "d_ext", {

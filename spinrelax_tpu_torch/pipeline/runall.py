@@ -15,9 +15,16 @@ viscosity / D2O correction of D_iso reproduces run-all.bash:15-28.
 With ``-fit`` / ``-expfiles`` the multi-field global fit
 (``stages.stage_multifield``) runs once per mode after the relaxations.
 The fitted C(t) is plotted to ``{pref}_fittedCt.pdf`` (cosmetic: without
-matplotlib a note is printed and the run goes on).  Not ported yet:
-``-devices`` (ROADMAP item 15) raises ``NotImplementedError`` before any
-stage runs.
+matplotlib a note is printed and the run goes on).
+
+``-devices N`` runs on a ("rep", "res") mesh of N processes, one per
+device (``torchrun --nproc-per-node N``; one process needs no launcher):
+the streamed C(t) stage (with ``-stream``), the C(t) fits and the
+multi-field fits shard over it, every rank taking the same decisions.
+Rank 0 alone runs the other steps and writes every artefact and manifest
+entry, and the ranks wait for each other after each write; a stage that
+every rank runs is checked against the manifest by every rank, after a
+barrier.
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ import numpy as np
 from .. import checked_device
 from ..io import fittedct as fctio
 from ..models.diffusion import Diffusion
+from ..parallel.mesh import barrier, device_of, is_writer
 from . import stages
 from .cli import _parse_csa
 from .config import WorkflowConfig, add_workflow_args, config_from_namespace
@@ -76,10 +84,14 @@ def run_workflow(cfg: WorkflowConfig, device="cuda") -> dict:
     (orient, dq, ct, fit-ct, relax, and fit with ``-fit``)."""
     cfg.validate()
     io, tum, phy, exp = cfg.io, cfg.tumbling, cfg.physics, cfg.experiments
-    if io.devices > 0:
-        raise NotImplementedError(
-            "run-all -devices: sharding over several devices comes with ROADMAP item 15")
     dev = checked_device(device)
+    mesh = None
+    if io.devices > 0:
+        from ..parallel.mesh import make_mesh
+
+        mesh = make_mesh(io.devices, device=dev)
+        dev = device_of(mesh)
+    lead = is_writer(mesh)
 
     tau_ns = tum.tau_mem / 1000.0
     outpref = f"{io.outpref}-{tau_ns:g}ns"
@@ -108,6 +120,9 @@ def run_workflow(cfg: WorkflowConfig, device="cuda") -> dict:
         qfile_loc = os.path.join(path, io.qfile)
         sxtc_loc = os.path.join(path, io.traj)
         ref_loc = _resolve_ref(path, io.refpdb)
+        qfiles.append(qfile_loc)
+        if not lead:
+            continue
         if cfg.force or not stage_is_current(
             outpref, f"orient:{path}", [sxtc_loc, ref_loc], [qfile_loc],
             params=dict(fitsel=phy.fit_atoms),
@@ -120,15 +135,16 @@ def run_workflow(cfg: WorkflowConfig, device="cuda") -> dict:
                          params=dict(fitsel=phy.fit_atoms))
         else:
             print(" = = = Note: Pre-existing quaternion file found, skipping.")
-        qfiles.append(qfile_loc)
     if multi:
         qfile_agg = io.qfile + "-aggregate"
-        with open(qfile_agg, "w") as out:
-            for qf in qfiles:
-                with open(qf) as src:
-                    shutil.copyfileobj(src, out)  # constant memory
+        if lead:
+            with open(qfile_agg, "w") as out:
+                for qf in qfiles:
+                    with open(qf) as src:
+                        shutil.copyfileobj(src, out)  # constant memory
     else:
         qfile_agg = qfiles[0]
+    barrier(mesh)
     lap("orient")
 
     # ------------------------------------------------------------------
@@ -146,17 +162,19 @@ def run_workflow(cfg: WorkflowConfig, device="cuda") -> dict:
         dani = tum.d_ext[1]
     else:
         dq_params = dict(t100=t100, tau=tum.tau_mem, chunks=tum.num_chunks, multi=multi)
-        if cfg.force or not stage_is_current(
-            outpref, "dq", [qfile_agg],
-            [outpref + "-aniso_q.dat", outpref + "-aniso2.dat"], params=dq_params,
-        ):
-            stages.stage_dq(
-                qfile_agg, outpref, min_dt=t100, max_dt=tum.tau_mem, skip_dt=t100,
-                n_chunks=tum.num_chunks, multi=multi, force=cfg.force, device=dev,
-            )
-            record_stage(outpref, "dq", [qfile_agg], params=dq_params)
-        else:
-            print(" = = = Note: Pre-existing rotdif data found, skipping.")
+        if lead:
+            if cfg.force or not stage_is_current(
+                outpref, "dq", [qfile_agg],
+                [outpref + "-aniso_q.dat", outpref + "-aniso2.dat"], params=dq_params,
+            ):
+                stages.stage_dq(
+                    qfile_agg, outpref, min_dt=t100, max_dt=tum.tau_mem, skip_dt=t100,
+                    n_chunks=tum.num_chunks, multi=multi, force=cfg.force, device=dev,
+                )
+                record_stage(outpref, "dq", [qfile_agg], params=dq_params)
+            else:
+                print(" = = = Note: Pre-existing rotdif data found, skipping.")
+        barrier(mesh)
         # Extract from artefacts (so resume works identically).
         with open(outpref + "-aniso_q.dat") as fp:
             quat = np.array([float(x) for x in fp.readline().split()[1:5]])
@@ -208,35 +226,41 @@ def run_workflow(cfg: WorkflowConfig, device="cuda") -> dict:
     ct_params = dict(tau=tum.tau_mem, quat=[float(x) for x in quat],
                      storage=io.vec_storage, zeta=phy.zeta,
                      fit_atoms=phy.fit_atoms)
-    if cfg.force or not stage_is_current(
-        outpref, "ct", trajs + refs, [vec_file, outpref + "_Ctint.dat"],
-        params=ct_params,
-    ):
-        if io.stream_groups > 0:
-            stages.stage_ct_streamed(
-                trajs, refs, outpref, tum.tau_mem,
-                chunk_groups=io.stream_groups, q_rot=quat, fit_sel=phy.fit_atoms,
-                zeta=phy.zeta, vec_storage=io.vec_storage, device=dev,
-            )
+    # every rank runs the streamed C(t) stage on a mesh; rank 0 the in-memory one
+    if lead or (mesh is not None and io.stream_groups > 0):
+        if cfg.force or not stage_is_current(
+            outpref, "ct", trajs + refs, [vec_file, outpref + "_Ctint.dat"],
+            params=ct_params,
+        ):
+            if io.stream_groups > 0:
+                stages.stage_ct_streamed(
+                    trajs, refs, outpref, tum.tau_mem,
+                    chunk_groups=io.stream_groups, q_rot=quat, fit_sel=phy.fit_atoms,
+                    zeta=phy.zeta, vec_storage=io.vec_storage, mesh=mesh, device=dev,
+                )
+            else:
+                stages.stage_ct(
+                    trajs, refs, outpref, tum.tau_mem,
+                    q_rot=quat, fit_sel=phy.fit_atoms, zeta=phy.zeta,
+                    vec_storage=io.vec_storage, force=cfg.force, device=dev,
+                )
+            if lead:
+                record_stage(outpref, "ct", trajs + refs, params=ct_params)
         else:
-            stages.stage_ct(
-                trajs, refs, outpref, tum.tau_mem,
-                q_rot=quat, fit_sel=phy.fit_atoms, zeta=phy.zeta,
-                vec_storage=io.vec_storage, force=cfg.force, device=dev,
-            )
-        record_stage(outpref, "ct", trajs + refs, params=ct_params)
-    else:
-        print(" = = = Note: Pre-existing C(t)/vector files found, skipping.")
+            print(" = = = Note: Pre-existing C(t)/vector files found, skipping.")
+    barrier(mesh)
     lap("ct")
 
     if cfg.force or not stage_is_current(
         outpref, "fit-ct", [outpref + "_Ctint.dat"], [outpref + "_fittedCt.dat"]
     ):
-        stages.stage_fit_ct([outpref + "_Ctint.dat"], outpref, device=dev)
-        record_stage(outpref, "fit-ct", [outpref + "_Ctint.dat"])
+        stages.stage_fit_ct([outpref + "_Ctint.dat"], outpref, mesh=mesh, device=dev)
+        if lead:
+            record_stage(outpref, "fit-ct", [outpref + "_Ctint.dat"])
     else:
         print(" = = = Note: Pre-existing fitted-Ct file found, skipping.")
-    if not os.path.exists(outpref + "_fittedCt.pdf") or cfg.force:
+    barrier(mesh)
+    if lead and (not os.path.exists(outpref + "_fittedCt.pdf") or cfg.force):
         try:
             from .plotting import main as plot_main
 
@@ -250,7 +274,7 @@ def run_workflow(cfg: WorkflowConfig, device="cuda") -> dict:
     diffusion = Diffusion.axisymmetric(diso=diso, aniso=dani)
     names = fctio.read_fittedct(outpref + "_fittedCt.dat", device="cpu").names
     csa = _parse_csa(phy.csa_file, names)
-    for bf in exp.bfields_mhz:
+    for bf in exp.bfields_mhz if lead else ():
         of = f"{outpref}-{int(bf)}"
         # csa_file is an INPUT so edited CSA contents invalidate the stage
         # through the content-hash manifest (its path also sits in params).
@@ -278,6 +302,7 @@ def run_workflow(cfg: WorkflowConfig, device="cuda") -> dict:
                 outpref + "_fittedCt.dat", of, diffusion,
                 vec_file=vec_file, freq_mhz=bf, zeta=phy.zeta, jomega=True, device=dev,
             )
+    barrier(mesh)
     lap("relax")
 
     if exp.fit_modes:
@@ -286,7 +311,8 @@ def run_workflow(cfg: WorkflowConfig, device="cuda") -> dict:
                 outpref + "_fittedCt.dat", list(exp.exp_files),
                 f"{outpref}-opt{mode.replace(',', '_')}",
                 diffusion, vec_file=vec_file, zeta=phy.zeta, csa=csa,
-                opt_params=mode.split(","), include_expt=True, device=dev,
+                opt_params=mode.split(","), include_expt=True, devices=io.devices,
+                device=dev,
             )
         lap("fit")
     print("= = run-all complete.")

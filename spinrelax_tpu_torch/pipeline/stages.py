@@ -38,6 +38,16 @@ from ..models.ctmodel import CtModelSet
 from ..models.diffusion import Diffusion
 from ..ops import autocorr, ired, observables, orient
 from ..ops import dq as dqops
+from ..parallel.mesh import barrier, device_of, is_writer
+
+
+def _written(mesh, write) -> None:
+    """Run ``write`` (an artefact write) on the writing rank only -- every
+    process without a mesh, rank 0 with one -- then wait for every rank,
+    so none reads the file before it exists."""
+    if is_writer(mesh):
+        write()
+    barrier(mesh)
 
 
 def _fit_weights(top, fit_sel: str) -> np.ndarray:
@@ -560,21 +570,21 @@ def stage_ct(
     return out
 
 
-def _ired_spectrum_artefact(out_prefix: str, res_i) -> np.ndarray:
+def _ired_spectrum_artefact(out_prefix: str, res_i, mesh=None) -> np.ndarray:
     """Write {pref}_iREDspectrum.dat (block-mean eigenvalues, descending,
-    with sqrt(n)-1 SEM; the reorientational 5-mode subspace leads) and
-    return the (nRes, 2) [S2, dS2] array -- shared by the in-memory and
-    streamed C(t) stages."""
+    with sqrt(n)-1 SEM; the reorientational 5-mode subspace leads; rank 0
+    of a ``mesh`` writes) and return the (nRes, 2) [S2, dS2] array --
+    shared by the in-memory and streamed C(t) stages."""
     s2 = np.stack([res_i.S2.cpu().numpy(), res_i.dS2.cpu().numpy()], axis=-1)
     vals = res_i.eigenvalues.cpu().numpy()  # (nBlocks, nRes)
     lam = np.mean(vals, axis=0)
     dlam = np.std(vals, axis=0) / max(np.sqrt(vals.shape[0]) - 1.0, 1.0)
-    xvg.print_xydy(
+    _written(mesh, lambda: xvg.print_xydy(
         out_prefix + "_iREDspectrum.dat",
         np.arange(1, lam.shape[0] + 1), lam, dlam,
         header="# iRED eigenmode spectrum (descending); "
                "modes 1-5 span global reorientation",
-    )
+    ))
     return s2
 
 
@@ -600,8 +610,12 @@ def stage_fit_ct(
     (``fit_ct_ladder``: kernels B and C on the card, float64 on the CPU)
     and write {pref}_fittedCt.dat; several files are averaged first, with
     their errors pooled, into {pref}_averageCt.dat.  ``optimiser="varpro"``
-    walks the ladder with the variable-projection fit (``fit_ct_ladder``);
-    ``mesh`` (item 15) raises ``NotImplementedError``."""
+    walks the ladder with the variable-projection fit (``fit_ct_ladder``).
+    ``mesh`` (``parallel.mesh.make_mesh``): every rank reads the files and
+    the ladder's LMs fit each rank's slice of the residues on its device
+    (``fit_ct_ladder(mesh=)``); rank 0 writes the artefacts."""
+    if mesh is not None:
+        device = device_of(mesh)
     out_fn = out_prefix + "_fittedCt.dat"
     legs, dts, cts, dcts = xvg.load_sxydylist(ct_files[0], "legend")
     dt = np.asarray(dts)[0]
@@ -627,11 +641,14 @@ def stage_fit_ct(
         # Averaged-C(t) report artefact in the reference's INTENDED
         # format (calculate-fitted-Ct.py:140-147: bare float prints,
         # one '&' per leg).
-        with open(out_prefix + "_averageCt.dat", "w") as fp:
-            for i in range(len(legs)):
-                for j in range(decays.shape[1]):
-                    print(dt[j], decays[i][j], ddecays[i][j], file=fp)
-                print("&", file=fp)
+        def write_average():
+            with open(out_prefix + "_averageCt.dat", "w") as fp:
+                for i in range(len(legs)):
+                    for j in range(decays.shape[1]):
+                        print(dt[j], decays[i][j], ddecays[i][j], file=fp)
+                    print("&", file=fp)
+
+        _written(mesh, write_average)
 
     model = fit_ct_ladder(
         names=legs,
@@ -646,7 +663,7 @@ def stage_fit_ct(
         mesh=mesh,
         device=device,
     )
-    fctio.write_fittedct(out_fn, model, dt=dt, targets=decays)
+    _written(mesh, lambda: fctio.write_fittedct(out_fn, model, dt=dt, targets=decays))
     return model
 
 
@@ -867,13 +884,23 @@ def stage_multifield(
 
     ``ref_pdb`` is the --refpdb alternative vector source (one X-H vector
     per residue straight from the structure,
-    calculate-relaxations-multi-field.py:126-129).  ``devices`` > 0 (the
-    residue-sharded fit) waits for ROADMAP item 15 and raises
-    ``NotImplementedError`` before any file is read."""
+    calculate-relaxations-multi-field.py:126-129).  ``devices`` > 0 runs
+    the optimisation residue-sharded over a ``devices``-rank mesh
+    (``parallel.fit.shard_experiment_set``; every rank of the process
+    group calls the stage) with the same exports; rank 0 writes them.  It
+    needs ``opt_params`` (ValueError before any file is read)."""
+    if devices and not opt_params:
+        raise ValueError(
+            "devices/--devices shards the optimisation: it requires "
+            "opt_params/--opt (the plain evaluation is a single cheap "
+            "dispatch)"
+        )
+    mesh = None
     if devices:
-        raise NotImplementedError(
-            "stage_multifield(devices=): the residue-sharded fit "
-            "(parallel/fit.shard_experiment_set) comes with ROADMAP item 15")
+        from ..parallel.mesh import make_mesh
+
+        mesh = make_mesh(int(devices), device=device)
+        device = device_of(mesh)
     from ..fit.globalfit import EXPORT_SCALING, EXPORT_UNITS, GlobalFitter, _eval_all, host
     from ..io.experiments import read_experiment
     from ..models.experiments import ExperimentSet
@@ -893,10 +920,16 @@ def stage_multifield(
                              vec_names=vec_names, csa=csa)
 
     if opt_params:
-        state = GlobalFitter(es, list(opt_params)).run(max_cycles=max_cycles, tol=tol,
-                                                       method=method)
+        es_fit = es
+        if mesh is not None:
+            from ..parallel.fit import shard_experiment_set
+
+            es_fit = shard_experiment_set(es, mesh)
+        state = GlobalFitter(es_fit, list(opt_params)).run(max_cycles=max_cycles, tol=tol,
+                                                           method=method)
+        # the padded residues of a sharded fit ride along; drop them
         final = dict(diso=state.diso, aniso=state.aniso, zeta=state.zeta,
-                     csa=np.asarray(state.csa), chisq=state.chisq)
+                     csa=np.asarray(state.csa)[: es.n_residues], chisq=state.chisq)
     else:
         csa0 = es.csa
         if csa0 is None:
@@ -914,51 +947,55 @@ def stage_multifield(
         va = flat.pop(0)
         preds_h.append((va, None if dv is None else flat.pop(0)))
     opt_list = list(opt_params) if opt_params else []
-    for e, (va, dva) in zip(es.experiments, preds_h):
-        mhz = round(e.pair.B0 * 267.513 / (2.0 * np.pi))
-        fn = "%s_%s%s_%iMHz_%s.xvg" % (out_prefix, e.pair.isotope_a, e.pair.isotope_b, mhz,
-                                        e.expt_type)
-        with open(fn, "w") as fp:
-            print("# Type %s" % e.expt_type, file=fp)
-            print("# NucleiA %s" % e.pair.isotope_a, file=fp)
-            print("# NucleiB %s" % e.pair.isotope_b, file=fp)
-            print("# Frequency %g %s" % (e.pair.B0 * 267.513 / (2 * np.pi), "MHz"), file=fp)
-            for name in ("Diso", "Daniso", "zeta", "CSA"):
-                val = {"Diso": final["diso"], "Daniso": final["aniso"], "zeta": final["zeta"],
-                       "CSA": float(np.mean(final["csa"]))}[name]
-                status = "Optimised" if name in opt_list else "Fixed"
-                if name == "CSA" and "rsCSA" in opt_list:
-                    status = "OptimisedMean"
-                print("# %s %s: %g %s"
-                      % (status, name, val * EXPORT_SCALING[name], EXPORT_UNITS[name]), file=fp)
-            if final["chisq"] is not None:
-                print("# Optimised chi: %g a.u." % np.sqrt(final["chisq"]), file=fp)
-            print("", file=fp)
-            print("@target s0", file=fp)
-            if dva is not None:
-                print("@type xydy", file=fp)
-                for n, yy, ee in zip(cts.names, va, dva):
-                    print("%s %g %g" % (n, yy, ee), file=fp)
-            else:
-                print("@type xy", file=fp)
-                for n, yy in zip(cts.names, va):
-                    print("%s %g" % (n, yy), file=fp)
-            print("&", file=fp)
-            if include_expt and e.raw is not None:
-                print("@target s1", file=fp)
-                d = e.raw
-                if d.errors is not None:
+
+    def write_exports():
+        for e, (va, dva) in zip(es.experiments, preds_h):
+            mhz = round(e.pair.B0 * 267.513 / (2.0 * np.pi))
+            fn = "%s_%s%s_%iMHz_%s.xvg" % (out_prefix, e.pair.isotope_a, e.pair.isotope_b, mhz,
+                                            e.expt_type)
+            with open(fn, "w") as fp:
+                print("# Type %s" % e.expt_type, file=fp)
+                print("# NucleiA %s" % e.pair.isotope_a, file=fp)
+                print("# NucleiB %s" % e.pair.isotope_b, file=fp)
+                print("# Frequency %g %s" % (e.pair.B0 * 267.513 / (2 * np.pi), "MHz"), file=fp)
+                for name in ("Diso", "Daniso", "zeta", "CSA"):
+                    val = {"Diso": final["diso"], "Daniso": final["aniso"], "zeta": final["zeta"],
+                           "CSA": float(np.mean(final["csa"]))}[name]
+                    status = "Optimised" if name in opt_list else "Fixed"
+                    if name == "CSA" and "rsCSA" in opt_list:
+                        status = "OptimisedMean"
+                    print("# %s %s: %g %s"
+                          % (status, name, val * EXPORT_SCALING[name], EXPORT_UNITS[name]), file=fp)
+                if final["chisq"] is not None:
+                    print("# Optimised chi: %g a.u." % np.sqrt(final["chisq"]), file=fp)
+                print("", file=fp)
+                print("@target s0", file=fp)
+                if dva is not None:
                     print("@type xydy", file=fp)
-                    for n, yy, ee in zip(d.names, d.values, d.errors):
+                    for n, yy, ee in zip(cts.names, va, dva):
                         print("%s %g %g" % (n, yy, ee), file=fp)
                 else:
                     print("@type xy", file=fp)
-                    for n, yy in zip(d.names, d.values):
+                    for n, yy in zip(cts.names, va):
                         print("%s %g" % (n, yy), file=fp)
                 print("&", file=fp)
+                if include_expt and e.raw is not None:
+                    print("@target s1", file=fp)
+                    d = e.raw
+                    if d.errors is not None:
+                        print("@type xydy", file=fp)
+                        for n, yy, ee in zip(d.names, d.values, d.errors):
+                            print("%s %g %g" % (n, yy, ee), file=fp)
+                    else:
+                        print("@type xy", file=fp)
+                        for n, yy in zip(d.names, d.values):
+                            print("%s %g" % (n, yy), file=fp)
+                    print("&", file=fp)
 
-    if "rsCSA" in opt_list:
-        xvg.print_xy(out_prefix + "_CSA_opt.dat", cts.names, final["csa"])
+        if "rsCSA" in opt_list:
+            xvg.print_xy(out_prefix + "_CSA_opt.dat", cts.names, final["csa"])
+
+    _written(mesh, write_exports)
     return final
 
 
@@ -1091,21 +1128,28 @@ def stage_ct_streamed(
 
     ``s2_mode`` "ired" / "wired" stream the raw vectors through their own
     per-block (nBonds, nBonds) accumulator (``ops.ired.IredStream``)
-    instead of the outer-product S2 sums.  Not ported yet: ``mesh``
-    (ROADMAP item 15) raises ``NotImplementedError``.
+    instead of the outer-product S2 sums.
+
+    ``mesh`` (``parallel.mesh.make_mesh``): every rank of the mesh calls
+    the stage on the same files; the C(t) accumulation (the dominant cost)
+    runs through :class:`parallel.streamed.ShardedCtStream` (chunks over
+    "rep", bonds over "res", kernel A on each rank's block, one
+    all-reduce per sum over "rep"), with the same statistics; the light
+    accumulators (S2, histograms, average vector) stay whole on every
+    rank, and rank 0 writes the artefacts.  ``acc`` then holds no C(t)
+    sums: ``streams`` holds the two ShardedCtStreams ("ext", "int").
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "stage_ct_streamed(mesh=...): the sharded stream comes with ROADMAP item 15")
     if s2_mode not in ("outer", "ired", "wired"):
         raise ValueError(f"unknown s2_mode {s2_mode!r}")
     do_s2_outer = bool(do_s2 and s2_mode == "outer")
     ired_stream = None
     if do_vec_dist and vec_storage not in ("Histogram", "PhiTheta", "TextPhiTheta"):
         raise ValueError(f"unknown vec_storage {vec_storage!r}")
-    dev = checked_device(device)
+    dev = checked_device(device) if mesh is None else device_of(mesh)
     if len(ref_pdbs) == 1:
         ref_pdbs = list(ref_pdbs) * len(traj_files)
+    do_ct_here = bool(do_ct and mesh is None)
+    ct_streams = {}
 
     res_ids = None
     delta_t = None
@@ -1144,9 +1188,16 @@ def stage_ct_streamed(
                 W = max(int(wf * (tau_memory / 10.0) / delta_t), 2)
                 ired_stream = ired.IredStream(vec_raw_g.shape[2], W)
             ired_stream.update(vec_raw_g.reshape(-1, vec_raw_g.shape[2], 3))
+        if do_ct and mesh is not None:
+            from ..parallel.streamed import ShardedCtStream
+
+            for key, vv in (("ext", vec_raw_g), ("int", vec_fit_g)):
+                if key not in ct_streams:
+                    ct_streams[key] = ShardedCtStream(mesh, fpc, vv.shape[2], dtype=vv.dtype)
+                ct_streams[key].update(vv)
         if not acc:
             acc.update(init_accumulators(
-                vec_raw_g.shape[2], fpc, vec_raw_g.dtype, dev, do_ct=do_ct,
+                vec_raw_g.shape[2], fpc, vec_raw_g.dtype, dev, do_ct=do_ct_here,
                 do_s2=do_s2_outer, do_vec_avg=do_vec_avg, do_hist=do_hist, hist_bins=hist_nb))
         # Zero-pad a partial final group to the fixed group size, so every
         # group step has one shape; padded chunks carry weight 0.
@@ -1159,7 +1210,7 @@ def stage_ct_streamed(
             device=dev, dtype=vec_raw_g.dtype)
         new_acc, pt = fused_group_update(vec_raw_g, vec_fit_g, w_g, q_rot_t, acc, want_pt)
         acc.update(new_acc)
-        if pt is not None:
+        if pt is not None and is_writer(mesh):
             if pt_writer is None:
                 text = vec_storage == "TextPhiTheta"
                 pt_writer = vecio.PhiThetaStreamWriter(
@@ -1244,37 +1295,45 @@ def stage_ct_streamed(
 
     if do_ct:
         for key, suffix in (("ext", "_Ctext.dat"), ("int", "_Ctint.dat")):
-            mean, dct = autocorr.palmer_pooled_stats(acc[f"ct_{key}_s"],
-                                                     acc[f"ct_{key}_s2"], R)
+            if mesh is not None:
+                mean, dct = ct_streams[key].finalize()
+            else:
+                mean, dct = autocorr.palmer_pooled_stats(acc[f"ct_{key}_s"],
+                                                         acc[f"ct_{key}_s2"], R)
             mean, dct = mean.cpu().numpy(), dct.cpu().numpy()  # (nDeltas, nBonds)
-            xvg.print_sxylist(out_prefix + suffix, res_ids, dt_lags,
-                              np.stack([mean.T, dct.T], axis=-1))
+            _written(mesh, lambda: xvg.print_sxylist(
+                out_prefix + suffix, res_ids, dt_lags, np.stack([mean.T, dct.T], axis=-1)))
             if key == "int":
                 out["Ct"], out["dCt"] = mean, dct
 
     if do_vec_avg:
         avg = qt.vecnorm(acc["vec_sum"] / (R * fpc)).cpu().numpy()
-        xvg.print_xylist(out_prefix + "_avgvec.dat", res_ids, avg.T, cols=True)
+        _written(mesh, lambda: xvg.print_xylist(out_prefix + "_avgvec.dat", res_ids, avg.T,
+                                                cols=True))
         out["avgvec"] = avg
 
     if do_vec_dist:
         if do_hist:
             spill_hist()  # fold the device int32 into the int64 total
             ep, ec = geometry.lambert_edges(*hist_nb, dtype=vec_dtype)
-            vecio.save_histogram(out_prefix + "_vecHistogram.npz", res_ids, hist_host,
-                                 ep.numpy(), ec.numpy())
+            _written(mesh, lambda: vecio.save_histogram(
+                out_prefix + "_vecHistogram.npz", res_ids, hist_host, ep.numpy(), ec.numpy()))
             out["vec_file"] = out_prefix + "_vecHistogram.npz"
-        elif pt_writer is not None:
-            pt_writer.close()
-            out["vec_file"] = pt_writer.fn
+        else:
+            out["vec_file"] = out_prefix + ("_vecPhiTheta.dat" if vec_storage == "TextPhiTheta"
+                                            else "_vecPhiTheta.npz")
+            _written(mesh, lambda: pt_writer is not None and pt_writer.close())
 
     if do_s2:
         if do_s2_outer:
             s2, ds2 = autocorr.palmer_pooled_stats(acc["s2_s"], acc["s2_s2"], R)
             arr = np.stack([s2.cpu().numpy(), ds2.cpu().numpy()], axis=-1)
         else:
-            arr = _ired_spectrum_artefact(out_prefix, ired_stream.result())
-        xvg.print_xylist(out_prefix + "_S2.dat", res_ids, (arr.T) * zeta, cols=True)
+            arr = _ired_spectrum_artefact(out_prefix, ired_stream.result(), mesh)
+        _written(mesh, lambda: xvg.print_xylist(out_prefix + "_S2.dat", res_ids,
+                                                (arr.T) * zeta, cols=True))
         out["S2"] = arr
     out["acc"] = acc
+    if mesh is not None:
+        out["streams"] = ct_streams
     return out

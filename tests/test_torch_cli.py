@@ -423,16 +423,18 @@ def test_check_and_main_exits():
 
 
 def test_not_ported_options_raise_before_reading_files():
-    """--devices (ROADMAP item 15) raises NotImplementedError naming its
-    item; the files named do not exist, so nothing was read first.  (fit-ct
-    --optimiser varpro runs: test_fit_ct_varpro_matches_jax.)"""
-    cases = [(["fit-ct", "-f", "absent_Ctint.dat", "--devices", "2"], "item 15"),
-             (["ct", "-s", "absent.pdb", "-f", "absent.xtc", "-t", "100", "--split", "2",
-               "--devices", "2"], "item 15"),
-             (["run-all", "-sxtc", "absent.xtc", "-refpdb", "absent.pdb", "-stream", "2",
-               "-devices", "2"], "item 15")]
-    for argv, item in cases:
-        with pytest.raises(NotImplementedError, match=item):
+    """--devices 2 with no two-rank process group running (the multi-rank
+    paths run under torchrun; tests/test_torch_parallel_cli.py) raises
+    ValueError naming the launcher; the files named do not exist, so
+    nothing was read first.  (fit-ct --optimiser varpro runs:
+    test_fit_ct_varpro_matches_jax.)"""
+    cases = [["fit-ct", "-f", "absent_Ctint.dat", "--devices", "2"],
+             ["ct", "-s", "absent.pdb", "-f", "absent.xtc", "-t", "100", "--split", "2",
+              "--devices", "2"],
+             ["run-all", "-sxtc", "absent.xtc", "-refpdb", "absent.pdb", "-stream", "2",
+              "-devices", "2"]]
+    for argv in cases:
+        with pytest.raises(ValueError, match="torchrun --nproc-per-node 2"):
             tcli.main(argv, device="cpu")
 
 

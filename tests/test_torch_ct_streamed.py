@@ -84,11 +84,23 @@ def test_stream_accumulate_matches_jax(rng):
         tac.ct_palmer_scan(torch.from_numpy(v), batch=2)
 
 
-@pytest.mark.parametrize("call", [lambda v: tac.ct_palmer_scan(v, mesh=object()),
-                                  lambda v: tac.ct_palmer_streamed(iter([v]), 40, mesh=object())])
+@pytest.mark.parametrize("call", [lambda v, m: tac.ct_palmer_scan(v, mesh=m),
+                                  lambda v, m: tac.ct_palmer_streamed(iter([v]), 40, mesh=m)])
 def test_mesh_names_its_roadmap_item(rng, call):
-    with pytest.raises(NotImplementedError, match="item 15"):
-        call(torch.from_numpy(_unit(rng, 2, 40, 3)))
+    """mesh= runs (the sharded stream, ROADMAP item 15): on a one-rank gloo
+    mesh it equals the unsharded call within float64 rounding (4 and 8
+    ranks: tests/test_torch_parallel.py)."""
+    from spinrelax_tpu_torch.parallel import launch
+    from spinrelax_tpu_torch.parallel.mesh import make_mesh
+
+    v = torch.from_numpy(_unit(rng, 2, 40, 3))
+    want = call(v, None)
+    try:
+        got = call(v, make_mesh(1, device="cpu"))
+    finally:
+        launch.stop()
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-14)
 
 
 def test_reformat_and_s2_match_jax(rng):
@@ -235,9 +247,24 @@ def test_stage_switches_and_two_trajectories(system):
 
 
 def test_stage_options_not_ported_name_their_roadmap_item(system):
+    """Every option runs or refuses with its reason; mesh= (ROADMAP item
+    15) on a one-rank gloo mesh writes the same artefacts as no mesh."""
+    from spinrelax_tpu_torch.parallel import launch
+    from spinrelax_tpu_torch.parallel.mesh import make_mesh
+
     args = ([system["xtc"]], [system["ref"]], str(system["tmp"] / "no"))
-    with pytest.raises(NotImplementedError, match="item 15"):
-        tstages.stage_ct_streamed(*args, tau_memory=TAU, mesh=object(), device="cpu")
+    flat = tstages.stage_ct_streamed([system["xtc"]], [system["ref"]],
+                                     str(system["tmp"] / "flat"), tau_memory=TAU, device="cpu")
+    try:
+        sh = tstages.stage_ct_streamed([system["xtc"]], [system["ref"]],
+                                       str(system["tmp"] / "mesh"), tau_memory=TAU,
+                                       mesh=make_mesh(1, device="cpu"), device="cpu")
+    finally:
+        launch.stop()
+    assert sh["n_chunks"] == flat["n_chunks"] and set(sh["streams"]) == {"ext", "int"}
+    for suffix in ("_Ctint.dat", "_Ctext.dat", "_S2.dat", "_avgvec.dat"):
+        assert ((system["tmp"] / ("mesh" + suffix)).read_bytes()
+                == (system["tmp"] / ("flat" + suffix)).read_bytes()), suffix
     for mode in ("ired", "wired"):  # ported (item 13); 5 bonds are too few for 5 global modes
         with pytest.raises(ValueError, match="more residues"):
             tstages.stage_ct_streamed(*args, tau_memory=TAU, s2_mode=mode, device="cpu")

@@ -896,3 +896,100 @@ def test_spectral_density_and_dft_on_card_match_cpu_f64(gen):
     cpu = jw.j_from_ct_dft(t, Ct, omd)
     assert card.is_cuda
     torch.testing.assert_close(card.cpu(), cpu, rtol=0, atol=1e-12 * float(cpu.abs().max()))
+
+
+@pytest.fixture(scope="module")
+def nccl_mesh():
+    """A one-rank NCCL group and its ("rep", "res") mesh in this process
+    (parallel.launch.start_one_rank), torn down after the module."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (NCCL and the kernels have no CPU mode)")
+    from spinrelax_tpu_torch.parallel import launch
+    from spinrelax_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(1, device="cuda")
+    yield mesh
+    launch.stop()
+
+
+def test_mesh_collectives_on_one_nccl_rank(gen, nccl_mesh):
+    from spinrelax_tpu_torch.parallel import mesh as pm
+
+    assert torch.distributed.get_backend() == "nccl" and pm.dims(nccl_mesh) == (1, 1)
+    a = torch.randn((7, 3), generator=gen, device="cuda")
+    (local,), n = pm.pad_and_shard(nccl_mesh, [a])
+    assert torch.equal(pm.fetch(local, nccl_mesh, n), a)
+    assert torch.equal(pm.fetch(a > 0, nccl_mesh), a > 0)
+    b = a.clone()
+    pm.all_reduce(b, nccl_mesh, "rep")
+    assert torch.equal(b, a)
+
+
+def test_sharded_stream_on_one_nccl_rank_matches_unsharded(gen, nccl_mesh):
+    """ShardedCtStream (kernel A on the block, three all-reduces a group)
+    against the unsharded pretiled step, groups of 5, 5 and 3 chunks (the
+    last padded to the first's size with zero weights)."""
+    from spinrelax_tpu_torch.parallel.streamed import ShardedCtStream
+
+    F, N = 200, 70
+    groups = [_unit((g, F, N), gen) for g in (5, 5, 3)]
+    stream = ShardedCtStream(nccl_mesh, F, N, dtype=torch.float32)
+    before = cuda_acf.acf_lag_sums.launches
+    for grp in groups:
+        stream.update(grp)
+    assert cuda_acf.acf_lag_sums.launches - before == 3
+    acc = (torch.zeros((F // 2, N), device="cuda"),) * 2
+    for grp in groups:
+        acc = tac.palmer_group_update_pretiled(tac.tile_palmer_group(grp), *acc,
+                                               grp.shape[0], N)
+    got = stream.accumulators()
+    assert stream.n_chunks == 13
+    for a, b in zip(got[:2], acc):
+        assert float((a - b).abs().max() / b.abs().max()) <= 1e-6
+    Ct, dCt = stream.finalize()
+    want = tac.palmer_pooled_stats(*acc, 13)
+    torch.testing.assert_close(Ct, want[0], rtol=0, atol=2e-6)
+
+
+def test_sharded_forward_on_one_nccl_rank_matches_unsharded(gen, nccl_mesh):
+    from spinrelax_tpu_torch.parallel.pipeline import make_sharded_forward
+
+    vecs = torch.from_numpy(correlated_walk(8, 200, 64, seed=3)).cuda()
+    want = make_forward(tau_iso=4242.0)(vecs)
+    before = [c.launches for c in (cuda_acf.acf_lag_sums, cuda_lm.hgc_cuda, cuda_lm.cost_cuda)]
+    got = make_sharded_forward(nccl_mesh, tau_iso=4242.0)(vecs)
+    n = [c.launches - b for c, b in zip(
+        (cuda_acf.acf_lag_sums, cuda_lm.hgc_cuda, cuda_lm.cost_cuda), before)]
+    assert n[0] == 1 and n[1] > 0 and n[1] == n[2]
+    assert float((got.Ct - want.Ct).abs().max()) <= 2e-6
+    for k in ("R1", "R2", "NOE", "rho"):
+        a, b = getattr(got, k).double(), getattr(want, k).double()
+        assert bool(torch.isfinite(a).all())
+        assert float(((a - b).abs() / b.abs()).median()) < 1e-4, k
+
+
+def test_sharded_finish_on_one_nccl_rank_matches_unsharded(gen, nccl_mesh):
+    """run_sharded_finish (the ladder's LMs on the rank's residues: kernels
+    B and C) against run_finish on the same accumulators: the same rungs
+    and rates."""
+    from spinrelax_tpu_torch.entry import paf_ensemble
+    from spinrelax_tpu_torch.models.diffusion import Diffusion
+    from spinrelax_tpu_torch.parallel.streamed import (
+        ShardedCtStream, run_finish, run_sharded_finish)
+
+    F, N = 200, 48
+    stream = ShardedCtStream(nccl_mesh, F, N, dtype=torch.float32)
+    walk = torch.from_numpy(correlated_walk(6, F, N, seed=4)).cuda()
+    stream.update(walk[:4])
+    stream.update(walk[4:])
+    v, w = paf_ensemble(N, 16, seed=2)
+    kw = dict(n_res=N, delta_t=1.0, diffusion=Diffusion.axisymmetric(tau=4242.0, aniso=1.3),
+              vecs=v, weights=w, csa=-1.7e-4)
+    acc_s, acc_s2, count = stream.accumulators()
+    before = cuda_lm.hgc_cuda.launches
+    got = run_sharded_finish(nccl_mesh, acc_s, acc_s2, count, **kw)
+    assert cuda_lm.hgc_cuda.launches > before
+    want = run_finish(acc_s, acc_s2, count, **kw)
+    torch.testing.assert_close(got.cts.mask, want.cts.mask, rtol=0, atol=0)
+    for f in ("R1", "R2", "NOE", "rho", "dR1", "dR2", "dNOE", "drho"):
+        torch.testing.assert_close(getattr(got, f), getattr(want, f), rtol=1e-5, atol=0, msg=f)

@@ -22,7 +22,9 @@ MODULES = [
     "spinrelax_tpu_torch.core.stats", "spinrelax_tpu_torch.models.ctmodel",
     "spinrelax_tpu_torch.models.diffusion", "spinrelax_tpu_torch.ops.observables",
     "spinrelax_tpu_torch.fit.walk", "spinrelax_tpu_torch.fit.expfit",
-    "spinrelax_tpu_torch.parallel.streamed",
+    "spinrelax_tpu_torch.parallel.streamed", "spinrelax_tpu_torch.parallel.launch",
+    "spinrelax_tpu_torch.parallel.mesh", "spinrelax_tpu_torch.parallel.ingest",
+    "spinrelax_tpu_torch.parallel.fit", "spinrelax_tpu_torch.parallel.dryrun",
     "spinrelax_tpu_torch.core.quaternion", "spinrelax_tpu_torch.core.geometry",
     "spinrelax_tpu_torch.ops.orient", "spinrelax_tpu_torch.io.native",
     "spinrelax_tpu_torch.io.zopen", "spinrelax_tpu_torch.io.pdb",

@@ -308,7 +308,8 @@ def _old_engine(dt, decay, sigma, K: int, s2_free: bool,
                         max_iter: int = 60, init=None):
     """spinrelax_tpu_torch.fit.engine.fit_multiexp_engine as it was before its
     loop became a step function: a literal copy, the reference of
-    test_step_function_equals_old_loop."""
+    test_step_function_equals_old_loop (its chain rule takes the engine's
+    box map, fit.lm._sigmoid)."""
     dev, f = decay.device, decay.dtype
     dt = torch.as_tensor(dt, dtype=f, device=dev).contiguous()
     sigma = torch.as_tensor(sigma, dtype=f, device=dev)
@@ -378,7 +379,7 @@ def _old_engine(dt, decay, sigma, K: int, s2_free: bool,
 
     while bool(torch.any((it < max_iter) & ~done)):
         H_p, g_p, c_old = cuda_lm.hgc(pt_of_t(t), y_t, isg_t, dt, K, s2_free)
-        s = torch.sigmoid(t)
+        s = tlm._sigmoid(t)
         D = span * s * (1.0 - s)  # (BS, P) chain rule
         H = H_p * D[:, :, None] * D[:, None, :]
         g = g_p * D

@@ -274,7 +274,9 @@ def test_stage_multifield_fit_matches_jax(files, tmp_path, opt, method):
 
 
 def test_stage_multifield_devices_raise_before_reading(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 15"):
+    """devices=2 with no two-rank process group running raises, naming
+    the launcher, before any file is read or written."""
+    with pytest.raises(ValueError, match="torchrun --nproc-per-node 2"):
         tstages.stage_multifield("missing_fittedCt.dat", ["missing.dat"], str(tmp_path / "x"),
                                  TDiff.isotropic(diso=4e-5), opt_params=["Diso"], devices=2,
                                  device="cpu")

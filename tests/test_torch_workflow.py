@@ -258,16 +258,18 @@ def test_not_ported_options_raise_before_any_artefact(system, tmp_path):
     cases = [(tconfig.WorkflowConfig(
                   io=tconfig.IOParams(outpref="rotdif", traj=system["xtc"],
                                       refpdb=system["ref"], stream_groups=2, devices=2),
-                  tumbling=base.tumbling, experiments=fit), "item 15")]
+                  tumbling=base.tumbling, experiments=fit), "torchrun --nproc-per-node 2")]
+    # -devices / --devices 2 with no two-rank process group running raise
+    # before any artefact (tests/test_torch_parallel_cli.py runs the ranks)
     with _in_dir(tmp_path):
         for cfg, item in cases:
-            with pytest.raises(NotImplementedError, match=item):
+            with pytest.raises(ValueError, match=item):
                 trunall.run_workflow(cfg, device="cpu")
         # fit-ct --optimiser varpro runs (test_torch_cli.py::test_fit_ct_varpro_matches_jax)
-        for argv, item in ((["fit-ct", "-f", "x_Ctint.dat", "--devices", "2"], "item 15"),
-                           (["ct", "-s", system["ref"], "-f", system["xtc"], "-t", "400",
-                             "--split", "2", "--devices", "2"], "item 15")):
-            with pytest.raises(NotImplementedError, match=item):
+        for argv in (["fit-ct", "-f", "x_Ctint.dat", "--devices", "2"],
+                     ["ct", "-s", system["ref"], "-f", system["xtc"], "-t", "400",
+                      "--split", "2", "--devices", "2"]):
+            with pytest.raises(ValueError, match="torchrun --nproc-per-node 2"):
                 tcli.main(argv, device="cpu")
         assert os.listdir(tmp_path) == []
         if not torch.cuda.is_available():
