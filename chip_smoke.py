@@ -132,8 +132,10 @@ Builds the port's CUDA kernels from csrc/ and runs, in order:
    unsharded twin in this process: (a) ShardedCtStream over phase 4's ten
    groups (accumulators within 1e-6 of phase 4's, C(t) within 2e-6 of
    float64; kernel A's launches, the wall a group, the all-reduces' share
-   of the busy time); (b) make_sharded_forward at phase 3's shape and
-   tolerances; (c) run_sharded_finish on (a)'s accumulators against phase
+   of the busy time); (b) make_sharded_forward at phase 3's shape: every
+   output equal bit for bit to the one-card forward over the same pooled
+   sums, C(t) and the rates held to phase 3's forward at its tolerances;
+   (c) run_sharded_finish on (a)'s accumulators against phase
    6's finish (rung equal on >= 98 %, rates within 1e-5 on equal rungs)
    and the CPU in float64; (d) shard_experiment_set at phase 9b's size:
    chisq_total within 1e-10, the device and Powell fits on (Diso, Daniso)
@@ -2307,14 +2309,16 @@ def phase_sharded(torch, counters, engine, vecs, stream4, finish6, ubq):
     import numpy as np
 
     from spinrelax_tpu_torch.constants import NucleusPair, field_from_mhz
+    from spinrelax_tpu_torch.convert import forward_kwargs_from_jax
     from spinrelax_tpu_torch.fit import globalfit
     from spinrelax_tpu_torch.io import experiments, fittedct, vectors
     from spinrelax_tpu_torch.models.diffusion import Diffusion
-    from spinrelax_tpu_torch.ops import observables
+    from spinrelax_tpu_torch.ops import autocorr as tac, observables
     from spinrelax_tpu_torch.parallel import launch
     from spinrelax_tpu_torch.parallel.fit import shard_experiment_set
     from spinrelax_tpu_torch.parallel.mesh import dims, make_mesh
-    from spinrelax_tpu_torch.parallel.pipeline import make_forward, make_sharded_forward
+    from spinrelax_tpu_torch.parallel.pipeline import (
+        fit_to_rates, make_forward, make_sharded_forward)
     from spinrelax_tpu_torch.parallel.streamed import (
         ShardedCtStream, run_finish, run_sharded_finish)
     from spinrelax_tpu_torch.pipeline import cli
@@ -2369,7 +2373,15 @@ def phase_sharded(torch, counters, engine, vecs, stream4, finish6, ubq):
     check(err <= 2e-6, f"11a: C(t) max abs err {err:.3e} <= 2e-6 against float64")
     grp = group(0)
     scratch = ShardedCtStream(mesh, N_FRAMES, N_RES, dtype=torch.float32)
-    busy, per = device_profile(torch, lambda: scratch.update(grp), lambda per: saw(per, A=1))
+    tick = torch.zeros((), device="cuda")
+
+    def update():
+        # a one-element kernel first: with kernel A the first device event
+        # of the profile, the profiler lost it in each of three tries
+        tick.add_(1.0)
+        scratch.update(grp)
+
+    busy, per = device_profile(torch, update, lambda per: saw(per, A=1))
     del grp, scratch
     a_prof = kernel_times(per).get("A", (0, 0.0))
     check(a_prof[0] == 1, f"11a: the profiler saw kernel A {a_prof[0]} times in one update")
@@ -2407,11 +2419,27 @@ def phase_sharded(torch, counters, engine, vecs, stream4, finish6, ubq):
     busy, _ = device_profile(torch, lambda: sfwd(vecs))
     err = float((got.Ct.double() - ref.Ct.double()).abs().max())
     check(err <= 2e-6, f"11b: Ct max abs vs the unsharded forward {err:.3e} <= 2e-6")
+    # At one rank the sharding is the identity: every output, on every
+    # residue, equals bit for bit the one-card forward that pools the same
+    # shifted sums (ops.autocorr.stream_accumulate, the streamed stage's).
+    acc = tac.stream_accumulate([vecs], vecs.shape[1])
+    one = fit_to_rates(*tac.palmer_pooled_stats(acc[0], acc[1], float(acc[2])),
+                       **forward_kwargs_from_jax(**kw))
+    for k in one._fields:
+        check(torch.equal(getattr(got, k), getattr(one, k)),
+              f"11b: {k} equal bit for bit to the one-card forward over pooled sums")
+    # Phase 3's forward takes the chunks' mean and std instead, which round
+    # apart (C(t) by up to 2.2e-7): a float32 fit that rounding moves to
+    # another point of a flat valley moves its rates (on an H100, 11-16 %
+    # of residues by more than 1e-4), so the rates are held to it at phase
+    # 3's tolerance, the median.
     for k in ("R1", "R2", "NOE", "rho"):
         a, b = getattr(got, k).double(), getattr(ref, k).double()
         check(bool(torch.isfinite(a).all()), f"11b: {k} finite")
-        med = float(rel_gap(a, b).median())
-        check(med < 1e-4, f"11b: {k} median relative gap {med:.3e} < 1e-4")
+        gap = rel_gap(a, b)
+        check(float(gap.median()) < 1e-4,
+              f"11b: {k} median relative gap to phase 3's forward {float(gap.median()):.3e} "
+              f"< 1e-4 (max {float(gap.max()):.3e})")
     wall = sorted(w_shard)[1]
     sub_line("11b make_sharded_forward (32 x 1000 x 1024, K 2)", wall, launches, busy,
              f"; unsharded twin {sorted(w_plain)[1]:.4f} s (medians of 3, in turns)")

@@ -189,17 +189,6 @@ def palmer_group_update_pretiled(vt: torch.Tensor, acc_s: torch.Tensor,
     Returns the updated accumulators (new tensors); finalise with
     :func:`palmer_pooled_stats` on the total chunk count.
     """
-    s, s2 = palmer_group_sums_pretiled(vt, n_group, n_res)
-    return acc_s + s, acc_s2 + s2
-
-
-def palmer_group_sums_pretiled(vt: torch.Tensor, n_group: int, n_res: int,
-                               weights=None):
-    """The group's own shifted sums (sum_chunks w e, sum_chunks w e**2),
-    each (nDeltas, n_res), of tile-layout input (kernel A on the card):
-    what :func:`palmer_group_update_pretiled` adds to the accumulators.
-    ``weights`` : optional (n_group,) chunk weights (0.0 for padded
-    chunks)."""
     n_tiles, _, n_frames, _ = vt.shape
     n_deltas = n_frames // 2
     b = n_group * n_res
@@ -214,6 +203,21 @@ def palmer_group_sums_pretiled(vt: torch.Tensor, n_group: int, n_res: int,
     # palmer_pooled_stats convention: accumulate e = per - 1 and e**2.
     e = -1.5 + 1.5 * s / _n_vals(n_frames, n_deltas, vt)[:, None]
     e = e.reshape(n_deltas, n_group, n_res)
+    return acc_s + e.sum(dim=1), acc_s2 + (e**2).sum(dim=1)
+
+
+def palmer_group_sums(group: torch.Tensor, weights=None):
+    """A group's own shifted sums (sum_chunks w e, sum_chunks w e**2), each
+    (nDeltas, nRes): kernel A on the card, on the (g, nFrames, nRes, 3)
+    group as it lies (any strides), then the per-chunk statistics.
+    ``weights`` : optional (g,) chunk weights (0.0 for the zero-padded
+    chunks of a partial group)."""
+    g, n_frames, n_res, _ = group.shape
+    n_deltas = n_frames // 2
+    s = acf_sums(group.transpose(1, 2), n_deltas, lag_major=True)  # (nDeltas, g * nRes)
+    # palmer_pooled_stats convention: accumulate e = per - 1 and e**2.
+    e = -1.5 + 1.5 * s / _n_vals(n_frames, n_deltas, group)[:, None]
+    e = e.reshape(n_deltas, g, n_res)
     if weights is None:
         return e.sum(dim=1), (e**2).sum(dim=1)
     w = weights[None, :, None]
@@ -222,23 +226,11 @@ def palmer_group_sums_pretiled(vt: torch.Tensor, n_group: int, n_res: int,
 
 def stream_update(group: torch.Tensor, acc_s: torch.Tensor, acc_s2: torch.Tensor,
                   weights=None):
-    """One streamed group step: lag sums (kernel A on the card) + per-chunk
-    statistics + accumulator update.
-
-    group : (g, nFrames, nRes, 3) Palmer chunks; acc_s, acc_s2 : the
-    lag-leading (nDeltas, nRes) shifted accumulators; weights : optional
-    (g,) chunk weights (0.0 for the zero-padded chunks of a partial group).
+    """One streamed group step: :func:`palmer_group_sums` (kernel A on the
+    card) added to the lag-leading (nDeltas, nRes) shifted accumulators.
     Returns the updated accumulators (new tensors)."""
-    g, n_frames, n_res, _ = group.shape
-    n_deltas = n_frames // 2
-    s = acf_sums(group.transpose(1, 2), n_deltas, lag_major=True)  # (nDeltas, g * nRes)
-    # palmer_pooled_stats convention: accumulate e = per - 1 and e**2.
-    e = -1.5 + 1.5 * s / _n_vals(n_frames, n_deltas, group)[:, None]
-    e = e.reshape(n_deltas, g, n_res)
-    if weights is None:
-        return acc_s + e.sum(dim=1), acc_s2 + (e**2).sum(dim=1)
-    w = weights[None, :, None]
-    return acc_s + torch.sum(w * e, dim=1), acc_s2 + torch.sum(w * e**2, dim=1)
+    s, s2 = palmer_group_sums(group, weights)
+    return acc_s + s, acc_s2 + s2
 
 
 def stream_accumulate(chunk_iter, n_frames_per_chunk: int):

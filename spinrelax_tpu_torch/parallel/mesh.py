@@ -168,6 +168,8 @@ def all_gather(local: torch.Tensor, grp=None, dim: int = 0) -> torch.Tensor:
     if flag:
         x = x.to(torch.uint8)
     out = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
+    # torch 2.13 renames all_gather_into_tensor (a FutureWarning there) to
+    # all_gather_single, which torch 2.11 does not have
     gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
     gather(out, x, group=grp)
     if flag:

@@ -5,12 +5,13 @@
   each group's chunk axis shards over "rep" and its residues over "res";
   every rank runs kernel A on its local block and one all-reduce over
   "rep" per sum (the JAX package's ``shard_map`` step, written by hand).
-- :func:`make_sharded_finish` and :func:`run_sharded_finish` put the
+- :func:`run_finish` is the finish: pooled Palmer statistics ->
+  DoF-ladder model selection -> J(omega) with vector ensembles ->
+  ensemble rates (what ``stage_fit_ct`` + ``stage_relax`` compute), on
+  one card or, with ``mesh=`` (:func:`run_sharded_finish`), with the
   residues over every rank, so each rank's LMs (kernels B and C on the
-  card) fit its slice, and gather the rates.
-- :func:`run_finish` is the single-card finish: pooled Palmer statistics
-  -> DoF-ladder model selection -> J(omega) with vector ensembles ->
-  ensemble rates (what ``stage_fit_ct`` + ``stage_relax`` compute).
+  card) fit its slice, and the rates gathered;
+  :func:`make_sharded_finish` does the same for the fixed-K forward.
 
 Accumulators are lag-leading (nDeltas, nRes), kernel A's orientation; a
 JAX ``ShardedCtStream``'s are their transpose.
@@ -42,7 +43,8 @@ class ShardedCtStream:
     size with zero WEIGHTS (and, as in the JAX package, up to the first
     group's padded size), so padding never touches the statistics; the
     residues pad once to a multiple of the "res" size with zero vectors,
-    sliced off at :meth:`finalize`.
+    sliced off at :meth:`finalize`.  A block that needs no padding (every
+    block of a one-rank mesh) goes to kernel A as it lies in the group.
     """
 
     def __init__(self, mesh, n_frames_per_chunk: int, n_res: int,
@@ -87,15 +89,17 @@ class ShardedCtStream:
         nc = max(0, min(g_loc, g - c0))
         r0, n_loc = self._r0, self._n_loc
         nr = max(0, min(r0 + n_loc, N) - r0)
-        block = torch.zeros((g_loc, F, n_loc, 3), dtype=self.dtype, device=self.device)
-        if nc and nr:
-            part = group[c0 : c0 + nc, :, r0 : r0 + nr]
-            block[:nc, :, :nr] = torch.as_tensor(part).to(self.device, self.dtype)
-        w = torch.zeros(g_loc, dtype=self.dtype, device=self.device)
-        w[:nc] = 1.0
-        vt = autocorr.tile_palmer_group(block)
-        ps, ps2 = autocorr.palmer_group_sums_pretiled(vt, g_loc, n_loc, weights=w)
-        cnt = torch.sum(w)
+        block = torch.as_tensor(group[c0 : c0 + nc, :, r0 : r0 + nr])
+        block = block.to(self.device, self.dtype)
+        w = None
+        if nc < g_loc or nr < n_loc:  # pad this rank's block
+            full = torch.zeros((g_loc, F, n_loc, 3), dtype=self.dtype, device=self.device)
+            full[:nc, :, :nr] = block
+            block = full
+            w = torch.zeros(g_loc, dtype=self.dtype, device=self.device)
+            w[:nc] = 1.0
+        ps, ps2 = autocorr.palmer_group_sums(block, w)
+        cnt = torch.full((), float(nc), dtype=self.dtype, device=self.device)
         for t in (ps, ps2, cnt):
             pm.all_reduce(t, self.mesh, "rep")
         self._acc_s = self._acc_s + ps
@@ -211,6 +215,7 @@ def run_finish(
     n_components: Optional[int] = None,
     chisq_threshold: float = 0.5,
     names=None,
+    mesh=None,
 ) -> FlagshipRates:
     """pooled Palmer stats -> ``fit_ct_ladder`` (SEM-weighted) ->
     ``predict_rates``, on the accumulators' device.
@@ -223,10 +228,21 @@ def run_finish(
     diffusion : models.diffusion.Diffusion (anisotropic kinds need vecs).
     vecs : (nRes, nSamp, 3) PAF vector ensemble (or (nRes, 3));
     weights : (nRes, nSamp) or None; csa : None, scalar or (nRes,).
+    mesh : optional ("rep", "res") mesh, for :func:`run_sharded_finish`:
+        the accumulators are this rank's "res" block
+        (:meth:`ShardedCtStream.accumulators`), gathered first; each rung's
+        LMs fit the rank's residue slice (``fit_ct_ladder(mesh=)``: the
+        selection walk runs on every rank over the gathered rung results);
+        the rates are computed on the rank's slice (``vecs``, ``weights``
+        and ``csa`` pad with row 0 as ``pad_and_shard`` does; a scalar
+        ``csa`` first takes the residue axis) and gathered.  Every rank
+        returns the whole result.
     """
     from ..fit.expfit import fit_ct_ladder
 
     pair = pair or NucleusPair(time_unit="ps")
+    if mesh is not None:
+        acc_s, acc_s2 = gather_accumulators(mesh, acc_s, acc_s2)
     mean, dct = autocorr.palmer_pooled_stats(acc_s, acc_s2, count)
     Ct = mean[:, :n_res].T.contiguous()  # (nRes, nDeltas)
     dCt = dct[:, :n_res].T.contiguous()
@@ -236,64 +252,10 @@ def run_finish(
     # NaN dCt (one-chunk streams) become weight 1 inside fit_ct_ladder.
     cts = fit_ct_ladder(names, dt, Ct, ddecays=dCt, use_s2fast=use_s2fast,
                         n_components=n_components, chisq_threshold=chisq_threshold,
-                        zeta=zeta)
-
-    rates = _predict(pair, diffusion, cts, vecs, weights, csa, Ct.device)
-    return FlagshipRates(Ct, dCt, cts, *rates)
-
-
-def _predict(pair, diffusion, cts, vecs, weights, csa, device):
-    """``predict_rates`` in float64 on ``device``."""
-    from ..ops import observables as obs
-
-    def on(a):
-        return None if a is None else torch.as_tensor(a, dtype=torch.float64, device=device)
-
-    return obs.predict_rates(pair, diffusion, cts, vecs=on(vecs), weights=on(weights),
-                             csa=on(csa))
-
-
-def run_sharded_finish(
-    mesh,
-    acc_s,
-    acc_s2,
-    count,
-    *,
-    n_res: int,
-    delta_t: float,
-    diffusion,
-    pair: Optional[NucleusPair] = None,
-    vecs=None,
-    weights=None,
-    csa=None,
-    zeta: float = 1.0,
-    use_s2fast: bool = True,
-    n_components: Optional[int] = None,
-    chisq_threshold: float = 0.5,
-    names=None,
-) -> FlagshipRates:
-    """:func:`run_finish` with residues over the mesh: the pooled
-    statistics of every rank's :meth:`ShardedCtStream.accumulators`
-    (gathered over "res"), the DoF ladder with each rung's LMs on the
-    rank's residue slice (``fit_ct_ladder(mesh=)``: kernels B and C on the
-    card; the selection walk runs on every rank over the gathered rung
-    results), then the ensemble rates on the rank's slice (``vecs``,
-    ``weights`` and ``csa`` pad with row 0 as ``pad_and_shard`` does; a
-    scalar ``csa`` first takes the residue axis), gathered.  Every rank
-    returns the whole result."""
-    from ..fit.expfit import fit_ct_ladder
-
-    pair = pair or NucleusPair(time_unit="ps")
-    acc_s, acc_s2 = gather_accumulators(mesh, acc_s, acc_s2)
-    mean, dct = autocorr.palmer_pooled_stats(acc_s, acc_s2, count)
-    Ct = mean[:, :n_res].T.contiguous()  # (nRes, nDeltas)
-    dCt = dct[:, :n_res].T.contiguous()
-    dt = (torch.arange(Ct.shape[1], dtype=torch.float64) + 1.0) * delta_t
-    if names is None:
-        names = [str(i) for i in range(n_res)]
-    cts = fit_ct_ladder(names, dt, Ct, ddecays=dCt, use_s2fast=use_s2fast,
-                        n_components=n_components, chisq_threshold=chisq_threshold,
                         zeta=zeta, mesh=mesh)
+    if mesh is None:
+        return FlagshipRates(Ct, dCt, cts,
+                             *_predict(pair, diffusion, cts, vecs, weights, csa, Ct.device))
 
     def put(a):
         if a is None:
@@ -309,6 +271,24 @@ def run_sharded_finish(
     have = [r for r in rates if r is not None]
     full = iter(_unpack(pm.fetch(_pack(have), mesh, n_res), have))
     return FlagshipRates(Ct, dCt, cts, *(None if r is None else next(full) for r in rates))
+
+
+def _predict(pair, diffusion, cts, vecs, weights, csa, device):
+    """``predict_rates`` in float64 on ``device``."""
+    from ..ops import observables as obs
+
+    def on(a):
+        return None if a is None else torch.as_tensor(a, dtype=torch.float64, device=device)
+
+    return obs.predict_rates(pair, diffusion, cts, vecs=on(vecs), weights=on(weights),
+                             csa=on(csa))
+
+
+def run_sharded_finish(mesh, acc_s, acc_s2, count, **kwargs) -> FlagshipRates:
+    """:func:`run_finish` with residues over the mesh (its ``mesh=``):
+    every rank's :meth:`ShardedCtStream.accumulators` in, the whole
+    result out on every rank."""
+    return run_finish(acc_s, acc_s2, count, mesh=mesh, **kwargs)
 
 
 def run_streamed_pipeline(chunk_iter, mesh, n_frames_per_chunk: int, n_res: int,

@@ -952,7 +952,8 @@ def test_sharded_stream_on_one_nccl_rank_matches_unsharded(gen, nccl_mesh):
 
 
 def test_sharded_forward_on_one_nccl_rank_matches_unsharded(gen, nccl_mesh):
-    from spinrelax_tpu_torch.parallel.pipeline import make_sharded_forward
+    from spinrelax_tpu_torch.convert import forward_kwargs_from_jax
+    from spinrelax_tpu_torch.parallel.pipeline import fit_to_rates, make_sharded_forward
 
     vecs = torch.from_numpy(correlated_walk(8, 200, 64, seed=3)).cuda()
     want = make_forward(tau_iso=4242.0)(vecs)
@@ -962,6 +963,15 @@ def test_sharded_forward_on_one_nccl_rank_matches_unsharded(gen, nccl_mesh):
         (cuda_acf.acf_lag_sums, cuda_lm.hgc_cuda, cuda_lm.cost_cuda), before)]
     assert n[0] == 1 and n[1] > 0 and n[1] == n[2]
     assert float((got.Ct - want.Ct).abs().max()) <= 2e-6
+    # at one rank the sharding is the identity: bit for bit the one-card
+    # forward over the same pooled shifted sums
+    acc = tac.stream_accumulate([vecs], vecs.shape[1])
+    one = fit_to_rates(*tac.palmer_pooled_stats(acc[0], acc[1], float(acc[2])),
+                       **forward_kwargs_from_jax(tau_iso=4242.0))
+    for k in one._fields:
+        assert torch.equal(getattr(got, k), getattr(one, k)), k
+    # make_forward's C(t) (the chunks' mean and std) rounds apart, and a
+    # float32 fit in a flat valley moves with it: the median, as phase 3
     for k in ("R1", "R2", "NOE", "rho"):
         a, b = getattr(got, k).double(), getattr(want, k).double()
         assert bool(torch.isfinite(a).all())

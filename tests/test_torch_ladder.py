@@ -84,7 +84,7 @@ def _np(cts, f):
 
 def _assert_ladders_agree(j, t, dt, skip=()):
     """Selection equal; chisq to rtol 1e-6 on every row (but the rows in
-    ``skip``, each proven decided by JAX's batch); S2, C, tau to
+    ``skip``: JAX_BATCH_ROWS, held to JAX otherwise); S2, C, tau to
     rtol 1e-6 and dS2, dC, dtau to 1e-5 on the rows whose parameters the
     data determine.  The engine and the JAX XLA LM agree to 1e-8 in
     float64 on well-posed fits (tests/test_torch_lm.py), but a row whose selected fit fails the reference's
@@ -137,22 +137,18 @@ def test_ladder_matches_jax(ladders, kw):
     """entry.hetero_cohort, tests/test_walk.py's _hetero cohort (B = 96,
     T = 400), across its flag surface, plus n_components = 5 (K = 5: past
     the K <= 4 the card kernels took before): the port selects the JAX
-    rung on every row whose rung the data decide.
+    rung on every row but the one named in JAX_BATCH_ROWS.
 
     The cohort's seed is pinned (0), not the suite's: at the suite's seed
     one row (23, use_s2fast=False) is decided by JAX's batch size, not by
-    the data (test_suite_seed_row_23_gate_depends_on_jax_batch).  Since
-    the engine's lanes stopped depending on their batch, seed 0 has one
-    such row too (11, use_s2fast=False, also a component faster than the
-    first lag).  A row where the packages differ is held to that proof
-    (_assert_decided_by_jax_batch), at most one row a flag set; every
-    other row is held equal."""
+    the data (test_suite_seed_row_23_gate_depends_on_jax_batch)."""
     j, t, dt = ladders("hetero", **kw)
     differ = np.nonzero((_np(t, "mask") != _np(j, "mask")).any(1)
                         | (_np(t, "s2fast") != _np(j, "s2fast")))[0]
-    assert len(differ) <= 1, differ
-    for r in differ:
-        _assert_decided_by_jax_batch(kw, int(r), t)
+    known = JAX_BATCH_ROWS.get(tuple(sorted(kw.items())))
+    assert differ.tolist() == ([] if known is None else [known["row"]]), differ
+    if known is not None:
+        _assert_row_held_to_jax_alone(kw, known, t, dt)
     rows = _assert_ladders_agree(j, t, dt, skip=differ)
     if "n_components" not in kw:  # a forced K overfits most of this cohort
         assert rows.mean() > 0.5
@@ -186,28 +182,59 @@ def test_chisq_outlier_refit_matches_jax(ladders):
     _assert_ladders_agree(j, t, dt)
 
 
-def _gate(f, i):
-    return bool(np.asarray(f.ok_fit[i] & f.ok_err[i] & f.ok_sum[i]))
+def _gates(f, i):
+    return tuple(bool(np.asarray(g[i])) for g in (f.ok_fit, f.ok_err, f.ok_sum))
 
 
-def _assert_decided_by_jax_batch(kw, r, t):
-    """Row r of the port's ladder ``t`` (the hetero cohort at seed 0,
-    options ``kw``) is decided by JAX's batch: at the rung the port took,
-    JAX's multi-start fit of the row passes its quality gates alone and
-    not in the cohort's batch (or the other way round), while the port's
-    passes them alone and in the batch alike (what selected the rung)."""
-    dt, y, dy = hetero_cohort(B, T)
+# The one row of test_ladder_matches_jax's seed-0 cohort whose rung JAX's
+# batch decides, not its data, with the (ok_fit, ok_err, ok_sum) gates of
+# JAX's 8-start fit of the row at the port's rung, alone and among the
+# cohort's 96 lanes.  Alone the fit passes; in the batch its fastest tau
+# stops at 1.3e-2 instead of 1.7e-7 and its error estimate fails ok_err,
+# so JAX's ladder stays at K = 2.  The port's lanes do not depend on their
+# batch (fit.engine's box map, fit.lm._sigmoid), so it takes K = 3, as
+# JAX's fit of the row alone would.
+JAX_BATCH_ROWS = {
+    (("use_s2fast", False), ("weighted", True)): dict(
+        row=11, K=3, s2_free=False, jax_alone=(True, True, True),
+        jax_batch=(True, False, True)),
+}
+
+
+def _assert_row_held_to_jax_alone(kw, known, t, dt):
+    """The JAX_BATCH_ROWS row of the port's ladder ``t``: at the rung
+    named there, JAX's multi-start fit of the row reads the recorded gates
+    alone and in the cohort, the port's passes them both ways, and the
+    port's selected fit is held to JAX's fit of the row alone as every
+    other row is held to JAX's ladder (chisq rtol 1e-6, curve atol 1e-6,
+    parameters where the data determine them)."""
+    r, K, s2f = known["row"], known["K"], known["s2_free"]
+    assert (int(_np(t, "mask")[r].sum()), bool(_np(t, "s2fast")[r])) == (K, s2f)
+    _, y, dy = hetero_cohort(B, T)
     sig = dy if kw.get("weighted") else np.ones_like(y)
-    K, s2f = int(_np(t, "mask")[r].sum()), bool(_np(t, "s2fast")[r])
     ns = kw.get("retry_starts", 8)
     alone = jlm.fit_multiexp(dt, y[r:r + 1], sig[r:r + 1], K=K, s2_free=s2f, n_starts=ns)
     batch = jlm.fit_multiexp(dt, y, sig, K=K, s2_free=s2f, n_starts=ns)
-    assert _gate(alone, 0) != _gate(batch, r), (r, K, s2f)
+    assert (_gates(alone, 0), _gates(batch, r)) == (known["jax_alone"], known["jax_batch"])
     tt = [torch.from_numpy(a) for a in (dt, y, sig)]
     p_alone = tlm.fit_multiexp(tt[0], tt[1][r:r + 1], tt[2][r:r + 1], K=K, s2_free=s2f,
                                n_starts=ns)
     p_batch = tlm.fit_multiexp(*tt, K=K, s2_free=s2f, n_starts=ns)
-    assert _gate(p_alone, 0) and _gate(p_batch, r), (r, K, s2f)
+    assert all(_gates(p_alone, 0)) and all(_gates(p_batch, r))
+
+    S2, C, tau = (np.asarray(getattr(alone, f))[:1] for f in ("S2", "C", "tau"))
+    real = np.ones_like(C, bool)
+    np.testing.assert_allclose(float(_np(t, "chisq")[r]), float(alone.chisq[0]), rtol=1e-6)
+    curve = S2[0] + (C[0][:, None] * np.exp(-dt / tau[0][:, None])).sum(0)
+    np.testing.assert_allclose(t.eval(dt).numpy()[r], curve, rtol=0, atol=1e-6)
+    dC, dtau, dS2 = (np.asarray(getattr(alone, f))[:1] for f in ("dC", "dtau", "dS2"))
+    if _determined(C, tau, S2, dC, dtau, dS2, real, dt)[0]:
+        for f, want in (("S2", S2[0]), ("C", C[0]), ("tau", tau[0])):
+            np.testing.assert_allclose(np.atleast_1d(_np(t, f)[r])[:K], want, rtol=1e-6,
+                                       err_msg=f)
+        for f, want in (("dS2", dS2[0]), ("dC", dC[0]), ("dtau", dtau[0])):
+            np.testing.assert_allclose(np.atleast_1d(_np(t, f)[r])[:K], want, rtol=1e-5,
+                                       err_msg=f)
 
 
 def test_suite_seed_row_23_gate_depends_on_jax_batch():
