@@ -18,13 +18,21 @@ Builds the port's CUDA kernels from csrc/ and runs, in order:
    tests/test_engine.py's tolerances; C's cost equal to B's bit for bit,
    and a second launch equal to the first; their times at the forward's
    shape and at a ladder rung (B = 10 000, T = 500, K = 4, S2 free);
+   then kernels D and E (the LM step around B and C: lm_step_solve,
+   lm_step_gate) against their plain versions from the same state at
+   those shapes, at K 1 and 3 with S2 fixed, and at K 5, 8 and 16 (D's
+   runtime-P variant): D's t_new, trial parameters and norms within
+   STEP_TOL of the plain version on >= 99.9 % of lanes, its error against
+   a float64 solve at most twice the plain float32 version's; E equal to
+   its plain version bit for bit; relaunches bit for bit; their times
+   against their bounds;
 3. the full-width forward step (32 Palmer chunks x 1000 frames x 1024
    N-H bonds, float32) on the card, counting kernel launches, held to the
    same forward on the CPU in float64 (C(t), rates, flags, median
    chi-square) and float32 (the fit's chi-square per lane, with
    tests/test_engine.py's criteria); one forward under torch.profiler for
-   the device-busy time and kernels A's, B's and C's launches and time
-   per launch;
+   the device-busy time and kernels A's to E's launches and time per
+   launch;
 4. ten streamed pretiled group steps plus the pooled finish, held to a
    float64 plain route on the card (each residue's bond wobbles around
    its own axis: the forward's correlated walk, rolled over residues
@@ -123,7 +131,7 @@ Builds the port's CUDA kernels from csrc/ and runs, in order:
    cli.main on the centred .xtc: orient, dq, ct (--Ct --S2 --vecHist),
    ct --S2mode ired, ct --split 2 --S2mode wired, fit-ct, fit-ct
    --optimiser varpro, relax at
-   600.133 and 850.13 MHz, rho; each step's wall, kernel A/B/C launches
+   600.133 and 850.13 MHz, rho; each step's wall, kernel A..E launches
    (wrappers and profiler) and idle share, held to the same chain on the
    CPU in float64 (phase 8a's tolerances; iRED / wiRED S2 1e-4).
 
@@ -142,7 +150,7 @@ Builds the port's CUDA kernels from csrc/ and runs, in order:
    within 1e-6 / 1e-4 of the unsharded card fits; (e) ct --split 2,
    fit-ct, multifield --opt Diso --method device and run-all -stream 2 on
    phase 7a's file through cli.main with and without --devices 1: the
-   same files, byte for byte.  Each prints its wall, A/B/C launches and
+   same files, byte for byte.  Each prints its wall, A..E launches and
    idle share.  ``chip_smoke.py 11`` runs phase 11 alone (after phases 4
    and 6, whose data it takes).
 
@@ -174,6 +182,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import json
+import math
 import re
 import subprocess
 import sys
@@ -435,6 +444,150 @@ def phase_lm(torch, cuda_lm, gen):
     return worst_b, worst_c, times
 
 
+# Kernel D against its plain version: t_new, the trial parameters and the
+# three norms within rtol / atol on >= share of lanes (NaN matching NaN).
+STEP_TOL = dict(rtol=1e-4, atol=1e-5, share=0.999)
+
+
+def step_bound(P: int, B: int, gate: bool):
+    """bound_ms of kernel D (gate False) or E at P parameters and B lanes.
+    Bytes: each input read once (D: H_p whole, g_p, t, lam, lo, span; E:
+    the two costs, t_new, the trial parameters, the three norms and the
+    state t, lam, it, c_best, c_mark, done, pt), each output written once
+    (D: t_new, the trial parameters, the norms; E: the state and pt).
+    Operations (an exp, multiply, add, division or square root 1): D's
+    sigmoids, chain rule, damped matrix, Cholesky and substitutions as
+    csrc/lm_step.cu does them; E's 11 a lane."""
+    if gate:
+        n_bytes = B * (4 * (2 + 2 * P + 3 + 4 + 2 * P) + 1 + 4 * (4 + 2 * P) + 1) + 1
+        return bound_ms(n_bytes, 11 * B)
+    tri = P * (P + 1) // 2
+    flops = 8 * P + 2 * tri + 8 * P + (tri - P) + P  # sigmoids, D, ||t||; A; g
+    flops += sum(2 * j + 2 + (P - 1 - j) * (2 * j + 1) for j in range(P))  # Cholesky
+    flops += 2 * sum(2 * i + 1 for i in range(P))  # the two substitutions
+    flops += 9 * P + 2  # step, t_new, trial parameters, norms
+    n_bytes = 4 * B * (P * P + 2 * P + 1) + 8 * P + 4 * B * (2 * P + 3) + 1
+    return bound_ms(n_bytes, flops * B)
+
+
+def step_state(torch, cuda_lm, gen, K, s2f, B, T):
+    """Kernels D and E's inputs on the card around kernel B's outputs at
+    lm_operands' parameters: (solve arguments, gate inputs, state, pt,
+    gates).  lam log-uniform in [1e-6, 1] for D; for E lam from 1e-13 to
+    1e7 (lam0 on a fifth of the lanes), every phase of the stall window,
+    c_best / c_mark at and around c_old, a fifth of the lanes done."""
+    from spinrelax_tpu_torch.fit import engine
+    from spinrelax_tpu_torch.fit.lm import _to_constrained, _to_unconstrained
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device="cuda")
+
+    def pick(choices, n):
+        c = torch.tensor(choices, device="cuda")
+        return c[torch.randint(len(choices), (n,), generator=gen, device="cuda")]
+
+    p, y, isg, dt = lm_operands(torch, gen, K, s2f, B, T)
+    lo, hi = engine._bounds(K, s2f, dt[-1] * 10.0, torch.float32, "cuda")
+    t = _to_unconstrained(p.T, lo, hi).contiguous()
+    pt = _to_constrained(t, lo, hi).T.contiguous()
+    H_p, g_p, c_old = cuda_lm.hgc_cuda(pt, y, isg, dt, K, s2f)
+    solve = (H_p, g_p, t, 10.0 ** (rand(B) * 6.0 - 6.0), lo, hi - lo)
+    live = torch.ones((), dtype=torch.bool, device="cuda")
+    t_new, pt_trial, stats = cuda_lm.step_solve_cuda(*solve, live)
+    c_new = cuda_lm.cost_cuda(pt_trial, y, isg, dt, K, s2f)
+    lam = 10.0 ** (rand(B) * 20.0 - 13.0)
+    lam = torch.where(rand(B) < 0.2, 1e-3, lam)
+    c_best = c_old * pick([1.0, 1.0 + 1e-4, float("inf")], B)
+    c_mark = c_best * pick([1.0, 1.0 + 3e-7, 1.1, float("inf")], B)
+    state = (t.clone(), lam, (rand(B) * 60).int(), c_best, c_mark, rand(B) < 0.2, live)
+    eps = torch.finfo(torch.float32).eps
+    gates = cuda_lm.Gates(max_iter=60, window=8, xtol=1e-10, ftol=10.0 * eps,
+                          xtol_rel=math.sqrt(eps), lam0=1e-3, lam_stuck=1e6)
+    return solve, (c_new, c_old, t_new, pt_trial, stats), state, pt.clone(), gates
+
+
+def phase_step(torch, cuda_lm, times):
+    """Phase 2's second half: kernels D and E against their plain versions
+    from the same state, and their times in ``times``.  Its own generator,
+    so the later phases' random inputs do not depend on this phase."""
+    print("phase 2 (D, E): kernels D/E (lm_step_solve, lm_step_gate) vs "
+          "step_solve_plain/step_gate_plain on the same state", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(20261017)
+    worst_d = 0.0
+    cases = [(2, True, 1024, 500), (1, False, 1024, 500), (4, True, 10_000, 500),
+             (3, False, 10_000, 500), (5, True, 10_000, 500), (8, True, 10_000, 500),
+             (16, True, 1025, 499)]
+    for K, s2f, B, T in cases:
+        tag = f"K={K} s2_free={s2f} B={B}"
+        solve, ins, state, pt, gates = step_state(torch, cuda_lm, gen, K, s2f, B, T)
+        live = torch.ones((), dtype=torch.bool, device="cuda")
+        got = cuda_lm.step_solve_cuda(*solve, live)
+        again = cuda_lm.step_solve_cuda(*solve, live)
+        plain = cuda_lm.step_solve_plain(*solve, torch.ones_like(live))
+        ref = cuda_lm.step_solve_plain(*(a.double() for a in solve), torch.ones_like(live))
+        shares = []
+        for name, a, b in zip(("t_new", "pt_trial", "stats"), got, plain):
+            a, b = a.double(), b.double()
+            near = ((a - b).abs() <= STEP_TOL["atol"] + STEP_TOL["rtol"] * b.abs()) | (
+                a.isnan() & b.isnan())
+            shares.append(float(near.all(dim=1 if name == "t_new" else 0).double().mean()))
+        fin = (torch.isfinite(got[0]).all(1) & torch.isfinite(plain[0]).all(1)
+               & torch.isfinite(ref[0]).all(1))
+        err_k = float((got[0].double() - ref[0]).abs().amax(1)[fin].mean())
+        err_p = float((plain[0].double() - ref[0]).abs().amax(1)[fin].mean())
+        diff = (got[0].double() - plain[0].double()).abs()[fin]
+        worst_d = max(worst_d, float(diff.max()))
+        same = float((got[0] == plain[0]).all(1).double().mean())
+        check(min(shares) >= STEP_TOL["share"] and not bool(live),
+              f"D {tag}: t_new / trial parameters / norms within rtol {STEP_TOL['rtol']} atol "
+              f"{STEP_TOL['atol']} of plain on {shares[0]:.5f} / {shares[1]:.5f} / "
+              f"{shares[2]:.5f} of lanes (>= {STEP_TOL['share']}); t_new bit for bit on "
+              f"{same:.4f}; live cleared")
+        check(err_k <= 2 * err_p + 1e-12 and float(fin.double().mean()) >= 0.99,
+              f"D {tag}: mean |t_new - f64 solve| {err_k:.3e} <= 2 x plain f32's {err_p:.3e} "
+              f"({float(fin.double().mean()):.4f} of lanes finite in all three)")
+        check(all(map(torch.equal, got, again)), f"D {tag}: relaunch bitwise equal")
+        outs = []
+        for gate in (cuda_lm.step_gate_cuda, cuda_lm.step_gate_cuda, cuda_lm.step_gate_plain):
+            st, p = tuple(x.clone() for x in state), pt.clone()
+            st[-1].zero_()  # kernel D's part
+            gate(*ins, st, p, gates)
+            outs.append(st + (p,))
+        check(all(same_bits(torch, a, b) for a, b in zip(outs[0], outs[2]))
+              and all(same_bits(torch, a, b) for a, b in zip(outs[0], outs[1])),
+              f"E {tag}: state, next parameters and live equal the plain version's bit for "
+              f"bit; relaunch bitwise equal")
+
+    for key, (K, s2f, B, T), reps in (("fwd", (2, True, 1024, 500), 50),
+                                      ("rung", (4, True, 10_000, 500), 20),
+                                      ("k5", (5, True, 10_000, 500), 10),
+                                      ("k8", (8, True, 10_000, 500), 10)):
+        solve, ins, state, pt, gates = step_state(torch, cuda_lm, gen, K, s2f, B, T)
+        live = torch.ones((), dtype=torch.bool, device="cuda")
+        # E on a state it never freezes (every lane improves, copies its row
+        # and column, and stays live): the same work every launch.
+        c_new, c_old, t_new, pt_trial, stats = ins
+        ins = (0.5 * c_old, c_old, t_new, pt_trial, torch.ones_like(stats))
+        st = (state[0], torch.zeros_like(state[1]), state[2], state[3],
+              torch.full_like(state[4], float("inf")), torch.zeros_like(state[5]), live)
+        gates = gates._replace(max_iter=2**31 - 1)
+        t = times[key]
+        t["D"], t["D_plain"] = paired_ms(
+            torch, lambda: cuda_lm.step_solve_cuda(*solve, live),
+            lambda: cuda_lm.step_solve_plain(*solve, live), reps=reps, timer=graph_ms)
+        t["E"], t["E_plain"] = paired_ms(
+            torch, lambda: cuda_lm.step_gate_cuda(*ins, st, pt, gates),
+            lambda: cuda_lm.step_gate_plain(*ins, st, pt, gates), reps=reps, timer=graph_ms)
+        P = cuda_lm.n_par(K, s2f)
+        t["D_bound"], t["D_by"] = step_bound(P, B, False)
+        t["E_bound"], t["E_by"] = step_bound(P, B, True)
+        for k in "DE":
+            print(f"  time {k} at {t['shape']}: kernel {t[k] * 1e3:.2f} us (plain "
+                  f"{t[k + '_plain'] * 1e3:.2f} us), bound {t[k + '_bound'] * 1e3:.3f} us "
+                  f"({t[k + '_by']}), {t[k + '_bound'] / t[k]:.1%} of bound", flush=True)
+    return worst_d
+
+
 def rel_gap(a, b):
     return (a - b).abs() / b.abs().clamp_min(1e-30)
 
@@ -485,7 +638,7 @@ def device_busy(prof):
 
 
 def saw(per, **counts) -> bool:
-    """True if device_profile's table holds kernels A / B / C exactly
+    """True if device_profile's table holds kernels A .. E exactly
     ``counts`` times, e.g. saw(per, A=2)."""
     kt = kernel_times(per)
     return all(kt.get(k, (0,))[0] == n for k, n in counts.items())
@@ -515,11 +668,17 @@ def same_bits(torch, a, b) -> bool:
 
 
 def kernel_of(name: str):
-    """'A', 'B', 'C' or None for a profiled kernel name: acf_lag_sums_kernel
+    """'A' .. 'E' or None for a profiled kernel name: acf_lag_sums_kernel
     and acf_lag_sums_slab_kernel are A; lm_kernel<K, s2_free, FULL> and
-    lm_kernel_wide<FULL> are B with FULL true, else C."""
+    lm_kernel_wide<FULL> are B with FULL true, else C;
+    lm_step_solve_kernel<P> and lm_step_solve_wide_kernel are D,
+    lm_step_gate_kernel E."""
     if "acf_lag_sums" in name:
         return "A"
+    if "lm_step_solve" in name:
+        return "D"
+    if "lm_step_gate" in name:
+        return "E"
     m = re.search(r"lm_kernel(?:_wide)?<([^>]*)>", name)
     if m is None:
         return None
@@ -527,7 +686,7 @@ def kernel_of(name: str):
 
 
 def kernel_times(per, kernel_of=kernel_of):
-    """{'A' / 'B' / 'C': (launches, us per launch)} from device_profile's
+    """{'A' .. 'E': (launches, us per launch)} from device_profile's
     table."""
     out = {}
     for name, (n, ms) in per.items():
@@ -546,7 +705,7 @@ def phase_forward(torch, tac, counters, engine, make_forward, fit_multiexp, vecs
         c.launches = 0
     gpu, secs = wall_s(torch, lambda: fwd(vecs))
     launches = [c.launches for c in counters]
-    print(f"  forward wall {secs:.3f} s (first call); launches A/B/C {launches}",
+    print(f"  forward wall {secs:.3f} s (first call); launches A/B/C/D/E {launches}",
           flush=True)
     # The graph loop (one captured LM step, replayed) against the eager
     # loop (every step issued by the host), in turns in this process: the
@@ -565,7 +724,7 @@ def phase_forward(torch, tac, counters, engine, make_forward, fit_multiexp, vecs
             fwd(vecs)
 
         busy, per = device_profile(torch, run, lambda per: saw(
-            per, **{k: c.launches for c, k in zip(counters, "ABC")}))
+            per, **{k: c.launches for c, k in zip(counters, "ABCDE")}))
         per_kernel = kernel_times(per)
         print(f"    profiled: {sum(n for n, _ in per.values())} device kernels and copies, "
               f"device busy {busy:.2f} ms, idle share {1 - busy / (secs * 1e3):.1%} of the "
@@ -577,7 +736,7 @@ def phase_forward(torch, tac, counters, engine, make_forward, fit_multiexp, vecs
     print("  graph loop:", flush=True)
     secs2 = walls_of()
     busy, per_kernel = profile_of(secs2)
-    for c, k in zip(counters, "ABC"):
+    for c, k in zip(counters, "ABCDE"):
         check(per_kernel.get(k, (0,))[0] == c.launches,
               f"profiler saw kernel {k} {per_kernel.get(k, (0,))[0]} times = the wrapper's "
               f"count {c.launches} (the steps run)")
@@ -694,6 +853,17 @@ def phase_stream(torch, tac, cuda_acf, vecs, gen):
     return med, acc, n_groups * N_REP, axis, rmean
 
 
+def step_counts(launches) -> dict:
+    """saw()'s counts of kernels B, C, D and E from the counters' list."""
+    return dict(zip("BCDE", launches[1:5]))
+
+
+def lm_steps_ok(launches) -> bool:
+    """Kernels B, C, D and E launched, equally often (one each a step of
+    fit.engine)."""
+    return launches[1] > 0 and len(set(launches[1:5])) == 1
+
+
 def rung_of(cts):
     """Selected rung of each row as (number of components, S2 free)."""
     return cts.mask.sum(1).cpu() * 2 + cts.s2fast.cpu()
@@ -722,7 +892,7 @@ def phase_ladder(torch, counters, engine, hetero_cohort, fit_ct_ladder):
     check(torch.cuda.memory_allocated() <= mem0,
           "the ladder's 10 LM calls keep no graph pool after they return")
     # One more call with its LM calls traced: rows, starts and the launches
-    # of kernels B and C each made (their counters, read around it).
+    # of kernels B to E each made (their counters, read around it).
     calls = []
     for c in counters:
         c.launches = 0
@@ -732,24 +902,23 @@ def phase_ladder(torch, counters, engine, hetero_cohort, fit_ct_ladder):
     for c in calls:
         print(f"  LM call {c['stage']} K={c['K']} S2 {'free' if c['s2_free'] else 'fixed'}, "
               f"{c['starts']} start(s): {c['rows']} rows, slowest lane {c['iterations']} "
-              f"iterations, {c['steps']} steps run, kernel B {c['launches_B']} launches, "
-              f"kernel C {c['launches_C']}", flush=True)
-    check(launches[1] > 0 and launches[2] > 0,
-          f"ladder launched kernels B/C {launches[1]}/{launches[2]} times (A {launches[0]})")
-    check(sum(c["launches_B"] for c in calls) == launches[1]
-          and sum(c["launches_C"] for c in calls) == launches[2],
-          "every launch of B and C on the ladder came from a traced LM call")
-    check(all(c["launches_B"] == c["launches_C"] == c["steps"] >= c["iterations"]
-              and c["steps"] - c["iterations"] < 8 for c in calls),
-          "each LM call launched B and C once per step, and overshot its slowest lane "
+              f"iterations, {c['steps']} steps run, kernels B/C/D/E "
+              + "/".join(str(c["launches_" + k]) for k in "BCDE") + " launches", flush=True)
+    check(lm_steps_ok(launches),
+          f"ladder launched kernels B/C/D/E {launches[1:]} times, equally (A {launches[0]})")
+    check(all(sum(c["launches_" + k] for c in calls) == n for k, n in zip("BCDE", launches[1:])),
+          "every launch of B, C, D and E on the ladder came from a traced LM call")
+    check(all(c["launches_B"] == c["launches_C"] == c["launches_D"] == c["launches_E"]
+              == c["steps"] >= c["iterations"] and c["steps"] - c["iterations"] < 8
+              for c in calls),
+          "each LM call launched B, C, D and E once per step, and overshot its slowest lane "
           "by less than a stall window")
     ok = all(bool(torch.isfinite(getattr(cts, f)).all()) for f in ("S2", "C", "tau", "chisq"))
     check(ok and bool((cts.mask.sum(1) >= 1).all()), "ladder model finite, >= 1 component a row")
-    busy, per = device_profile(torch, run,
-                               lambda per: saw(per, B=launches[1], C=launches[2]))
+    busy, per = device_profile(torch, run, lambda per: saw(per, **step_counts(launches)))
     kt = kernel_times(per)
-    check(kt["B"][0] == launches[1] and kt["C"][0] == launches[2],
-          f"profiler saw kernels B/C {kt['B'][0]}/{kt['C'][0]} times = the steps run")
+    seen = [kt.get(k, (0,))[0] for k in "BCDE"]
+    check(seen == launches[1:], f"profiler saw kernels B/C/D/E {seen} times = the steps run")
     print(f"  graph loop: ladder wall median {walls[1]:.3f} s over 3 calls (min {walls[0]:.3f}, "
           f"max {walls[2]:.3f}); profiled call: device busy {busy:.2f} ms, idle share "
           f"{1 - busy / (walls[1] * 1e3):.1%} of the median wall; "
@@ -825,27 +994,28 @@ def phase_ladder_5b(torch, counters, engine, lm, hetero_cohort, fit_ct_ladder):
         launches = [c.launches for c in counters]
         for c in calls:
             print(f"  {kind} LM call {c['stage']} K={c['K']} S2 {c['s2_free']}: {c['rows']} rows, "
-                  f"slowest lane {c['iterations']} iterations, {c['steps']} steps run, kernel B "
-                  f"{c['launches_B']} launches, kernel C {c['launches_C']}", flush=True)
+                  f"slowest lane {c['iterations']} iterations, {c['steps']} steps run, kernels "
+                  f"B/C/D/E " + "/".join(str(c["launches_" + k]) for k in "BCDE")
+                  + " launches", flush=True)
         warm = [c for c in calls if c["stage"] == "warm"]
-        bc = (sum(c["launches_B"] for c in warm), sum(c["launches_C"] for c in warm))
+        bc = [sum(c["launches_" + k] for c in warm) for k in "BCDE"]
         if kind == "varpro":
-            check(len(warm) > 0 and bc[0] == launches[1] and bc[1] == launches[2]
-                  and bc[0] == bc[1] == sum(c["steps"] for c in warm) > 0,
-                  f"varpro: kernels B/C launched {launches[1]}/{launches[2]} times, all by its "
+            check(len(warm) > 0 and bc == launches[1:] and lm_steps_ok(launches)
+                  and bc[0] == sum(c["steps"] for c in warm),
+                  f"varpro: kernels B/C/D/E launched {launches[1:]} times, all by its "
                   f"{len(warm)} warm retries (fit_multiexp_warm over fit.engine), once a step")
         else:
-            check(launches == [0, 0, 0], f"stacked: no kernel launched ({launches})")
-        check(all(c["launches_B"] == c["launches_C"] == 0 for c in calls if c["stage"] != "warm"),
-              f"{kind}: the generic LM calls launched neither B nor C")
+            check(launches == [0] * 5, f"stacked: no kernel launched ({launches})")
+        check(all(c["launches_" + k] == 0 for c in calls if c["stage"] != "warm"
+                  for k in "BCDE"),
+              f"{kind}: the generic LM calls launched none of B, C, D, E")
         ok = all(bool(torch.isfinite(getattr(cts, f)).all()) for f in ("S2", "C", "tau", "chisq"))
         check(ok and bool((cts.mask.sum(1) >= 1).all()),
               f"{kind}: model finite, >= 1 component a row")
-        busy, per = device_profile(torch, run,
-                                   lambda per: saw(per, B=launches[1], C=launches[2]))
+        busy, per = device_profile(torch, run, lambda per: saw(per, **step_counts(launches)))
         kt = kernel_times(per)
-        seen = [kt.get(k, (0,))[0] for k in "BC"]
-        check(seen == launches[1:], f"{kind}: profiler saw kernels B/C {seen} times = the "
+        seen = [kt.get(k, (0,))[0] for k in "BCDE"]
+        check(seen == launches[1:], f"{kind}: profiler saw kernels B/C/D/E {seen} times = the "
                                     f"counters' {launches[1:]}")
         with eager_loop(engine, lm):
             eager, wall_e = wall_s(torch, run)
@@ -857,8 +1027,8 @@ def phase_ladder_5b(torch, counters, engine, lm, hetero_cohort, fit_ct_ladder):
               f"{walls[2]:.3f}; eager loop {wall_e:.3f} s); {len(calls)} LM calls, {steps} steps; "
               f"profiled call: {sum(n for n, _ in per.values())} device kernels and copies, "
               f"device busy {busy:.2f} ms, idle share {1 - busy / (walls[1] * 1e3):.1%}; peak "
-              f"device memory {peak / 1e6:.1f} MB (before {mem0 / 1e6:.1f} MB); kernels B/C "
-              f"{launches[1]}/{launches[2]} launches", flush=True)
+              f"device memory {peak / 1e6:.1f} MB (before {mem0 / 1e6:.1f} MB); kernels B/C/D/E "
+              f"{launches[1:]} launches", flush=True)
         # the rung on the card against the CPU float32 ladder, and the card
         # in float64 against the CPU in float64, on the first SUBSET rows
         t0 = time.perf_counter()
@@ -937,8 +1107,8 @@ def phase_finish(torch, counters, engine, run_finish, Diffusion, paf_ensemble, a
         c.launches = 0
     out, secs = wall_s(torch, lambda: run_finish(*acc, count, **kw))
     launches = [c.launches for c in counters]
-    check(launches[1] > 0 and launches[2] > 0,
-          f"finish launched kernels B/C {launches[1]}/{launches[2]} times")
+    check(lm_steps_ok(launches),
+          f"finish launched kernels B/C/D/E {launches[1:]} times, equally")
     t0 = time.perf_counter()
     ref = run_finish(acc[0].double().cpu(), acc[1].double().cpu(), count, **kw)
     cpu_s = time.perf_counter() - t0
@@ -950,7 +1120,10 @@ def phase_finish(torch, counters, engine, run_finish, Diffusion, paf_ensemble, a
         check(med < 1e-4, f"finish {f} median relative gap to CPU float64 {med:.3e} < 1e-4")
     share = float((rung_of(out.cts) == rung_of(ref.cts)).double().mean())
     busy, per = device_profile(torch, lambda: run_finish(*acc, count, **kw),
-                               lambda per: saw(per, B=launches[1], C=launches[2]))
+                               lambda per: saw(per, **step_counts(launches)))
+    seen = [kernel_times(per).get(k, (0,))[0] for k in "BCDE"]
+    check(seen == launches[1:], f"finish: profiler saw kernels B/C/D/E {seen} times = the "
+                                f"counters' {launches[1:]}")
     secs = sorted([secs] + [wall_s(torch, lambda: run_finish(*acc, count, **kw))[1]
                             for _ in range(2)])[1]
     with eager_loop(engine):
@@ -1210,7 +1383,7 @@ def phase_stage(torch, tac, cuda_acf, counters, gen, ubq):
     (out, rates), secs = wall_s(torch, ct_entry)
     res["launches_entry"] = [c.launches for c in counters]
     check(all(n > 0 for n in res["launches_entry"]),
-          f"ct_entry launched kernels A/B/C {res['launches_entry']} times")
+          f"ct_entry launched kernels A/B/C/D/E {res['launches_entry']} times")
     _, cpu = ct_entry(device="cpu")
     for f in ("R1", "R2", "NOE", "rho"):
         a = getattr(rates, f)
@@ -1264,15 +1437,15 @@ def phase_runall(torch, counters, ubq):
         c.launches = 0
     (card_dir, card, _), wall = wall_s(torch, lambda: run("card"))
     launches = [c.launches for c in counters]
-    check(launches[0] == 2 and launches[1] == launches[2] > 0,
-          f"run-all launched kernels A/B/C {launches} times (A: the raw and the superposed "
-          f"vectors' C(t); B and C once a step of the ladder)")
+    check(launches[0] == 2 and lm_steps_ok(launches),
+          f"run-all launched kernels A/B/C/D/E {launches} times (A: the raw and the superposed "
+          f"vectors' C(t); B, C, D and E once a step of the ladder)")
     names = itertools.count()
     busy, per = device_profile(torch, lambda: run(f"profiled{next(names)}"),
-                               lambda per: saw(per, A=launches[0], B=launches[1], C=launches[2]))
+                               lambda per: saw(per, A=launches[0], **step_counts(launches)))
     kt = kernel_times(per)
-    check(all(kt.get(k, (0,))[0] == n for k, n in zip("ABC", launches)),
-          f"profiler saw kernels A/B/C {[kt.get(k, (0,))[0] for k in 'ABC']} times = the "
+    check(all(kt.get(k, (0,))[0] == n for k, n in zip("ABCDE", launches)),
+          f"profiler saw kernels A/B/C/D/E {[kt.get(k, (0,))[0] for k in 'ABCDE']} times = the "
           f"wrappers' counts")
     _, again, log = run("card")
     check(log.lower().count("skipping") == 4 + 2,
@@ -1617,9 +1790,9 @@ def phase_fit(torch, counters, wf, dev="cuda", profile=True):
     with fit_log(globalfit, False) as log:
         _, wall_fresh = wall_s(torch, lambda: main_in(fresh, dev))
     launches = [c.launches for c in counters]
-    check(launches[0] == 2 and launches[1] == launches[2] > 0,
-          f"run-all -fit from the .xtc launched kernels A/B/C {launches} times (A twice in "
-          f"stage_ct, B and C once a ladder step)")
+    check(launches[0] == 2 and lm_steps_ok(launches),
+          f"run-all -fit from the .xtc launched kernels A/B/C/D/E {launches} times (A twice in "
+          f"stage_ct, B, C, D and E once a ladder step)")
     rs = fresh / f"{pref}-optDiso_rsCSA"
     diso_fit = header_value(Path(f"{rs}_15N1H_600MHz_R1.xvg"), "Diso")
     _, csa_fit = xvg.load_xy(f"{rs}_CSA_opt.dat")
@@ -2181,7 +2354,7 @@ def phase_cli(torch, counters, ubq, work: Path, dev="cuda"):
         d.mkdir(exist_ok=True)
         n = launches[name]
         prof[name] = device_profile(torch, lambda: quiet(lambda: cli.main(
-            argv(d, str(d / "rotdif")), device=dev)), lambda per: saw(per, A=n[0], B=n[1], C=n[2]))
+            argv(d, str(d / "rotdif")), device=dev)), lambda per: saw(per, A=n[0], **step_counts(n)))
     for name, argv in steps:  # the CPU, float64
         d = dirs["cpu"]
         d.mkdir(exist_ok=True)
@@ -2191,20 +2364,20 @@ def phase_cli(torch, counters, ubq, work: Path, dev="cuda"):
     for name, _ in steps:
         busy, per = prof[name]
         kt = kernel_times(per)
-        seen = [kt.get(k, (0,))[0] for k in "ABC"]
-        check(seen == launches[name], f"{name}: profiler saw kernels A/B/C {seen} times = the "
-                                      f"wrappers' counts {launches[name]}")
+        seen = [kt.get(k, (0,))[0] for k in "ABCDE"]
+        check(seen == launches[name], f"{name}: profiler saw kernels A/B/C/D/E {seen} times = "
+                                      f"the wrappers' counts {launches[name]}")
         print(f"  {name}: wall {walls[name]:.3f} s (CPU float64 {cpu_walls[name]:.3f} s); "
-              f"kernels A/B/C {launches[name]}; device busy {busy:.2f} ms, idle share "
+              f"kernels A/B/C/D/E {launches[name]}; device busy {busy:.2f} ms, idle share "
               f"{1 - busy / (walls[name] * 1e3):.1%}", flush=True)
-    total = [sum(v[i] for v in launches.values()) for i in range(3)]
+    total = [sum(v[i] for v in launches.values()) for i in range(5)]
     check(launches["ct"][0] == 2 and total[0] == 2,
           f"kernel A launched by ct only, twice (raw and superposed vectors): {total[0]}")
     fits = [launches[k][1:] for k in ("fit-ct", "fit-ct varpro")]
-    check(fits[0][0] == fits[0][1] > 0 and fits[1][0] == fits[1][1]
-          and fits[0][0] + fits[1][0] == total[1] == total[2],
-          f"kernels B and C launched by fit-ct ({fits[0][0]}) and fit-ct varpro's warm retries "
-          f"({fits[1][0]}) only, once a LM step: {total[1]} / {total[2]}")
+    check(lm_steps_ok([0] + fits[0]) and len(set(fits[1])) == 1
+          and fits[0][0] + fits[1][0] == total[1] == total[2] == total[3] == total[4],
+          f"kernels B, C, D and E launched by fit-ct ({fits[0][0]}) and fit-ct varpro's warm "
+          f"retries ({fits[1][0]}) only, once a LM step: {total[1:]}")
     card, cpu = dirs["card"], dirs["cpu"]
     hc, hf = dq_header(card / "rotdif-aniso2.dat"), dq_header(cpu / "rotdif-aniso2.dat")
     for k in ("D_0", "D_1", "D_2", "Diso"):
@@ -2339,7 +2512,7 @@ def phase_sharded(torch, counters, engine, vecs, stream4, finish6, ubq):
         return [c.launches for c in counters]
 
     def sub_line(name, wall, launches, busy, extra=""):
-        print(f"  {name}: wall {wall:.4f} s, launches A/B/C {launches}, device busy "
+        print(f"  {name}: wall {wall:.4f} s, launches A/B/C/D/E {launches}, device busy "
               f"{busy:.2f} ms, idle share {1 - busy / (wall * 1e3):.1%}{extra} on {gpu}",
               flush=True)
 
@@ -2410,8 +2583,8 @@ def phase_sharded(torch, counters, engine, vecs, stream4, finish6, ubq):
     reset()
     got, _ = wall_s(torch, lambda: sfwd(vecs))
     launches = read()
-    check(launches[0] == 1 and launches[1] > 0 and launches[1] == launches[2],
-          f"11b: sharded forward launched A/B/C {launches}")
+    check(launches[0] == 1 and lm_steps_ok(launches),
+          f"11b: sharded forward launched A/B/C/D/E {launches}")
     w_plain, w_shard = [], []
     for _ in range(3):  # in turns
         w_plain.append(wall_s(torch, lambda: fwd(vecs))[1])
@@ -2451,8 +2624,8 @@ def phase_sharded(torch, counters, engine, vecs, stream4, finish6, ubq):
     reset()
     got, _ = wall_s(torch, lambda: run_sharded_finish(mesh, acc_s, acc_s2, count, **fkw))
     launches = read()
-    check(launches[1] > 0 and launches[1] == launches[2],
-          f"11c: sharded finish launched B/C {launches[1]}/{launches[2]}")
+    check(lm_steps_ok(launches),
+          f"11c: sharded finish launched B/C/D/E {launches[1:]}")
     w_plain, w_shard = [], []
     for _ in range(3):
         w_plain.append(wall_s(torch, lambda: run_finish(*acc4, count4, **fkw))[1])
@@ -2555,9 +2728,9 @@ def phase_sharded(torch, counters, engine, vecs, stream4, finish6, ubq):
     plain.mkdir(exist_ok=True)
     sharded.mkdir(exist_ok=True)
     out["11e"] = {}
-    for name, argv, need in (("ct --split 2", ct, (0,)), ("fit-ct", fit_ct, (1, 2)),
+    for name, argv, need in (("ct --split 2", ct, (0,)), ("fit-ct", fit_ct, (1, 2, 3, 4)),
                              ("multifield --opt Diso --method device", multifield, ()),
-                             ("run-all -stream 2", run_all, (0, 1, 2))):
+                             ("run-all -stream 2", run_all, (0, 1, 2, 3, 4))):
         flag = "-devices" if name.startswith("run-all") else "--devices"
         box = {}
 
@@ -2575,7 +2748,7 @@ def phase_sharded(torch, counters, engine, vecs, stream4, finish6, ubq):
         if name == "fit-ct":
             experiments_at_truth(plain)
         for k in need:
-            check(launches[k] > 0, f"11e {name} {flag} 1: kernel {'ABC'[k]} launched "
+            check(launches[k] > 0, f"11e {name} {flag} 1: kernel {'ABCDE'[k]} launched "
                                    f"{launches[k]} times")
         names_ok, differ = same_dirs(plain, sharded)
         check(names_ok and not differ, f"11e {name}: with and without {flag} 1 the same files "
@@ -2588,7 +2761,7 @@ def phase_sharded(torch, counters, engine, vecs, stream4, finish6, ubq):
 
 
 def sharded_launches(r, k: int) -> dict:
-    """Kernel ``k``'s launches (0 A, 1 B, 2 C) on each of phase 11's paths."""
+    """Kernel ``k``'s launches (0 A, 1 B, 2 C, 3 D, 4 E) on each of phase 11's paths."""
     out = {f"launches_sharded_{key}": r[sub]["launches"][k]
            for key, sub in (("stream", "11a"), ("forward", "11b"), ("finish", "11c"))}
     for name, v in r["11e"].items():
@@ -2642,7 +2815,8 @@ def main() -> int:
     print(f"built {_build.library_path().name} in {time.perf_counter() - t0:.1f} s",
           flush=True)
     print(sys.version.split()[0], torch.__version__, torch.version.cuda, flush=True)
-    counters = (cuda_acf.acf_lag_sums, cuda_lm.hgc_cuda, cuda_lm.cost_cuda)
+    counters = (cuda_acf.acf_lag_sums, cuda_lm.hgc_cuda, cuda_lm.cost_cuda,
+                cuda_lm.step_solve_cuda, cuda_lm.step_gate_cuda)  # A .. E
     if sys.argv[1:] == ["5b"]:  # phase 5b alone: no result lines
         phase_ladder_5b(torch, counters, engine, lm, hetero_cohort, fit_ct_ladder)
         print(f"phase 5b took {time.perf_counter() - t_start:.1f} s, build included on "
@@ -2677,6 +2851,7 @@ def main() -> int:
 
     a_err, a_times = phase_acf(torch, tac, cuda_acf, vecs, gen)
     b_err, c_err_, lm_times = phase_lm(torch, cuda_lm, gen)
+    d_err = phase_step(torch, cuda_lm, lm_times)
     launches, fwd_s, busy_ms, fwd_eager_s, busy_eager_ms = phase_forward(
         torch, tac, counters, engine, make_forward, fit_multiexp, vecs)
     step_ms, acc, count, axis, rmean = phase_stream(torch, tac, cuda_acf, vecs, gen)
@@ -2710,7 +2885,11 @@ def main() -> int:
           f"{a_times['plain']:.4f} ms; "
           f"B {fwd_t['B']:.5f} vs {fwd_t['B_plain']:.5f} ms; "
           f"C {fwd_t['C']:.5f} vs {fwd_t['C_plain']:.5f} ms ({fwd_t['shape']}); "
-          f"B {rung['B']:.5f} ms, C {rung['C']:.5f} ms ({rung['shape']}); forward "
+          f"B {rung['B']:.5f} ms, C {rung['C']:.5f} ms ({rung['shape']}); D/E "
+          f"{fwd_t['D']:.5f}/{fwd_t['E']:.5f} ms (plain {fwd_t['D_plain']:.5f}/"
+          f"{fwd_t['E_plain']:.5f}; {fwd_t['shape']}), {rung['D']:.5f}/{rung['E']:.5f} ms "
+          f"({rung['shape']}), K 5 {lm_times['k5']['D']:.5f}/{lm_times['k5']['E']:.5f} ms, K 8 "
+          f"{lm_times['k8']['D']:.5f}/{lm_times['k8']['E']:.5f} ms; forward "
           f"{fwd_s * 1e3:.2f} ms, device busy {busy_ms:.2f} ms (eager loop "
           f"{fwd_eager_s * 1e3:.2f} / {busy_eager_ms:.2f} ms); group step "
           f"{step_ms:.4f} ms; A slab plan {a_times['long']:.4f} ms; B/C at K 5 "
@@ -2795,6 +2974,29 @@ def main() -> int:
              **{f"{k}_{f}": t[x] for k, t in (("k5", k5), ("k8", k8))
                 for f, x in (("ms", "C"), ("plain_ms", "C_plain"), ("bound_ms", "C_bound"))}),
     ]
+    for k, name, err, tol in (
+            ("D", "lm_step_solve", d_err,
+             f"t_new, trial parameters, norms within rtol {STEP_TOL['rtol']} + atol "
+             f"{STEP_TOL['atol']} of plain on >= {STEP_TOL['share']} of lanes; error vs "
+             f"float64 <= 2 x plain's"),
+            ("E", "lm_step_gate", 0.0, "bit for bit")):
+        i = "ABCDE".index(k)
+        kernels.append(dict(
+            name=name, route="cuda", source=src + "lm_step.cu",
+            replaces="spinrelax_tpu/fit/engine.py:181 (_engine_jit's loop body; XLA "
+                     "fusions, no pallas_call)",
+            launches=launches[i], launches_per_forward=launches[i], max_abs_err=err,
+            tolerance=tol, ms=fwd_t[k], plain_ms=fwd_t[k + "_plain"],
+            bound_ms=fwd_t[k + "_bound"], bound_by=fwd_t[k + "_by"], library_ms=None,
+            launches_ladder=ladder["launches"][i],
+            launches_ladder_varpro=ladder5b["varpro"]["launches"][i],
+            launches_ladder_stacked=ladder5b["stacked"]["launches"][i],
+            launches_finish=finish["launches"][i],
+            launches_ct_entry=stage["launches_entry"][i], launches_runall=wf["launches"][i],
+            launches_runall_fit=fit["launches"][i], launches_cli=cli_run["total"][i],
+            **sharded_launches(sharded, i),
+            **{f"{key}_{f}": t[x] for key, t in (("rung", rung), ("k5", k5), ("k8", k8))
+               for f, x in (("ms", k), ("plain_ms", k + "_plain"), ("bound_ms", k + "_bound"))}))
     print(gpu)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -43,8 +43,9 @@ COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 # argtypes of every C entry point (pointers and the stream as void*,
-# sizes as int, element strides as long long).
+# sizes as int, element strides as long long, thresholds as float).
 _SIGNATURES = {
     # v, out, B, F, D, n_inner, s_outer, s_inner, s_t, s_c, nb, threads,
     # smem, stream
@@ -54,6 +55,12 @@ _SIGNATURES = {
     # p, y, isg, dt, out, T, B, K, s2_free, stream
     "lm_hgc_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "lm_cost_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # Hp, gp, t, lam, lo, span, t_new, pt, stats, live, B, P, stream
+    "lm_step_solve_f32": (_P,) * 10 + (_I, _I, _P),
+    # c_new, c_old, t_new, pt_trial, stats, t, lam, it, c_best, c_mark,
+    # done, live, pt, B, P, max_iter, window, xtol, ftol, ftol_window,
+    # xtol_rel, lam0, lam_mark, lam_stuck, stream
+    "lm_step_gate_f32": (_P,) * 13 + (_I,) * 4 + (_F,) * 7 + (_P,),
 }
 
 HOST_FLAGS = ("-O3", "-pthread", "-shared", "-fPIC")

@@ -20,10 +20,11 @@ iteration is one step function over fixed state tensors, the same code on
 every device: on the CPU the host calls it while a lane is live; on the
 card one step is captured in a CUDA graph and replayed, and the host asks
 whether a lane is live once per stall window (``_run_graph``), not per
-iteration.  The per-iteration H = J^T J, g = J^T r and costs come from ``ops.cuda_lm``
-(kernels B and C for CUDA float32, their plain versions for CPU tensors)
-on lag-major (T, B) operands, so the (B, T, P) Jacobian is only built
-once, in the covariance tail.
+iteration.  A step is four calls of ``ops.cuda_lm`` (kernels for CUDA
+float32, their plain versions for CPU tensors): kernel B's H = J^T J,
+g = J^T r and cost on lag-major (T, B) operands, so the (B, T, P)
+Jacobian is only built once, in the covariance tail; kernel D's damped
+solve; kernel C's trial cost; kernel E's gates.
 """
 
 from __future__ import annotations
@@ -33,9 +34,10 @@ import torch
 
 from ..ops import cuda_lm
 from .lm import (
-    MultiExpFit, _chol_solve_small, _finalise_multiexp, _init_multiexp, _mm,
-    _multiexp_res_jac, _sigmoid, _spd_inv_diag_small, _to_constrained, _to_unconstrained,
+    MultiExpFit, _finalise_multiexp, _init_multiexp, _mm, _multiexp_res_jac,
+    _spd_inv_diag_small, _to_constrained, _to_unconstrained,
 )
+from .lm import _chol_solve_small  # noqa: F401  (the tests' copy of the pre-step loop)
 
 
 def _bounds(K: int, s2_free: bool, tau_max, dtype, device):
@@ -172,74 +174,36 @@ def fit_multiexp_engine(dt, decay, sigma, K: int, s2_free: bool,
     y_t = dec_s.T.contiguous()
     isg_t = (1.0 / sig_s).T.contiguous()
 
-    def pt_of_t(t):  # (BS, P) unconstrained -> (P, BS) constrained
-        return _to_constrained(t, lo, hi).T.contiguous()
-
     eps = torch.finfo(f).eps
-    ftol = 10.0 * eps
-    xtol = 1e-10
-    xtol_rel = float(np.sqrt(eps))
-    stall_window = 8
-    lam0 = 1e-3
-    lam_stuck = 1e6
+    gates = cuda_lm.Gates(max_iter=max_iter, window=8, xtol=1e-10, ftol=10.0 * eps,
+                          xtol_rel=float(np.sqrt(eps)), lam0=1e-3, lam_stuck=1e6)
 
     t = _to_unconstrained(p0, lo, hi)
-    lam = torch.full((BS,), lam0, dtype=f, device=dev)
+    lam = torch.full((BS,), gates.lam0, dtype=f, device=dev)
     it = torch.zeros(BS, dtype=torch.int32, device=dev)
     c_best = torch.full((BS,), float("inf"), dtype=f, device=dev)
     c_mark = c_best.clone()
     live = torch.any((it < max_iter) & ~done)
-    eye = torch.eye(P, dtype=f, device=dev)
+    state = (t, lam, it, c_best, c_mark, done, live)
+    pt = _to_constrained(t, lo, hi).T.contiguous()  # (P, BS): B's parameters
 
     def step():
-        """One LM iteration over every lane, written into the state tensors
-        (t, lam, it, c_best, c_mark, done, live) in place.  A lane that is
-        done or out of iterations is frozen: the step changes nothing of
-        it, so steps past the last live lane's end are no-ops."""
-        frozen = done | (it >= max_iter)
-        H_p, g_p, c_old = cuda_lm.hgc(pt_of_t(t), y_t, isg_t, dt, K, s2_free)
-        s = _sigmoid(t)
-        D = span * s * (1.0 - s)  # (BS, P) chain rule
-        H = H_p * D[:, :, None] * D[:, None, :]
-        g = g_p * D
-        diag = torch.clamp(torch.diagonal(H, dim1=1, dim2=2), min=1e-12)
-        A = H + lam[:, None, None] * eye * diag[:, None, :] * eye
-        step_v = -_chol_solve_small(A, g)
-        t_new = t + step_v
-        c_new = cuda_lm.cost(pt_of_t(t_new), y_t, isg_t, dt, K, s2_free)
-        improved = (c_new < c_old) & torch.isfinite(c_new)
-        t_next = torch.where(improved[:, None], t_new, t)
-        lam_next = torch.where(improved, torch.clamp(lam * 0.33, min=1e-12),
-                               torch.clamp(lam * 3.0, max=1e10))
-        small = torch.amax(torch.abs(step_v), dim=1) < xtol
-        flat = improved & ((c_old - c_new) <= ftol * c_old)
-        small_rel = improved & (lam <= lam0) & (
-            torch.linalg.vector_norm(step_v, dim=1)
-            < xtol_rel * (xtol_rel + torch.linalg.vector_norm(t, dim=1))
-        )
-        c_best_next = torch.minimum(
-            torch.minimum(c_best, torch.where(torch.isfinite(c_old), c_old, c_best)),
-            torch.where(torch.isfinite(c_new), c_new, c_best),
-        )
-        at_window = (it + 1) % stall_window == 0
-        stalled = (
-            at_window & torch.isfinite(c_mark) & (lam_next <= 100.0 * lam0)
-            & ((c_mark - c_best_next) <= stall_window * ftol * c_best_next)
-        )
-        done_next = (improved & small) | flat | small_rel | stalled | (lam_next >= lam_stuck)
-        c_mark.copy_(torch.where(frozen | ~at_window, c_mark, c_best_next))
-        c_best.copy_(torch.where(frozen, c_best, c_best_next))
-        t.copy_(torch.where(frozen[:, None], t, t_next))
-        lam.copy_(torch.where(frozen, lam, lam_next))
-        it.copy_(torch.where(frozen, it, it + 1))
-        done.copy_(done | (~frozen & done_next))
-        live.copy_(torch.any((it < max_iter) & ~done))
+        """One LM iteration over every lane: kernels B, D, C, E (their plain
+        versions on the CPU), written into the state tensors and ``pt`` in
+        place.  A lane that is done or out of iterations is frozen: the
+        step changes nothing of it, so steps past the last live lane's
+        end are no-ops."""
+        H_p, g_p, c_old = cuda_lm.hgc(pt, y_t, isg_t, dt, K, s2_free)
+        t_new, pt_trial, stats = cuda_lm.step_solve(H_p, g_p, t, lam, lo, span, live)
+        c_new = cuda_lm.cost(pt_trial, y_t, isg_t, dt, K, s2_free)
+        cuda_lm.step_gate(c_new, c_old, t_new, pt_trial, stats, state, pt, gates)
 
-    if dev.type == "cuda" and not _eager:  # a step launches kernels B and C once each
-        steps = _run_graph(step, live, max_iter, stall_window,
-                           (cuda_lm.hgc_cuda, cuda_lm.cost_cuda))
+    if dev.type == "cuda" and not _eager:  # a step launches kernels B, D, C, E once each
+        steps = _run_graph(step, live, max_iter, gates.window,
+                           (cuda_lm.hgc_cuda, cuda_lm.step_solve_cuda, cuda_lm.cost_cuda,
+                            cuda_lm.step_gate_cuda))
     else:
-        steps = _run_eager(step, live, max_iter, stall_window)
+        steps = _run_eager(step, live, max_iter, gates.window)
     if info is not None:
         info.update(steps=steps, iterations=int(it.max()))
     p_fin = _to_constrained(t, lo, hi)  # (BS, P)
@@ -251,6 +215,7 @@ def fit_multiexp_engine(dt, decay, sigma, K: int, s2_free: bool,
     dof = max(T - P, 1)
     red_chisq = torch.sum(r_fin * r_fin, dim=1) / dof
     dead = torch.diagonal(H, dim1=1, dim2=2) == 0.0
+    eye = torch.eye(P, dtype=f, device=dev)
     Hs = torch.where(dead[:, :, None] | dead[:, None, :], eye, H)
     var = torch.where(dead, torch.zeros_like(red_chisq)[:, None],
                       _spd_inv_diag_small(Hs)) * red_chisq[:, None]

@@ -29,22 +29,25 @@ from . import lm
 __all__ = ["fit_ct_walk", "on_mesh", "traced", "traced_fit"]
 
 _MODEL = ("C", "tau", "dC", "dtau", "mask", "S2", "dS2", "chisq", "s2fast")
+# The kernels of one step of fit.engine, by the trace's names.
+_STEP_KERNELS = {"B": cuda_lm.hgc_cuda, "C": cuda_lm.cost_cuda,
+                 "D": cuda_lm.step_solve_cuda, "E": cuda_lm.step_gate_cuda}
 
 
 def traced(trace, record: dict, fn):
     """Run ``fn(info)``, one LM call of the ladder; with a ``trace`` list,
     append ``record`` plus the LM's steps and slowest lane's iterations
     (its ``info``; on the card the steps round the iterations up to the
-    host's next look) and the launches of kernels B and C the call made,
-    read from their counters around it (0 on the CPU; on the card one
-    each a step of ``fit.engine``, none for ``lm.lm_solve``)."""
-    before = (cuda_lm.hgc_cuda.launches, cuda_lm.cost_cuda.launches)
+    host's next look) and the launches of kernels B, C, D and E the call
+    made, read from their counters around it (0 on the CPU; on the card
+    one each a step of ``fit.engine``, none for ``lm.lm_solve``)."""
+    before = [c.launches for c in _STEP_KERNELS.values()]
     info = None if trace is None else {}
     out = fn(info)
     if trace is not None:
-        trace.append(dict(record, **info,
-                          launches_B=cuda_lm.hgc_cuda.launches - before[0],
-                          launches_C=cuda_lm.cost_cuda.launches - before[1]))
+        trace.append(dict(record, **info, **{
+            f"launches_{k}": c.launches - n
+            for (k, c), n in zip(_STEP_KERNELS.items(), before)}))
     return out
 
 
@@ -79,7 +82,7 @@ def traced_fit(trace, stage: str, dt, decays, sigma, K: int, s2_free: bool,
     ``lm.fit_multiexp`` (``optimiser="lm"``) or ``lm.fit_multiexp_varpro``
     (``"varpro"``), or ``lm.fit_multiexp_warm`` from ``init`` = (C0, tau0,
     S20), recorded by :func:`traced` as {stage, K, s2_free, rows, starts,
-    steps, iterations, launches_B, launches_C}; with a ``mesh``, on this
+    steps, iterations, launches_B .. launches_E}; with a ``mesh``, on this
     rank's rows and gathered (:func:`on_mesh`; the record's steps,
     iterations and launches are this rank's)."""
     record = dict(stage=stage, K=K, s2_free=s2_free, rows=decays.shape[0],

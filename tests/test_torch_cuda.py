@@ -22,6 +22,9 @@ from spinrelax_tpu_torch.ops import cuda_acf, cuda_lm
 from spinrelax_tpu_torch.parallel.pipeline import make_forward
 
 pytestmark = pytest.mark.cuda
+# The kernels of one step of fit.engine: B, C, D, E.
+STEP_KERNELS = (cuda_lm.hgc_cuda, cuda_lm.cost_cuda, cuda_lm.step_solve_cuda,
+                cuda_lm.step_gate_cuda)
 
 
 @pytest.fixture
@@ -209,6 +212,186 @@ def test_lm_kernels_bitwise_reproducible(gen, K, s2f):
     assert torch.equal(cuda_lm.cost_cuda(*args), cuda_lm.cost_cuda(*args))
 
 
+def _step_state(gen, K, s2f, B, T=200, seed=7):
+    """An LM state on the card (float32) around kernel B's outputs at random
+    parameters: dict of H_p, g_p, c_old, t, lam, lo, span, the operands of
+    B / C, and the engine's gates; every lane's bits depend only on the
+    lane."""
+    from spinrelax_tpu_torch.fit import engine
+    from spinrelax_tpu_torch.fit.lm import _to_constrained, _to_unconstrained
+
+    p, y, isg, dt = _lm_operands(gen, K, s2f, B, T)
+    lo, hi = engine._bounds(K, s2f, dt[-1] * 10.0, torch.float32, "cuda")
+    t = _to_unconstrained(p.T, lo, hi).contiguous()
+    pt = _to_constrained(t, lo, hi).T.contiguous()
+    H_p, g_p, c_old = cuda_lm.hgc_cuda(pt, y, isg, dt, K, s2f)
+    rng = np.random.default_rng(seed)
+    lam = torch.tensor(10.0 ** rng.uniform(-6.0, 0.0, B), dtype=torch.float32, device="cuda")
+    eps = torch.finfo(torch.float32).eps
+    gates = cuda_lm.Gates(max_iter=60, window=8, xtol=1e-10, ftol=10.0 * eps,
+                          xtol_rel=float(np.sqrt(eps)), lam0=1e-3, lam_stuck=1e6)
+    return dict(H_p=H_p, g_p=g_p, c_old=c_old, t=t, lam=lam, lo=lo, span=hi - lo, pt=pt,
+                ops=(y, isg, dt, K, s2f), gates=gates, rng=rng)
+
+
+def _solve_args(st):
+    return (st["H_p"], st["g_p"], st["t"], st["lam"], st["lo"], st["span"])
+
+
+def _gate_inputs(st):
+    """Kernel E's inputs after kernels D and C on ``st``, and a state that
+    reaches every gate: lam from 1e-13 to 1e7 (lam0 on a fifth of the
+    lanes), every phase of the stall window, c_best / c_mark at and around
+    c_old, a fifth of the lanes done, two lanes out of iterations."""
+    rng = st["rng"]
+    B = st["t"].shape[0]
+    live = torch.ones((), dtype=torch.bool, device="cuda")
+    t_new, pt_trial, stats = cuda_lm.step_solve_cuda(*_solve_args(st), live)
+    c_new = cuda_lm.cost_cuda(pt_trial, *st["ops"])
+
+    def dev(a, dtype=torch.float32):
+        return torch.tensor(a, dtype=dtype, device="cuda")
+
+    lam = 10.0 ** rng.uniform(-13.0, 7.0, B)
+    lam[rng.uniform(size=B) < 0.2] = 1e-3
+    it = rng.integers(0, 60, B)
+    it[:2] = 60
+    c_old = st["c_old"].double().cpu().numpy()
+    c_best = c_old * rng.choice([1.0, 1.0 + 1e-4, np.inf], B)
+    c_mark = c_best * rng.choice([1.0, 1.0 + 3e-7, 1.1, np.inf], B)
+    state = (st["t"].clone(), dev(lam), dev(it, torch.int32), dev(c_best), dev(c_mark),
+             dev(rng.uniform(size=B) < 0.2, torch.bool), live)
+    return (c_new, st["c_old"], t_new, pt_trial, stats), state, st["pt"].clone()
+
+
+def _same(a, b) -> bool:
+    return a.dtype == b.dtype and torch.equal(torch.nan_to_num(a.double(), nan=-7.0),
+                                              torch.nan_to_num(b.double(), nan=-7.0))
+
+
+STEP_CASES = [(K, s2f) for K in (1, 2, 3, 4, 5, 8, 16) for s2f in (False, True)]
+
+
+@pytest.mark.parametrize("K,s2f", STEP_CASES)
+def test_step_solve_kernel_matches_plain(gen, K, s2f):
+    """Kernel D (register templates for P <= 9, the runtime-P variant for
+    K 5..16) against its plain version on the same state on the card: t_new
+    within 1e-4 relative (atol 1e-5) on >= 99.9 % of lanes, the trial
+    parameters and the three norms likewise, NaN on the same lanes there;
+    its error against a float64 solve of the same inputs at most twice
+    the plain float32 version's (mean over the lanes where all three are
+    finite); live cleared."""
+    B = 3000
+    st = _step_state(gen, K, s2f, B)
+    live = torch.ones((), dtype=torch.bool, device="cuda")
+    got = cuda_lm.step_solve_cuda(*_solve_args(st), live)
+    assert not bool(live)
+    plain = cuda_lm.step_solve_plain(*_solve_args(st), torch.ones_like(live))
+    ref = cuda_lm.step_solve_plain(*(a.double() for a in _solve_args(st)),
+                                   torch.ones_like(live))
+    for name, a, b in zip(("t_new", "pt_trial", "stats"), got, plain):
+        a, b = a.double(), b.double()
+        near = ((a - b).abs() <= 1e-5 + 1e-4 * b.abs()) | (a.isnan() & b.isnan())
+        lanes = near.all(dim=1 if name == "t_new" else 0)
+        assert float(lanes.double().mean()) >= 0.999, name
+    fin = (torch.isfinite(got[0]).all(1) & torch.isfinite(plain[0]).all(1)
+           & torch.isfinite(ref[0]).all(1))
+    assert float(fin.double().mean()) >= 0.99
+    err_k = (got[0].double() - ref[0]).abs().amax(1)[fin].mean()
+    err_p = (plain[0].double() - ref[0]).abs().amax(1)[fin].mean()
+    assert err_k <= 2 * err_p + 1e-12, (float(err_k), float(err_p))
+
+
+@pytest.mark.parametrize("K,s2f", STEP_CASES)
+def test_step_gate_kernel_equals_plain(gen, K, s2f):
+    """Kernel E equals its plain version bit for bit on identical inputs:
+    every state tensor, B's next parameters and live."""
+    st = _step_state(gen, K, s2f, 3000)
+    ins, state, pt = _gate_inputs(st)
+    state_p = tuple(x.clone() for x in state)
+    pt_p = pt.clone()
+    state[-1].zero_()  # kernel D's part: E only sets live
+    cuda_lm.step_gate_cuda(*ins, state, pt, st["gates"])
+    cuda_lm.step_gate_plain(*ins, state_p, pt_p, st["gates"])
+    for name, a, b in zip(("t", "lam", "it", "c_best", "c_mark", "done", "live", "pt"),
+                          state + (pt,), state_p + (pt_p,)):
+        assert _same(a, b), name
+    assert bool(state[-1])
+
+
+@pytest.mark.parametrize("K,s2f", [(2, True), (4, False), (5, True), (16, True)])
+def test_step_kernels_bitwise_reproducible(gen, K, s2f):
+    """Two launches of kernel D on the same inputs, and of kernel E from the
+    same state, give the same bits."""
+    st = _step_state(gen, K, s2f, 5000)
+    live = torch.ones((), dtype=torch.bool, device="cuda")
+    a = cuda_lm.step_solve_cuda(*_solve_args(st), live)
+    b = cuda_lm.step_solve_cuda(*_solve_args(st), live)
+    assert all(_same(x, y) for x, y in zip(a, b))
+    ins, state, pt = _gate_inputs(st)
+    outs = []
+    for _ in range(2):
+        s = tuple(x.clone() for x in state)
+        p = pt.clone()
+        s[-1].zero_()
+        cuda_lm.step_gate_cuda(*ins, s, p, st["gates"])
+        outs.append(s + (p,))
+    assert all(_same(x, y) for x, y in zip(*outs))
+
+
+@pytest.mark.parametrize("K,s2f", [(2, True), (4, True), (8, False)])
+def test_step_kernels_lane_independent(gen, K, s2f):
+    """A lane's outputs of kernels D and E are the same bits whether it sits
+    alone, first or last in a batch of 10 000."""
+    B = 10_000
+    st = _step_state(gen, K, s2f, B)
+    ins, state, pt = _gate_inputs(st)
+    lanes = [0, 4321, B - 1]
+
+    def run(idx):
+        """D then E on the lanes ``idx`` of the batch, in that order."""
+        sub = dict(st, H_p=st["H_p"][idx].contiguous(), g_p=st["g_p"][idx].contiguous(),
+                   t=st["t"][idx].contiguous(), lam=st["lam"][idx].contiguous())
+        live = torch.ones((), dtype=torch.bool, device="cuda")
+        d = cuda_lm.step_solve_cuda(*_solve_args(sub), live)
+        c_new, c_old = ins[0][idx].contiguous(), ins[1][idx].contiguous()
+        e_ins = (c_new, c_old, d[0], d[1], d[2])
+        s = tuple(x[idx].contiguous() for x in state[:-1]) + (live,)
+        p = pt[:, idx].contiguous()
+        cuda_lm.step_gate_cuda(*e_ins, s, p, st["gates"])
+        return d[0], d[1].T, d[2].T, *s[:-1], p.T
+
+    everyone = torch.arange(B, device="cuda")
+    whole = run(everyone)
+    for j in lanes:
+        others = everyone[everyone != j]
+        for idx, pos in ((torch.tensor([j], device="cuda"), 0),
+                         (torch.cat([others[:99], torch.tensor([j], device="cuda")]), 99),
+                         (torch.cat([torch.tensor([j], device="cuda"), others]), 0),
+                         (torch.cat([others, torch.tensor([j], device="cuda")]), B - 1)):
+            for a, b in zip(run(idx), whole):
+                assert _same(a[pos], b[j])
+
+
+def test_step_wrappers_raise_instead_of_falling_back(gen):
+    """Kernels D and E take CUDA float32 (int32 it, bool done / live),
+    contiguous, at P = 2..33; anything else raises."""
+    st = _step_state(gen, 2, True, 64)
+    live = torch.ones((), dtype=torch.bool, device="cuda")
+    args = list(_solve_args(st))
+    with pytest.raises(TypeError):
+        cuda_lm.step_solve(*(a.double() for a in args), live)
+    with pytest.raises(ValueError):
+        cuda_lm.step_solve(args[0], args[1], args[2].T.contiguous().T, *args[3:], live)
+    with pytest.raises(ValueError):
+        cuda_lm.step_solve(args[0][:, :4, :4].contiguous(), *args[1:], live)
+    ins, state, pt = _gate_inputs(st)
+    with pytest.raises(TypeError):
+        cuda_lm.step_gate(*ins, state[:2] + (state[2].long(),) + state[3:], pt, st["gates"])
+    with pytest.raises(ValueError):
+        cuda_lm.step_gate(*ins, state, pt.T, st["gates"])
+
+
 def test_wrappers_raise_instead_of_falling_back(gen):
     v = _unit((2, 40), gen)
     with pytest.raises(TypeError):
@@ -342,13 +525,13 @@ def test_graph_loop_equals_eager_loop(gen, case):
     at the lanes once per stall window; its outputs equal the eager loop's
     (one host sync per iteration) bit for bit, the steps it ran cover the
     slowest lane's iterations and overshoot them by less than a window,
-    and kernels B and C are counted once per step."""
+    and kernels B, C, D and E are counted once per step."""
     from spinrelax_tpu_torch.fit.engine import fit_multiexp_engine
 
     args, kw = _engine_case(dict(case))
     e_info, g_info = {}, {}
     eager = fit_multiexp_engine(*args, info=e_info, _eager=True, **kw)
-    before = (cuda_lm.hgc_cuda.launches, cuda_lm.cost_cuda.launches)
+    before = [c.launches for c in STEP_KERNELS]
     graph = fit_multiexp_engine(*args, info=g_info, **kw)
     for name, a, b in zip(graph._fields, graph, eager):
         assert torch.equal(torch.nan_to_num(a.double(), nan=-7.0),
@@ -356,8 +539,8 @@ def test_graph_loop_equals_eager_loop(gen, case):
     assert e_info["steps"] == e_info["iterations"] == g_info["iterations"]
     assert g_info["iterations"] <= g_info["steps"] <= kw.get("max_iter", 60)
     assert g_info["steps"] - g_info["iterations"] < 8
-    assert cuda_lm.hgc_cuda.launches - before[0] == g_info["steps"]
-    assert cuda_lm.cost_cuda.launches - before[1] == g_info["steps"]
+    for c, n in zip(STEP_KERNELS, before):
+        assert c.launches - n == g_info["steps"], c.__name__
 
 
 def test_graph_loop_frees_its_pool(gen):
@@ -377,8 +560,11 @@ def test_graph_loop_frees_its_pool(gen):
 
 
 def test_graph_loop_profiled_launches_equal_steps(gen):
-    """torch.profiler sees kernels B and C run once per step of the graph
-    loop (the eager first step and every replay)."""
+    """torch.profiler sees kernels B, C, D and E run once per step of the
+    graph loop (the eager first step and every replay), and no other
+    kernel from the first replay to the last: the captured step is those
+    four kernels.  (The capture itself fills torch's generator state, two
+    small kernels between the eager step and the first replay.)"""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -390,9 +576,19 @@ def test_graph_loop_profiled_launches_equal_steps(gen):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fit_multiexp_engine(*args, info=info, **kw)
         torch.cuda.synchronize()
-    n = sum("lm_kernel" in e.name for e in prof.events()
-            if e.device_type == DeviceType.CUDA)
-    assert n == 2 * info["steps"]
+    kernels = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
+                      and not e.name.startswith(("Memcpy", "Memset"))),
+                     key=lambda e: e.time_range.start)
+    names = [e.name for e in kernels]
+    for key in ("lm_kernel<", "lm_kernel<2, true, false>", "lm_step_solve_kernel<5>",
+                "lm_step_gate_kernel"):
+        n = sum(key in name for name in names)
+        assert n == (2 if key == "lm_kernel<" else 1) * info["steps"], key
+    first = [i for i, name in enumerate(names) if "lm_kernel<2, true, true>" in name][1]
+    last = max(i for i, name in enumerate(names) if "lm_step_gate_kernel" in name)
+    others = [name for name in names[first : last + 1]
+              if not any(k in name for k in ("lm_kernel<", "lm_step_"))]
+    assert not others, others
 
 
 def test_stage_ct_streamed_on_card_matches_cpu(gen, tmp_path):

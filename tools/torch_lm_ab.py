@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Time two checkouts' LM kernels B and C, and their forwards, on one GPU.
+"""Time two checkouts' LM kernels B and C, and the paths over their LM
+(the forward, the DoF ladder, the streamed finish), on one GPU.
 
     python3 tools/torch_lm_ab.py OLD_ROOT [NEW_ROOT]
 
@@ -15,10 +16,15 @@ that checkout's ``_build.py`` and prints:
    free): CUDA events around a CUDA graph of back-to-back launches
    (``chip_smoke.graph_ms``), timed in turns old, new, new, old, beside
    the bound ``chip_smoke.lm_bound`` computes;
-2. each checkout's full-width forward (32 x 1000 x 1024, f32), each in a
-   process of its own, in turns old, new, new, old: the median wall of 5
-   calls after a first call, and from one torch.profiler run the
-   device-busy time and kernels B's and C's launches and time per launch.
+2. each checkout's full-width forward (32 x 1000 x 1024, f32), DoF
+   ladder (``fit_ct_ladder`` on ``entry.hetero_cohort`` at 10 000 x 500,
+   chip_smoke phase 5's input) and streamed finish (``run_finish`` on
+   1024 residues: one group step of the forward's input, 64 weighted PAF
+   samples a residue, Daniso 1.3), each checkout in a process of its own,
+   in turns old, new, new, old: per path the median wall of 5 calls (3
+   for the ladder) after a first call, and from one torch.profiler run
+   the device-busy time and the LM kernels' launches and time per launch
+   (B, C and, where the checkout has them, D and E).
 
 With ``--loops`` instead of OLD_ROOT it times this checkout's LM loop
 both ways in one process (the wall differs up to 2x between processes): the
@@ -71,24 +77,47 @@ def lm_kernel_of(name: str):
     return smoke.kernel_of(name)
 
 
-def forward_run(root: Path) -> dict:
-    """One checkout's forward, in this process (see the module docstring)."""
+PATHS = ("forward", "ladder", "finish")
+
+
+def paths_run(root: Path) -> dict:
+    """One checkout's forward, ladder and finish, in this process (see the
+    module docstring)."""
     sys.path.insert(0, str(root))
     import torch
 
-    from spinrelax_tpu_torch.entry import correlated_walk
+    from spinrelax_tpu_torch.entry import correlated_walk, hetero_cohort, paf_ensemble
+    from spinrelax_tpu_torch.fit.expfit import fit_ct_ladder
+    from spinrelax_tpu_torch.models.diffusion import Diffusion
+    from spinrelax_tpu_torch.ops.autocorr import palmer_group_update_pretiled, tile_palmer_group
     from spinrelax_tpu_torch.parallel.pipeline import make_forward
+    from spinrelax_tpu_torch.parallel.streamed import run_finish
 
     torch.backends.cuda.matmul.allow_tf32 = False
     vecs = torch.from_numpy(correlated_walk(32, 1000, 1024, seed=0)).cuda()
     fwd = make_forward(tau_iso=4242.0, delta_t=1.0, n_components=2)
-    smoke.wall_s(torch, lambda: fwd(vecs))  # builds the kernels, warms the allocator
-    walls = sorted(smoke.wall_s(torch, lambda: fwd(vecs))[1] * 1e3 for _ in range(5))
-    busy, per = smoke.device_profile(torch, lambda: fwd(vecs))
-    lm = smoke.kernel_times(per, lm_kernel_of)
-    return {"wall_ms": walls, "median_ms": walls[2], "busy_ms": busy,
-            "device_events": sum(n for n, _ in per.values()),
-            "lm": {k: {"launches": n, "us": us} for k, (n, us) in lm.items()}}
+    dt, y, dy = hetero_cohort(10_000, 500)
+    names = [str(i) for i in range(10_000)]
+    yc, dyc = (torch.tensor(a, dtype=torch.float32, device="cuda") for a in (y, dy))
+    zero = torch.zeros((500, 1024), device="cuda")
+    acc = palmer_group_update_pretiled(tile_palmer_group(vecs), zero, zero, 32, 1024)
+    pv, pw = paf_ensemble(1024, 64, seed=1)
+    fkw = dict(n_res=1024, delta_t=1.0, diffusion=Diffusion.axisymmetric(tau=4242.0, aniso=1.3),
+               vecs=pv, weights=pw)
+    runs = {"forward": (lambda: fwd(vecs), 5),
+            "ladder": (lambda: fit_ct_ladder(names, dt, yc, dyc), 3),
+            "finish": (lambda: run_finish(*acc, 32, **fkw), 5)}
+    out = {}
+    for name in PATHS:
+        fn, n = runs[name]
+        smoke.wall_s(torch, fn)  # builds the kernels, warms the allocator
+        walls = sorted(smoke.wall_s(torch, fn)[1] * 1e3 for _ in range(n))
+        busy, per = smoke.device_profile(torch, fn)
+        lm = smoke.kernel_times(per, lm_kernel_of)
+        out[name] = {"wall_ms": walls, "median_ms": walls[n // 2], "busy_ms": busy,
+                     "device_events": sum(n for n, _ in per.values()),
+                     "lm": {k: {"launches": m, "us": us} for k, (m, us) in lm.items()}}
+    return out
 
 
 def kernel_times(torch, roots) -> None:
@@ -173,8 +202,8 @@ def main(argv) -> int:
             return 3
         print(smoke.gpu_line(), flush=True)
         return loops_run()
-    if len(argv) >= 2 and argv[0] == "--forward":
-        print(json.dumps(forward_run(Path(argv[1]).resolve())))
+    if len(argv) >= 2 and argv[0] == "--paths":
+        print(json.dumps(paths_run(Path(argv[1]).resolve())))
         return 0
     if not 1 <= len(argv) <= 2:
         print(__doc__, file=sys.stderr)
@@ -190,20 +219,21 @@ def main(argv) -> int:
     kernel_times(torch, roots)
     runs = {0: [], 1: []}
     for side in (0, 1, 1, 0):
-        res = subprocess.run([sys.executable, __file__, "--forward", str(roots[side])],
+        res = subprocess.run([sys.executable, __file__, "--paths", str(roots[side])],
                              capture_output=True, text=True, timeout=900)
         if res.returncode != 0:
             print(res.stdout, res.stderr, file=sys.stderr)
             return 1
         run = json.loads(res.stdout.strip().splitlines()[-1])
         runs[side].append(run)
-        print(f"forward {'old' if side == 0 else 'new'}: {json.dumps(run)}", flush=True)
-    for side, name in ((0, "old"), (1, "new")):
-        walls = [w for r in runs[side] for w in r["wall_ms"]]
-        busy = [r["busy_ms"] for r in runs[side]]
-        print(f"forward {name}: median wall {statistics.median(walls):.2f} ms over "
-              f"{len(walls)} calls (min {min(walls):.2f}, max {max(walls):.2f}); "
-              f"device busy {busy[0]:.2f}, {busy[1]:.2f} ms", flush=True)
+        print(f"paths {'old' if side == 0 else 'new'}: {json.dumps(run)}", flush=True)
+    for path in PATHS:
+        for side, name in ((0, "old"), (1, "new")):
+            walls = [w for r in runs[side] for w in r[path]["wall_ms"]]
+            busy = [r[path]["busy_ms"] for r in runs[side]]
+            print(f"{path} {name}: median wall {statistics.median(walls):.2f} ms over "
+                  f"{len(walls)} calls (min {min(walls):.2f}, max {max(walls):.2f}); "
+                  f"device busy {busy[0]:.2f}, {busy[1]:.2f} ms", flush=True)
     print(smoke.gpu_line(), flush=True)
     return 0
 
