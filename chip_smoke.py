@@ -22,10 +22,11 @@ Builds the port's CUDA kernels from csrc/ and runs, in order:
    lm_step_gate) against their plain versions from the same state at
    those shapes, at K 1 and 3 with S2 fixed, and at K 5, 8 and 16 (D's
    runtime-P variant): D's t_new, trial parameters and norms within
-   STEP_TOL of the plain version on >= 99.9 % of lanes, its error against
-   a float64 solve at most twice the plain float32 version's; E equal to
-   its plain version bit for bit; relaunches bit for bit; their times
-   against their bounds;
+   STEP_TOL of the plain version on every lane, NaN in both on exactly
+   the lanes whose damped matrix is not positive definite, its error
+   against a float64 solve at most twice the plain float32 version's; E
+   equal to its plain version bit for bit; relaunches bit for bit; their
+   times against their bounds;
 3. the full-width forward step (32 Palmer chunks x 1000 frames x 1024
    N-H bonds, float32) on the card, counting kernel launches, held to the
    same forward on the CPU in float64 (C(t), rates, flags, median
@@ -446,36 +447,51 @@ def phase_lm(torch, cuda_lm, gen):
 
 # Kernel D against its plain version: t_new, the trial parameters and the
 # three norms within rtol / atol on >= share of lanes (NaN matching NaN).
-STEP_TOL = dict(rtol=1e-4, atol=1e-5, share=0.999)
+STEP_TOL = dict(rtol=1e-4, atol=1e-5, share=1.0)
 
 
-def step_bound(P: int, B: int, gate: bool):
+def step_bound(P: int, B: int, gate: bool, improved: int = 0, at_window: int = 0):
     """bound_ms of kernel D (gate False) or E at P parameters and B lanes.
-    Bytes: each input read once (D: H_p whole, g_p, t, lam, lo, span; E:
-    the two costs, t_new, the trial parameters, the three norms and the
-    state t, lam, it, c_best, c_mark, done, pt), each output written once
-    (D: t_new, the trial parameters, the norms; E: the state and pt).
-    Operations (an exp, multiply, add, division or square root 1): D's
-    sigmoids, chain rule, damped matrix, Cholesky and substitutions as
-    csrc/lm_step.cu does them; E's 11 a lane."""
+    Bytes: each input read once, each output written once.  D reads H_p's
+    lower triangle (all the Cholesky needs; 32-byte sectors make the
+    kernel fetch nearly the whole matrix), g_p, t, lam, lo and span, and
+    writes t_new, the trial parameters and the three norms.  E (on lanes
+    none of which is frozen, as phase_step times it) reads the two costs,
+    the three norms, lam, it, c_best, c_mark and done, and t_new and the
+    trial parameters on the ``improved`` lanes; it writes lam, it, c_best
+    and done, c_mark on the ``at_window`` lanes, t and the next (P, B)
+    parameters on the ``improved`` lanes, and live.  Operations (an exp,
+    multiply, add, division or square root 1): D's sigmoids, chain rule,
+    damped matrix, Cholesky and substitutions as csrc/lm_step.cu does
+    them; E's 11 a lane."""
     if gate:
-        n_bytes = B * (4 * (2 + 2 * P + 3 + 4 + 2 * P) + 1 + 4 * (4 + 2 * P) + 1) + 1
+        n_bytes = B * (4 * 9 + 1 + 4 * 3 + 1) + improved * 4 * 4 * P + at_window * 4 + 1
         return bound_ms(n_bytes, 11 * B)
     tri = P * (P + 1) // 2
     flops = 8 * P + 2 * tri + 8 * P + (tri - P) + P  # sigmoids, D, ||t||; A; g
     flops += sum(2 * j + 2 + (P - 1 - j) * (2 * j + 1) for j in range(P))  # Cholesky
     flops += 2 * sum(2 * i + 1 for i in range(P))  # the two substitutions
     flops += 9 * P + 2  # step, t_new, trial parameters, norms
-    n_bytes = 4 * B * (P * P + 2 * P + 1) + 8 * P + 4 * B * (2 * P + 3) + 1
+    n_bytes = 4 * B * (tri + 2 * P + 1) + 8 * P + 4 * B * (2 * P + 3) + 1
     return bound_ms(n_bytes, flops * B)
 
 
-def step_state(torch, cuda_lm, gen, K, s2f, B, T):
+def not_pd_lanes(B: int):
+    """The lanes whose H_p step_state negates, so their damped matrix is
+    not positive definite: the second, one at a third and the last but
+    one."""
+    return sorted({min(1, B - 1), B // 3, max(B - 2, 0)})
+
+
+def step_state(torch, cuda_lm, gen, K, s2f, B, T, not_pd=True):
     """Kernels D and E's inputs on the card around kernel B's outputs at
     lm_operands' parameters: (solve arguments, gate inputs, state, pt,
-    gates).  lam log-uniform in [1e-6, 1] for D; for E lam from 1e-13 to
-    1e7 (lam0 on a fifth of the lanes), every phase of the stall window,
-    c_best / c_mark at and around c_old, a fifth of the lanes done."""
+    gates, not-positive-definite lane mask).  H_p negated on not_pd_lanes
+    if ``not_pd`` (the checks; not the timings: a NaN operand sends IEEE
+    division and square root down their slow path, which an LM's
+    positive-definite steps do not take); lam log-uniform in [1e-6, 1] for D; for E lam from 1e-13 to 1e7 (lam0
+    on a fifth of the lanes), every phase of the stall window, c_best /
+    c_mark at and around c_old, a fifth of the lanes done."""
     from spinrelax_tpu_torch.fit import engine
     from spinrelax_tpu_torch.fit.lm import _to_constrained, _to_unconstrained
 
@@ -491,6 +507,9 @@ def step_state(torch, cuda_lm, gen, K, s2f, B, T):
     t = _to_unconstrained(p.T, lo, hi).contiguous()
     pt = _to_constrained(t, lo, hi).T.contiguous()
     H_p, g_p, c_old = cuda_lm.hgc_cuda(pt, y, isg, dt, K, s2f)
+    npd = torch.zeros(B, dtype=torch.bool, device="cuda")
+    npd[not_pd_lanes(B) if not_pd else []] = True
+    H_p[npd] = -H_p[npd]
     solve = (H_p, g_p, t, 10.0 ** (rand(B) * 6.0 - 6.0), lo, hi - lo)
     live = torch.ones((), dtype=torch.bool, device="cuda")
     t_new, pt_trial, stats = cuda_lm.step_solve_cuda(*solve, live)
@@ -503,7 +522,7 @@ def step_state(torch, cuda_lm, gen, K, s2f, B, T):
     eps = torch.finfo(torch.float32).eps
     gates = cuda_lm.Gates(max_iter=60, window=8, xtol=1e-10, ftol=10.0 * eps,
                           xtol_rel=math.sqrt(eps), lam0=1e-3, lam_stuck=1e6)
-    return solve, (c_new, c_old, t_new, pt_trial, stats), state, pt.clone(), gates
+    return solve, (c_new, c_old, t_new, pt_trial, stats), state, pt.clone(), gates, npd
 
 
 def phase_step(torch, cuda_lm, times):
@@ -519,7 +538,7 @@ def phase_step(torch, cuda_lm, times):
              (16, True, 1025, 499)]
     for K, s2f, B, T in cases:
         tag = f"K={K} s2_free={s2f} B={B}"
-        solve, ins, state, pt, gates = step_state(torch, cuda_lm, gen, K, s2f, B, T)
+        solve, ins, state, pt, gates, npd = step_state(torch, cuda_lm, gen, K, s2f, B, T)
         live = torch.ones((), dtype=torch.bool, device="cuda")
         got = cuda_lm.step_solve_cuda(*solve, live)
         again = cuda_lm.step_solve_cuda(*solve, live)
@@ -538,6 +557,11 @@ def phase_step(torch, cuda_lm, times):
         diff = (got[0].double() - plain[0].double()).abs()[fin]
         worst_d = max(worst_d, float(diff.max()))
         same = float((got[0] == plain[0]).all(1).double().mean())
+        nan_k, nan_p = got[0].isnan().any(1), plain[0].isnan().any(1)
+        check(torch.equal(nan_k, npd) and torch.equal(nan_p, npd),
+              f"D {tag}: t_new NaN on exactly the {int(npd.sum())} lanes whose damped "
+              f"matrix is not positive definite (kernel {int(nan_k.sum())}, plain "
+              f"{int(nan_p.sum())} NaN lanes)")
         check(min(shares) >= STEP_TOL["share"] and not bool(live),
               f"D {tag}: t_new / trial parameters / norms within rtol {STEP_TOL['rtol']} atol "
               f"{STEP_TOL['atol']} of plain on {shares[0]:.5f} / {shares[1]:.5f} / "
@@ -546,7 +570,8 @@ def phase_step(torch, cuda_lm, times):
         check(err_k <= 2 * err_p + 1e-12 and float(fin.double().mean()) >= 0.99,
               f"D {tag}: mean |t_new - f64 solve| {err_k:.3e} <= 2 x plain f32's {err_p:.3e} "
               f"({float(fin.double().mean()):.4f} of lanes finite in all three)")
-        check(all(map(torch.equal, got, again)), f"D {tag}: relaunch bitwise equal")
+        check(all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                  for a, b in zip(got, again)), f"D {tag}: relaunch bitwise equal")
         outs = []
         for gate in (cuda_lm.step_gate_cuda, cuda_lm.step_gate_cuda, cuda_lm.step_gate_plain):
             st, p = tuple(x.clone() for x in state), pt.clone()
@@ -562,7 +587,8 @@ def phase_step(torch, cuda_lm, times):
                                       ("rung", (4, True, 10_000, 500), 20),
                                       ("k5", (5, True, 10_000, 500), 10),
                                       ("k8", (8, True, 10_000, 500), 10)):
-        solve, ins, state, pt, gates = step_state(torch, cuda_lm, gen, K, s2f, B, T)
+        solve, ins, state, pt, gates, _ = step_state(torch, cuda_lm, gen, K, s2f, B, T,
+                                                     not_pd=False)
         live = torch.ones((), dtype=torch.bool, device="cuda")
         # E on a state it never freezes (every lane improves, copies its row
         # and column, and stays live): the same work every launch.
@@ -580,7 +606,8 @@ def phase_step(torch, cuda_lm, times):
             lambda: cuda_lm.step_gate_plain(*ins, st, pt, gates), reps=reps, timer=graph_ms)
         P = cuda_lm.n_par(K, s2f)
         t["D_bound"], t["D_by"] = step_bound(P, B, False)
-        t["E_bound"], t["E_by"] = step_bound(P, B, True)
+        t["E_bound"], t["E_by"] = step_bound(
+            P, B, True, improved=B, at_window=int(((st[2] + 1) % gates.window == 0).sum()))
         for k in "DE":
             print(f"  time {k} at {t['shape']}: kernel {t[k] * 1e3:.2f} us (plain "
                   f"{t[k + '_plain'] * 1e3:.2f} us), bound {t[k + '_bound'] * 1e3:.3f} us "
@@ -2977,8 +3004,8 @@ def main() -> int:
     for k, name, err, tol in (
             ("D", "lm_step_solve", d_err,
              f"t_new, trial parameters, norms within rtol {STEP_TOL['rtol']} + atol "
-             f"{STEP_TOL['atol']} of plain on >= {STEP_TOL['share']} of lanes; error vs "
-             f"float64 <= 2 x plain's"),
+             f"{STEP_TOL['atol']} of plain on >= {STEP_TOL['share']} of lanes, NaN on "
+             f"the same lanes; error vs float64 <= 2 x plain's"),
             ("E", "lm_step_gate", 0.0, "bit for bit")):
         i = "ABCDE".index(k)
         kernels.append(dict(

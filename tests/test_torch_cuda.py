@@ -215,7 +215,9 @@ def test_lm_kernels_bitwise_reproducible(gen, K, s2f):
 def _step_state(gen, K, s2f, B, T=200, seed=7):
     """An LM state on the card (float32) around kernel B's outputs at random
     parameters: dict of H_p, g_p, c_old, t, lam, lo, span, the operands of
-    B / C, and the engine's gates; every lane's bits depend only on the
+    B / C, the engine's gates and ``npd``, the lanes (the second, one at a
+    third, the last but one) whose H_p is negated, so that their damped
+    matrix is not positive definite; every lane's bits depend only on the
     lane."""
     from spinrelax_tpu_torch.fit import engine
     from spinrelax_tpu_torch.fit.lm import _to_constrained, _to_unconstrained
@@ -225,13 +227,16 @@ def _step_state(gen, K, s2f, B, T=200, seed=7):
     t = _to_unconstrained(p.T, lo, hi).contiguous()
     pt = _to_constrained(t, lo, hi).T.contiguous()
     H_p, g_p, c_old = cuda_lm.hgc_cuda(pt, y, isg, dt, K, s2f)
+    npd = torch.zeros(B, dtype=torch.bool, device="cuda")
+    npd[sorted({min(1, B - 1), B // 3, max(B - 2, 0)})] = True
+    H_p[npd] = -H_p[npd]
     rng = np.random.default_rng(seed)
     lam = torch.tensor(10.0 ** rng.uniform(-6.0, 0.0, B), dtype=torch.float32, device="cuda")
     eps = torch.finfo(torch.float32).eps
     gates = cuda_lm.Gates(max_iter=60, window=8, xtol=1e-10, ftol=10.0 * eps,
                           xtol_rel=float(np.sqrt(eps)), lam0=1e-3, lam_stuck=1e6)
     return dict(H_p=H_p, g_p=g_p, c_old=c_old, t=t, lam=lam, lo=lo, span=hi - lo, pt=pt,
-                ops=(y, isg, dt, K, s2f), gates=gates, rng=rng)
+                ops=(y, isg, dt, K, s2f), gates=gates, rng=rng, npd=npd)
 
 
 def _solve_args(st):
@@ -276,11 +281,13 @@ STEP_CASES = [(K, s2f) for K in (1, 2, 3, 4, 5, 8, 16) for s2f in (False, True)]
 def test_step_solve_kernel_matches_plain(gen, K, s2f):
     """Kernel D (register templates for P <= 9, the runtime-P variant for
     K 5..16) against its plain version on the same state on the card: t_new
-    within 1e-4 relative (atol 1e-5) on >= 99.9 % of lanes, the trial
-    parameters and the three norms likewise, NaN on the same lanes there;
-    its error against a float64 solve of the same inputs at most twice
-    the plain float32 version's (mean over the lanes where all three are
-    finite); live cleared."""
+    within 1e-4 relative (atol 1e-5) on every lane, the trial parameters
+    and the three norms likewise, NaN on the same lanes there; t_new NaN
+    in both on exactly the lanes whose damped matrix is not positive
+    definite (so the step is refused and lam triples); its error against
+    a float64 solve of the same inputs at most twice the plain float32
+    version's (mean over the lanes where all three are finite); live
+    cleared."""
     B = 3000
     st = _step_state(gen, K, s2f, B)
     live = torch.ones((), dtype=torch.bool, device="cuda")
@@ -293,7 +300,9 @@ def test_step_solve_kernel_matches_plain(gen, K, s2f):
         a, b = a.double(), b.double()
         near = ((a - b).abs() <= 1e-5 + 1e-4 * b.abs()) | (a.isnan() & b.isnan())
         lanes = near.all(dim=1 if name == "t_new" else 0)
-        assert float(lanes.double().mean()) >= 0.999, name
+        assert bool(lanes.all()), (name, float(lanes.double().mean()))
+    assert torch.equal(got[0].isnan().any(1), st["npd"])
+    assert torch.equal(plain[0].isnan().any(1), st["npd"])
     fin = (torch.isfinite(got[0]).all(1) & torch.isfinite(plain[0]).all(1)
            & torch.isfinite(ref[0]).all(1))
     assert float(fin.double().mean()) >= 0.99

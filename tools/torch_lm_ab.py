@@ -27,16 +27,18 @@ that checkout's ``_build.py`` and prints:
    (B, C and, where the checkout has them, D and E).
 
 With ``--loops`` instead of OLD_ROOT it times this checkout's LM loop
-both ways in one process (the wall differs up to 2x between processes): the
-graph loop (one captured step, replayed; the host looks at the lanes once
-per stall window) against the eager loop (``_eager=True``: every step
-issued by the host, one sync per iteration), in turns eager, graph, graph,
-eager, on the forward's fit (B 1024, T 500, K 2, S2 free, C(t) of
-``entry.correlated_walk``) and a ladder rung (B 10 000, T 500, K 2, S2
-free, ``entry.hetero_cohort``): median wall of 5 calls per turn, the
-device-busy time and device kernel count of one profiled call, the steps
-run and the slowest lane's iterations, and whether the outputs are equal
-bit for bit.
+three ways in one process (the wall differs up to 2x between processes),
+by swapping ``fit.engine._run_graph`` for the whole run: the graph loop
+(one captured step, replayed; the host looks at the lanes once per stall
+window), the windowed loop (every step issued by the host, no capture,
+the lanes looked at once per stall window: ``fit.engine._replay`` with
+the step in place of the replay) and the eager loop (every step issued by
+the host, one sync per iteration: ``fit.engine._run_eager``).  In turns
+eager, windowed, graph, graph, windowed, eager, on the same three paths,
+after one call of each loop: per path and loop the median wall of 5
+calls (3 for the ladder) a turn, after the turn's first call,
+the device-busy time and device kernel count of one profiled call, and
+whether the three loops' outputs are equal bit for bit.
 
     python3 tools/torch_lm_ab.py --loops
 
@@ -150,46 +152,96 @@ def kernel_times(torch, roots) -> None:
                   flush=True)
 
 
+def _leaves(x):
+    """The numbers of a nested result (tensors, numeric arrays, floats), in
+    a fixed order, as tensors."""
+    import numpy as np
+    import torch
+
+    if torch.is_tensor(x):
+        return [x]
+    if isinstance(x, (np.ndarray, np.number, float, int)):
+        a = np.asarray(x)
+        return [torch.from_numpy(np.ascontiguousarray(a))] if a.dtype.kind in "biufc" else []
+    if isinstance(x, dict):
+        return [a for k in sorted(x, key=str) for a in _leaves(x[k])]
+    if isinstance(x, (list, tuple)):
+        return [a for v in x for a in _leaves(v)]
+    if hasattr(x, "__dict__"):
+        return _leaves(vars(x))
+    return []
+
+
+LOOPS = ("eager", "windowed", "graph", "graph", "windowed", "eager")
+
+
 def loops_run() -> int:
-    """Graph loop against eager loop, in turns in this process (see the
-    module docstring)."""
+    """Graph, windowed and eager loops, in turns in this process, on the
+    forward, the ladder and the finish (see the module docstring)."""
     sys.path.insert(0, str(HERE))
     import torch
 
-    from spinrelax_tpu_torch.entry import correlated_walk, hetero_cohort
-    from spinrelax_tpu_torch.fit.engine import fit_multiexp_engine
-    from spinrelax_tpu_torch.ops.autocorr import ct_palmer
+    from spinrelax_tpu_torch.entry import correlated_walk, hetero_cohort, paf_ensemble
+    from spinrelax_tpu_torch.fit import engine
+    from spinrelax_tpu_torch.fit.expfit import fit_ct_ladder
+    from spinrelax_tpu_torch.models.diffusion import Diffusion
+    from spinrelax_tpu_torch.ops.autocorr import palmer_group_update_pretiled, tile_palmer_group
+    from spinrelax_tpu_torch.parallel.pipeline import make_forward
+    from spinrelax_tpu_torch.parallel.streamed import run_finish
 
-    Ct, dCt = ct_palmer(torch.from_numpy(correlated_walk(32, 1000, 1024, seed=0)).cuda())
-    dt = torch.arange(Ct.shape[0], dtype=Ct.dtype, device="cuda") + 1.0
-    fwd = (dt, Ct.T.contiguous(), torch.where(dCt.T > 0, dCt.T, torch.ones_like(dCt.T)))
-    rung = tuple(torch.tensor(a, dtype=torch.float32, device="cuda")
-                 for a in hetero_cohort(10_000, 500))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    graph = engine._run_graph
+
+    def windowed(step, live, max_iter, window, counters=()):
+        return engine._replay(step, live, 0, max_iter, window)
+
+    def eager(step, live, max_iter, window, counters=()):
+        return engine._run_eager(step, live, max_iter, window)
+
+    runners = {"graph": graph, "windowed": windowed, "eager": eager}
+    vecs = torch.from_numpy(correlated_walk(32, 1000, 1024, seed=0)).cuda()
+    fwd = make_forward(tau_iso=4242.0, delta_t=1.0, n_components=2)
+    dt, y, dy = hetero_cohort(10_000, 500)
+    names = [str(i) for i in range(10_000)]
+    yc, dyc = (torch.tensor(a, dtype=torch.float32, device="cuda") for a in (y, dy))
+    zero = torch.zeros((500, 1024), device="cuda")
+    acc = palmer_group_update_pretiled(tile_palmer_group(vecs), zero, zero, 32, 1024)
+    pv, pw = paf_ensemble(1024, 64, seed=1)
+    fkw = dict(n_res=1024, delta_t=1.0, diffusion=Diffusion.axisymmetric(tau=4242.0, aniso=1.3),
+               vecs=pv, weights=pw)
+    runs = {"forward": (lambda: fwd(vecs), 5),
+            "ladder": (lambda: fit_ct_ladder(names, dt, yc, dyc), 3),
+            "finish": (lambda: run_finish(*acc, 32, **fkw), 5)}
     ok = True
-    for name, args in (("forward fit, B 1024", fwd), ("ladder rung, B 10 000", rung)):
-        def fit(eager, info=None):
-            return fit_multiexp_engine(*args, K=2, s2_free=True, info=info, _eager=eager)
-
-        fit(False)
-        out, stats = {}, {True: [], False: []}
-        for eager in (True, False, False, True):
-            info = {}
-            out[eager] = fit(eager, info)
-            walls = sorted(smoke.wall_s(torch, lambda: fit(eager))[1] * 1e3 for _ in range(5))
-            busy, per = smoke.device_profile(torch, lambda: fit(eager))
-            stats[eager].append((walls[2], busy))
-            print(f"{name}, K 2, S2 free, {'eager' if eager else 'graph'} loop: wall median "
-                  f"{walls[2]:.3f} ms of 5 (min {walls[0]:.3f}, max {walls[-1]:.3f}); device "
-                  f"busy {busy:.3f} ms, idle share {1 - busy / walls[2]:.1%}; "
-                  f"{sum(n for n, _ in per.values())} device kernels and copies; "
-                  f"{info['steps']} steps, slowest lane {info['iterations']} iterations",
-                  flush=True)
-        same = all(smoke.same_bits(torch, a, b) for a, b in zip(out[True], out[False]))
-        ok &= same
-        (we, be), (wg, bg) = ([statistics.mean(x) for x in zip(*stats[k])] for k in (True, False))
-        print(f"{name}: eager {we:.3f} ms wall / {be:.3f} ms busy, graph {wg:.3f} ms wall / "
-              f"{bg:.3f} ms busy, eager / graph {we / wg:.2f}; outputs equal bit for bit: "
-              f"{same}", flush=True)
+    try:
+        for path in PATHS:
+            fn, n = runs[path]
+            out, stats = {}, {k: [] for k in runners}
+            for loop in runners:  # each loop's first call (side stream, pools) outside the turns
+                engine._run_graph = runners[loop]
+                smoke.wall_s(torch, fn)
+            for loop in LOOPS:
+                engine._run_graph = runners[loop]
+                out[loop] = _leaves(smoke.wall_s(torch, fn)[0])
+                walls = sorted(smoke.wall_s(torch, fn)[1] * 1e3 for _ in range(n))
+                busy, per = smoke.device_profile(torch, fn)
+                stats[loop].append((walls[n // 2], busy))
+                print(f"{path}, {loop} loop: wall median {walls[n // 2]:.3f} ms of {n} (min "
+                      f"{walls[0]:.3f}, max {walls[-1]:.3f}); device busy {busy:.3f} ms; "
+                      f"{sum(m for m, _ in per.values())} device kernels and copies",
+                      flush=True)
+            same = all(len(out[k]) == len(out["graph"]) and all(
+                smoke.same_bits(torch, a, b) for a, b in zip(out[k], out["graph"]))
+                for k in runners)
+            ok &= same
+            means = {k: [statistics.mean(x) for x in zip(*v)] for k, v in stats.items()}
+            print(f"{path}: " + ", ".join(f"{k} {w:.3f} ms wall / {b:.3f} ms busy"
+                                          for k, (w, b) in means.items())
+                  + f"; windowed / graph {means['windowed'][0] / means['graph'][0]:.2f}, "
+                  f"eager / graph {means['eager'][0] / means['graph'][0]:.2f}; outputs equal "
+                  f"bit for bit: {same}", flush=True)
+    finally:
+        engine._run_graph = graph
     return 0 if ok else 1
 
 
