@@ -20,13 +20,16 @@ Builds the port's CUDA kernels from csrc/ and runs, in order:
    shape and at a ladder rung (B = 10 000, T = 500, K = 4, S2 free);
    then kernels D and E (the LM step around B and C: lm_step_solve,
    lm_step_gate) against their plain versions from the same state at
-   those shapes, at K 1 and 3 with S2 fixed, and at K 5, 8 and 16 (D's
-   runtime-P variant): D's t_new, trial parameters and norms within
-   STEP_TOL of the plain version on every lane, NaN in both on exactly
-   the lanes whose damped matrix is not positive definite, its error
-   against a float64 solve at most twice the plain float32 version's; E
-   equal to its plain version bit for bit; relaunches bit for bit; their
-   times against their bounds;
+   those shapes, at K 1 and 3 with S2 fixed, at K 5, 8 and 16, and at
+   the lane groups' edges (P 8, 9, 16, 17, 32, 33 at B 1, 7, 1025): D's
+   t_new, trial parameters and norms within STEP_TOL of the plain version
+   on every lane, t_new bit for bit on every positive-definite lane
+   (STEP_BITS), NaN in both on exactly the lanes whose damped matrix is
+   not positive definite, its error against a float64 solve at most twice
+   the plain float32 version's; E equal to its plain version bit for bit;
+   relaunches bit for bit; their times against their bounds, as CUDA
+   events and as torch.profiler read them, and torch.linalg's Cholesky
+   solve of D's damped matrices beside D;
 3. the full-width forward step (32 Palmer chunks x 1000 frames x 1024
    N-H bonds, float32) on the card, counting kernel launches, held to the
    same forward on the CPU in float64 (C(t), rates, flags, median
@@ -525,6 +528,61 @@ def step_state(torch, cuda_lm, gen, K, s2f, B, T, not_pd=True):
     return solve, (c_new, c_old, t_new, pt_trial, stats), state, pt.clone(), gates, npd
 
 
+# D's share of positive-definite lanes whose t_new equals the plain
+# version's bit for bit may not fall below the one-thread-a-lane kernel's
+# on the same cases (1.0 in every run of it).
+STEP_BITS = 1.0
+# Phase 2's lane-group edges: P = 8, 9, 16, 17, 32, 33 (K 4, 8, 16, S2
+# fixed or free) at B = 1, 7, 1025, none a multiple of a block's lanes.
+STEP_EDGES = [(K, s2f, B, 64) for K in (4, 8, 16) for s2f in (False, True)
+              for B in (1, 7, 1025)]
+
+
+def damped(torch, H_p, g_p, t, lam, lo, span):
+    """Kernel D's damped matrix A (B, P, P) and right-hand side g (B, P),
+    as step_solve_plain forms them: what D's Cholesky solve takes."""
+    s = 1.0 / (1.0 + torch.exp(-t))
+    D = span * s * (1.0 - s)
+    H = H_p * D[:, :, None] * D[:, None, :]
+    eye = torch.eye(t.shape[1], dtype=t.dtype, device=t.device)
+    diag = torch.clamp(torch.diagonal(H, dim1=1, dim2=2), min=1e-12)
+    return H + lam[:, None, None] * eye * diag[:, None, :] * eye, g_p * D
+
+
+def profiled_us(torch, fn, key: str, reps: int) -> float:
+    """Kernel ``key``'s device time per launch as torch.profiler reads it
+    (CUPTI's kernel records), over a CUDA graph of reps launches of fn:
+    the measure of the in-situ times of phases 3, 5 and 6, on the launches
+    graph_ms times with CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    _, per = device_profile(torch, graph.replay,
+                            lambda per: kernel_times(per).get(key, (0,))[0] == reps, cpu=False)
+    n, us = kernel_times(per).get(key, (0, float("nan")))
+    check(n == reps, f"profiler saw {n} of {reps} graph launches of kernel {key}")
+    return us
+
+
+def timed_step_state(torch, cuda_lm, gen, K, s2f, B, T):
+    """step_state's inputs for timing kernels D and E (no lane that is not
+    positive definite), with E on a state it never freezes (every lane
+    improves, copies its row and column, and stays live): the same work
+    every launch.  -> (solve arguments, gate inputs, state, pt, gates)."""
+    solve, ins, state, pt, gates, _ = step_state(torch, cuda_lm, gen, K, s2f, B, T,
+                                                 not_pd=False)
+    c_new, c_old, t_new, pt_trial, stats = ins
+    ins = (0.5 * c_old, c_old, t_new, pt_trial, torch.ones_like(stats))
+    live = torch.ones((), dtype=torch.bool, device="cuda")
+    st = (state[0], torch.zeros_like(state[1]), state[2], state[3],
+          torch.full_like(state[4], float("inf")), torch.zeros_like(state[5]), live)
+    return solve, ins, st, pt, gates._replace(max_iter=2**31 - 1)
+
+
 def phase_step(torch, cuda_lm, times):
     """Phase 2's second half: kernels D and E against their plain versions
     from the same state, and their times in ``times``.  Its own generator,
@@ -536,8 +594,10 @@ def phase_step(torch, cuda_lm, times):
     cases = [(2, True, 1024, 500), (1, False, 1024, 500), (4, True, 10_000, 500),
              (3, False, 10_000, 500), (5, True, 10_000, 500), (8, True, 10_000, 500),
              (16, True, 1025, 499)]
-    for K, s2f, B, T in cases:
-        tag = f"K={K} s2_free={s2f} B={B}"
+    bits = []
+    for K, s2f, B, T in cases + STEP_EDGES:
+        edge = (K, s2f, B, T) in STEP_EDGES
+        tag = f"K={K} s2_free={s2f} (P {cuda_lm.n_par(K, s2f)}) B={B}"
         solve, ins, state, pt, gates, npd = step_state(torch, cuda_lm, gen, K, s2f, B, T)
         live = torch.ones((), dtype=torch.bool, device="cuda")
         got = cuda_lm.step_solve_cuda(*solve, live)
@@ -552,11 +612,13 @@ def phase_step(torch, cuda_lm, times):
             shares.append(float(near.all(dim=1 if name == "t_new" else 0).double().mean()))
         fin = (torch.isfinite(got[0]).all(1) & torch.isfinite(plain[0]).all(1)
                & torch.isfinite(ref[0]).all(1))
-        err_k = float((got[0].double() - ref[0]).abs().amax(1)[fin].mean())
-        err_p = float((plain[0].double() - ref[0]).abs().amax(1)[fin].mean())
+        err_k = float((got[0].double() - ref[0]).abs().amax(1)[fin].mean()) if fin.any() else 0.0
+        err_p = float((plain[0].double() - ref[0]).abs().amax(1)[fin].mean()) if fin.any() else 0.0
         diff = (got[0].double() - plain[0].double()).abs()[fin]
-        worst_d = max(worst_d, float(diff.max()))
+        worst_d = max(worst_d, float(diff.max()) if fin.any() else 0.0)
         same = float((got[0] == plain[0]).all(1).double().mean())
+        same_pd = (got[0] == plain[0]).all(1)[~npd]
+        bits.append((int(same_pd.sum()), int(same_pd.numel())))
         nan_k, nan_p = got[0].isnan().any(1), plain[0].isnan().any(1)
         check(torch.equal(nan_k, npd) and torch.equal(nan_p, npd),
               f"D {tag}: t_new NaN on exactly the {int(npd.sum())} lanes whose damped "
@@ -567,9 +629,19 @@ def phase_step(torch, cuda_lm, times):
               f"{STEP_TOL['atol']} of plain on {shares[0]:.5f} / {shares[1]:.5f} / "
               f"{shares[2]:.5f} of lanes (>= {STEP_TOL['share']}); t_new bit for bit on "
               f"{same:.4f}; live cleared")
-        check(err_k <= 2 * err_p + 1e-12 and float(fin.double().mean()) >= 0.99,
-              f"D {tag}: mean |t_new - f64 solve| {err_k:.3e} <= 2 x plain f32's {err_p:.3e} "
-              f"({float(fin.double().mean()):.4f} of lanes finite in all three)")
+        share_pd = float(same_pd.double().mean()) if same_pd.numel() else 1.0
+        check(share_pd >= STEP_BITS,
+              f"D {tag}: t_new bit for bit on {share_pd:.4f} of the {same_pd.numel()} "
+              f"positive-definite lanes (>= {STEP_BITS})")
+        if edge:  # few lanes, three of them (or all) not positive definite
+            check(torch.equal(fin, ~npd) and err_k <= 2 * err_p + 1e-12,
+                  f"D {tag}: finite in kernel, plain and float64 on exactly the "
+                  f"{int((~npd).sum())} positive-definite lanes; mean |t_new - f64 solve| "
+                  f"{err_k:.3e} <= 2 x plain f32's {err_p:.3e}")
+        else:
+            check(err_k <= 2 * err_p + 1e-12 and float(fin.double().mean()) >= 0.99,
+                  f"D {tag}: mean |t_new - f64 solve| {err_k:.3e} <= 2 x plain f32's "
+                  f"{err_p:.3e} ({float(fin.double().mean()):.4f} of lanes finite in all three)")
         check(all(torch.equal(a.view(torch.int32), b.view(torch.int32))
                   for a, b in zip(got, again)), f"D {tag}: relaunch bitwise equal")
         outs = []
@@ -582,28 +654,51 @@ def phase_step(torch, cuda_lm, times):
               and all(same_bits(torch, a, b) for a, b in zip(outs[0], outs[1])),
               f"E {tag}: state, next parameters and live equal the plain version's bit for "
               f"bit; relaunch bitwise equal")
+    n_same, n_pd = map(sum, zip(*bits))
+    print(f"  D: t_new bit for bit on {n_same} of {n_pd} positive-definite lanes "
+          f"({n_same / n_pd:.6f}) over {len(bits)} cases, P "
+          f"{sorted({cuda_lm.n_par(K, s2f) for K, s2f, _, _ in cases + STEP_EDGES})}",
+          flush=True)
 
     for key, (K, s2f, B, T), reps in (("fwd", (2, True, 1024, 500), 50),
                                       ("rung", (4, True, 10_000, 500), 20),
                                       ("k5", (5, True, 10_000, 500), 10),
                                       ("k8", (8, True, 10_000, 500), 10)):
-        solve, ins, state, pt, gates, _ = step_state(torch, cuda_lm, gen, K, s2f, B, T,
-                                                     not_pd=False)
-        live = torch.ones((), dtype=torch.bool, device="cuda")
-        # E on a state it never freezes (every lane improves, copies its row
-        # and column, and stays live): the same work every launch.
-        c_new, c_old, t_new, pt_trial, stats = ins
-        ins = (0.5 * c_old, c_old, t_new, pt_trial, torch.ones_like(stats))
-        st = (state[0], torch.zeros_like(state[1]), state[2], state[3],
-              torch.full_like(state[4], float("inf")), torch.zeros_like(state[5]), live)
-        gates = gates._replace(max_iter=2**31 - 1)
+        solve, ins, st, pt, gates = timed_step_state(torch, cuda_lm, gen, K, s2f, B, T)
+        live = st[-1]
         t = times[key]
+
+        def solve_d():
+            return cuda_lm.step_solve_cuda(*solve, live)
+
+        def gate_e():
+            return cuda_lm.step_gate_cuda(*ins, st, pt, gates)
+
         t["D"], t["D_plain"] = paired_ms(
-            torch, lambda: cuda_lm.step_solve_cuda(*solve, live),
-            lambda: cuda_lm.step_solve_plain(*solve, live), reps=reps, timer=graph_ms)
+            torch, solve_d, lambda: cuda_lm.step_solve_plain(*solve, live), reps=reps,
+            timer=graph_ms)
         t["E"], t["E_plain"] = paired_ms(
-            torch, lambda: cuda_lm.step_gate_cuda(*ins, st, pt, gates),
-            lambda: cuda_lm.step_gate_plain(*ins, st, pt, gates), reps=reps, timer=graph_ms)
+            torch, gate_e, lambda: cuda_lm.step_gate_plain(*ins, st, pt, gates), reps=reps,
+            timer=graph_ms)
+        # The same launches as torch.profiler reads them (the in-situ times'
+        # measure), and the damped solve alone by torch.linalg (a yardstick:
+        # never called on the path).
+        t["D_prof_us"] = profiled_us(torch, solve_d, "D", reps)
+        t["E_prof_us"] = profiled_us(torch, gate_e, "E", reps)
+        A, g = damped(torch, *solve)
+
+        def chol_solve():
+            L_, _ = torch.linalg.cholesky_ex(A)
+            return torch.cholesky_solve(g[:, :, None], L_)
+
+        try:
+            t["D_solve_library"], t["D_solve_library_by"] = (
+                graph_ms(torch, chol_solve, reps), "CUDA graph")
+        except RuntimeError as exc:  # not capturable: events over eager calls
+            print(f"  cholesky_ex + cholesky_solve not capturable ({exc}); timing eager calls",
+                  flush=True)
+            t["D_solve_library"], t["D_solve_library_by"] = (
+                cuda_ms(torch, chol_solve, reps), "eager calls")
         P = cuda_lm.n_par(K, s2f)
         t["D_bound"], t["D_by"] = step_bound(P, B, False)
         t["E_bound"], t["E_by"] = step_bound(
@@ -611,7 +706,11 @@ def phase_step(torch, cuda_lm, times):
         for k in "DE":
             print(f"  time {k} at {t['shape']}: kernel {t[k] * 1e3:.2f} us (plain "
                   f"{t[k + '_plain'] * 1e3:.2f} us), bound {t[k + '_bound'] * 1e3:.3f} us "
-                  f"({t[k + '_by']}), {t[k + '_bound'] / t[k]:.1%} of bound", flush=True)
+                  f"({t[k + '_by']}), {t[k + '_bound'] / t[k]:.1%} of bound; the profiler "
+                  f"reads {t[k + '_prof_us']:.2f} us a launch", flush=True)
+        print(f"  time of the damped solve alone at {t['shape']}: torch.linalg.cholesky_ex + "
+              f"cholesky_solve {t['D_solve_library'] * 1e3:.2f} us ({t['D_solve_library_by']})",
+              flush=True)
     return worst_d
 
 
@@ -698,8 +797,8 @@ def kernel_of(name: str):
     """'A' .. 'E' or None for a profiled kernel name: acf_lag_sums_kernel
     and acf_lag_sums_slab_kernel are A; lm_kernel<K, s2_free, FULL> and
     lm_kernel_wide<FULL> are B with FULL true, else C;
-    lm_step_solve_kernel<P> and lm_step_solve_wide_kernel are D,
-    lm_step_gate_kernel E."""
+    lm_step_solve_kernel<G> (G threads a lane) is D, lm_step_gate_kernel
+    E."""
     if "acf_lag_sums" in name:
         return "A"
     if "lm_step_solve" in name:
@@ -3023,7 +3122,15 @@ def main() -> int:
             launches_runall_fit=fit["launches"][i], launches_cli=cli_run["total"][i],
             **sharded_launches(sharded, i),
             **{f"{key}_{f}": t[x] for key, t in (("rung", rung), ("k5", k5), ("k8", k8))
-               for f, x in (("ms", k), ("plain_ms", k + "_plain"), ("bound_ms", k + "_bound"))}))
+               for f, x in (("ms", k), ("plain_ms", k + "_plain"), ("bound_ms", k + "_bound"))},
+            # per launch as torch.profiler reads it (the in-situ times' measure)
+            **{f"{key}_profiled_us": t[k + "_prof_us"]
+               for key, t in (("fwd", fwd_t), ("rung", rung), ("k5", k5), ("k8", k8))},
+            # D only: torch.linalg.cholesky_ex + cholesky_solve on D's damped
+            # matrices, the solve alone (a yardstick; never on the path)
+            **({f"{key}_solve_library_ms": t["D_solve_library"]
+                for key, t in (("fwd", fwd_t), ("rung", rung), ("k5", k5), ("k8", k8))}
+               if k == "D" else {})))
     print(gpu)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

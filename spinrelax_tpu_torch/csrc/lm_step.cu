@@ -24,179 +24,263 @@
 // ftol, xtol_rel while lam <= lam0, the stall window while lam <= 100
 // lam0, lam_stuck, max_iter), frozen lanes untouched; t and the (P, B)
 // constrained parameters of the next B move to t_new and p_trial where the
-// step is taken (so the step needs no separate sigmoid pass), and any lane
-// still live stores 1 into live (plain stores of one value: no atomics,
-// deterministic).
+// step is taken (so the step needs no separate sigmoid pass), and live is
+// set to 1 if any lane is still live (plain stores of one value: no
+// atomics, deterministic).
 //
-// What bounds them.  Bytes and latency, not operations: per lane D reads
+// What bounds them.  Latency, not bytes or operations: per lane D reads
 // H_p's lower triangle, g_p, t and lam (P(P+1)/2 + 2P + 1 floats) and
 // writes 2P + 3; at K = 2, S2 free (P = 5) and B = 1024 that is 0.15 MB,
 // 45 ns at 3.35 TB/s, and ~300 flops and 10 exps a lane.  E reads and
-// writes ~2P + 10 words a lane.  A launch is a few microseconds of latency
-// either way: the point of D and E is to replace ~211 launches a step with
-// 2.
+// writes ~2P + 10 words a lane.  What a launch takes is the chain of
+// dependent operations of one lane, and how many SMs share the lanes.
 //
-// Design.  One thread a lane: the lanes are independent, and P <= 33.
-// For P <= 9 (K <= 4, every rung of the default ladder and the forward)
-// lm_step_solve_kernel<P> keeps A, its factor and the substitutions in
-// registers (every loop unrolls); for P = 10..33 (K 5..16) the runtime-P
-// instance keeps each lane's arrays in shared memory, one 32-lane warp a
-// block, element e of lane l at [e * 32 + l] (no bank conflicts; up to
-// 84 KB a block), so nothing spills to local memory.  Every operation of
-// the solve is the plain version's (ops/cuda_lm.step_solve_plain, i.e.
-// fit.lm._chol_solve_small) in its order, written with the _rn intrinsics
-// that nvcc never contracts into an FMA, with IEEE division and square
-// root (no --use_fast_math): a non-positive-definite A gives NaN as the
-// plain version does, so the step is refused and lam triples.  D differs
-// from the plain version only through expf's rounding and the norms'
-// summation order.  E is selects, compares and single multiplies and adds
-// on the plain version's operands: it equals the plain version bit for
-// bit.  A lane's bits depend on nothing but that lane.
+// Design of D: one lane group of G threads a lane, G the smallest power of
+// two >= P, at least G_MIN and at most G_MAX (a group stays inside one
+// warp); thread r of the group owns rows r and r + G of the lane's matrix
+// (the second only at P = 33).  A block of D_THREADS threads holds
+// D_THREADS / G consecutive lanes, so that B 1024 at P 5 gives 128 blocks
+// and B 10 000 at P 9 gives 2500.
+//   - Staging.  The block's lanes' H_p slabs, g_p and t rows are one
+//     contiguous run each; the block copies each into shared memory with
+//     16-byte loads (scalar at the run's unaligned ends), then builds A row
+//     by row into a padded (P, P | 1) array per lane (an odd row stride:
+//     a group's threads read one column without bank conflicts).
+//   - Cholesky, row-parallel in fit.lm._chol_factor_small's order.  For
+//     column j every thread with a row i >= j forms A_ij - sum_{k<j}
+//     L_ik L_jk, k ascending; thread j takes the square root and 1 / d_j
+//     and broadcasts 1 / d_j by a shuffle; the rows below multiply by it.
+//     The chain a lane waits on falls from ~P^3/6 to ~P^2/2 operations.
+//   - Forward substitution as a wavefront: each thread keeps its row's
+//     running sum and subtracts L_ik y_k as y_k is broadcast, k ascending
+//     (the plain order); the chain falls from O(P^2) to O(P).
+//   - Back substitution on one thread of the group: the plain order (k =
+//     i+1 .. P-1 ascending) has no order-keeping parallel form.
+//   - Thread j does parameter j's sigmoid, chain-rule factor, t_new and
+//     trial parameter; one thread sums the norms in j order.
+// Every operation of the solve is the plain version's
+// (ops/cuda_lm.step_solve_plain, i.e. fit.lm._chol_solve_small) in its
+// order, written with the _rn intrinsics that nvcc never contracts into an
+// FMA, with IEEE division and square root (no --use_fast_math): a
+// non-positive-definite A gives NaN as the plain version does, so the step
+// is refused and lam triples.  D differs from the plain version only
+// through expf's rounding and the norms' summation order.
+//
+// Design of E: one thread a lane in blocks of E_THREADS; the (P, B)
+// parameter columns are copied lane by lane (coalesced across lanes); the
+// t rows of a warp's lanes, one contiguous run of 32 P floats, are copied
+// by the warp together, element e where lane e / P takes its step (that
+// flag fetched by a shuffle); live is stored once a warp, after
+// __any_sync.  E is selects, compares and single multiplies and adds on
+// the plain version's operands: it equals the plain version bit for bit.
+// A lane's bits in D and E depend on nothing but that lane.
 
+#include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int P_NARROW = 9;    // lm_step_solve_kernel<P> for P = 2..9
-constexpr int P_MAX = 33;      // the runtime-P instance: P = 10..33
-constexpr int D_THREADS = 128;  // lanes a block, register instances
-constexpr int W_LANES = 32;     // lanes a block, the runtime-P instance
-constexpr int E_THREADS = 256;
+constexpr int P_MAX = 33;
+constexpr int G_MIN = 8;    // lane-group sizes: G_MIN, 2 G_MIN, .., G_MAX
+constexpr int G_MAX = 32;
+constexpr int ROWS = 2;     // rows a thread owns at most: P_MAX <= ROWS * G_MAX
+constexpr int D_THREADS = 64;
+constexpr int E_THREADS = 64;
+constexpr unsigned FULL = 0xffffffffu;
+static_assert(P_MAX <= ROWS * G_MAX, "a thread owns at most ROWS rows");
 
-__host__ __device__ constexpr int tri(int P) { return P * (P + 1) / 2; }
-// Shared floats a runtime-P lane keeps: the packed lower triangle, then
-// t, the chain-rule factors D, and g / y / x.
-__host__ __device__ constexpr int wide_floats(int P) { return tri(P) + 3 * P; }
+__host__ __device__ constexpr int group_of(int P) {
+  int g = G_MIN;
+  while (g < P && g < G_MAX) g *= 2;
+  return g;
+}
+
+// A staged run of n floats: 3 floats of slack (the run keeps its source's
+// 16-byte phase), rounded up to whole float4s so the next run is aligned.
+__host__ __device__ constexpr int run_floats(int n) { return (n + 3 + 3) / 4 * 4; }
+
+// Shared floats of a block of D at P: the staged H_p, g_p and t runs, the
+// padded factor, and D, off, y, x per lane.
+__host__ __device__ constexpr int solve_smem_floats(int P) {
+  const int nl = D_THREADS / group_of(P);
+  return run_floats(nl * P * P) + 2 * run_floats(nl * P) + nl * P * (P | 1) + nl * 4 * P;
+}
+
+constexpr int max_solve_smem_floats() {
+  int m = 0;
+  for (int P = 2; P <= P_MAX; ++P) m = solve_smem_floats(P) > m ? solve_smem_floats(P) : m;
+  return m;
+}
+static_assert(max_solve_smem_floats() * 4 <= 48 * 1024, "D's shared memory fits 48 KB");
 
 // fit.lm._sigmoid: 1 / (1 + exp(-t)), each operation rounded on its own.
 __device__ __forceinline__ float sigmoid(float t) {
   return __fdiv_rn(1.f, __fadd_rn(1.f, expf(-t)));
 }
 
-// Register arrays (PT > 0: every index a constant once the loops unroll).
-template <int N>
-struct Regs {
-  float v[N];
-  __device__ float& operator[](int e) { return v[e]; }
-};
-
-// One lane's slice of the block's shared memory.
-struct Strided {
-  float* base;  // smem + lane
-  __device__ float& operator[](int e) { return base[e * W_LANES]; }
-};
-
-// The solve of one lane (see the header).  L holds tri(P) floats (A, then
-// its factor in place, row-packed lower triangle: (i, j) at i(i+1)/2 + j),
-// tv, dv, x P floats each.  PT > 0 is P at compile time.
-template <int PT, class ArrT, class ArrV>
-__device__ __forceinline__ void solve_lane(
-    ArrT& L, ArrV& tv, ArrV& dv, ArrV& x, int P_rt, long long b, int B,
-    const float* __restrict__ Hp, const float* __restrict__ gp,
-    const float* __restrict__ t, const float* __restrict__ lam,
-    const float* __restrict__ lo, const float* __restrict__ span,
-    float* __restrict__ t_new, float* __restrict__ pt, float* __restrict__ stats) {
-  const int P = PT > 0 ? PT : P_rt;
-  const float lb = lam[b];
-  const float* Hb = Hp + b * P * P;
-  float nt2 = 0.f;
-#pragma unroll
-  for (int j = 0; j < P; ++j) {
-    const float tj = t[b * P + j], s = sigmoid(tj);
-    tv[j] = tj;
-    dv[j] = __fmul_rn(__fmul_rn(span[j], s), __fsub_rn(1.f, s));
-    nt2 = __fadd_rn(nt2, __fmul_rn(tj, tj));
-  }
-  // A = H + ((lam I) diag) I, column by column: diag_j = max(H_jj, 1e-12)
-  // (NaN stays NaN, as torch.clamp), and an off-diagonal entry adds
-  // lam * 0 * diag_j * 0, NaN where lam or diag_j is not finite.
-#pragma unroll
-  for (int j = 0; j < P; ++j) {
-    const float hjj = __fmul_rn(__fmul_rn(Hb[j * P + j], dv[j]), dv[j]);
-    const float dg = isnan(hjj) ? hjj : fmaxf(hjj, (float)1e-12);
-    L[tri(j) + j] = __fadd_rn(hjj, __fmul_rn(__fmul_rn(__fmul_rn(lb, 1.f), dg), 1.f));
-    const float off = __fmul_rn(__fmul_rn(__fmul_rn(lb, 0.f), dg), 0.f);
-#pragma unroll
-    for (int i = j + 1; i < P; ++i)
-      L[tri(i) + j] = __fadd_rn(__fmul_rn(__fmul_rn(Hb[i * P + j], dv[i]), dv[j]), off);
-    x[j] = __fmul_rn(gp[b * P + j], dv[j]);
-  }
-  // Cholesky, fit.lm._chol_factor_small's order.
-#pragma unroll
-  for (int j = 0; j < P; ++j) {
-    float s = L[tri(j) + j];
-#pragma unroll
-    for (int k = 0; k < j; ++k) s = __fsub_rn(s, __fmul_rn(L[tri(j) + k], L[tri(j) + k]));
-    const float d = __fsqrt_rn(s), inv = __fdiv_rn(1.f, d);
-    L[tri(j) + j] = d;
-#pragma unroll
-    for (int i = j + 1; i < P; ++i) {
-      float s2 = L[tri(i) + j];
-#pragma unroll
-      for (int k = 0; k < j; ++k) s2 = __fsub_rn(s2, __fmul_rn(L[tri(i) + k], L[tri(j) + k]));
-      L[tri(i) + j] = __fmul_rn(s2, inv);
-    }
-  }
-  // fit.lm._chol_subst: L y = g, then L^T x = y, in place.
-#pragma unroll
-  for (int i = 0; i < P; ++i) {
-    float s = x[i];
-#pragma unroll
-    for (int k = 0; k < i; ++k) s = __fsub_rn(s, __fmul_rn(L[tri(i) + k], x[k]));
-    x[i] = __fdiv_rn(s, L[tri(i) + i]);
-  }
-#pragma unroll
-  for (int i = P - 1; i >= 0; --i) {
-    float s = x[i];
-#pragma unroll
-    for (int k = i + 1; k < P; ++k) s = __fsub_rn(s, __fmul_rn(L[tri(k) + i], x[k]));
-    x[i] = __fdiv_rn(s, L[tri(i) + i]);
-  }
-  // step = -x; t_new, the trial parameters of C, and the gates' norms.
-  float amax = 0.f, ns2 = 0.f;
-#pragma unroll
-  for (int j = 0; j < P; ++j) {
-    const float st = -x[j], a = fabsf(st);
-    amax = (isnan(a) || a > amax) ? a : amax;  // NaN propagates, as torch.amax
-    ns2 = __fadd_rn(ns2, __fmul_rn(st, st));
-    const float tn = __fadd_rn(tv[j], st);
-    t_new[b * P + j] = tn;
-    pt[(long long)j * B + b] = __fadd_rn(lo[j], __fmul_rn(span[j], sigmoid(tn)));
-  }
-  stats[b] = amax;
-  stats[B + b] = __fsqrt_rn(ns2);
-  stats[2LL * B + b] = __fsqrt_rn(nt2);
+// Copies src[0, n) into the run at buf (16-byte aligned, run_floats(n)
+// floats) with 16-byte loads where src's alignment allows, all D_THREADS
+// threads of the block taking every D_THREADS-th element; returns where
+// element 0 landed (buf plus src's phase).
+__device__ __forceinline__ const float* stage(float* buf, const float* __restrict__ src, int n) {
+  const int phase = (int)((reinterpret_cast<uintptr_t>(src) >> 2) & 3);
+  float* dst = buf + phase;
+  const int head = min(n, (4 - phase) & 3);
+  const int quads = (n - head) >> 2;
+  for (int e = threadIdx.x; e < head; e += D_THREADS) dst[e] = __ldg(src + e);
+  const float4* s4 = reinterpret_cast<const float4*>(src + head);
+  float4* d4 = reinterpret_cast<float4*>(dst + head);
+  for (int e = threadIdx.x; e < quads; e += D_THREADS) d4[e] = __ldg(s4 + e);
+  for (int e = head + 4 * quads + threadIdx.x; e < n; e += D_THREADS) dst[e] = __ldg(src + e);
+  return dst;
 }
 
-template <int PT>
+template <int G>
 __global__ void __launch_bounds__(D_THREADS)
 lm_step_solve_kernel(const float* __restrict__ Hp, const float* __restrict__ gp,
                      const float* __restrict__ t, const float* __restrict__ lam,
                      const float* __restrict__ lo, const float* __restrict__ span,
                      float* __restrict__ t_new, float* __restrict__ pt,
-                     float* __restrict__ stats, bool* __restrict__ live, int B) {
+                     float* __restrict__ stats, bool* __restrict__ live, int B, int P) {
+  constexpr int NL = D_THREADS / G;        // lanes a block
+  constexpr int R = G == G_MAX ? ROWS : 1;  // rows a thread (P <= G below G_MAX)
+  extern __shared__ float4 sm4[];
+  float* sm = reinterpret_cast<float*>(sm4);
   if (blockIdx.x == 0 && threadIdx.x == 0) *live = false;  // E sets it again
-  const long long b = (long long)blockIdx.x * D_THREADS + threadIdx.x;
-  if (b >= B) return;
-  Regs<tri(PT)> L;
-  Regs<PT> tv, dv, x;
-  solve_lane<PT>(L, tv, dv, x, PT, b, B, Hp, gp, t, lam, lo, span, t_new, pt, stats);
-}
+  const int r = threadIdx.x % G, l = threadIdx.x / G;
+  const long long b0 = (long long)blockIdx.x * NL, b = b0 + l;
+  const int nl = (int)min((long long)NL, (long long)B - b0);
+  const bool real = l < nl;  // a lane past B computes the identity's solve, stores nothing
+  const int PP = P * P, S = P | 1;
 
-__global__ void __launch_bounds__(W_LANES)
-lm_step_solve_wide_kernel(const float* __restrict__ Hp, const float* __restrict__ gp,
-                          const float* __restrict__ t, const float* __restrict__ lam,
-                          const float* __restrict__ lo, const float* __restrict__ span,
-                          float* __restrict__ t_new, float* __restrict__ pt,
-                          float* __restrict__ stats, bool* __restrict__ live, int B, int P) {
-  extern __shared__ float sm[];  // wide_floats(P) x W_LANES
-  if (blockIdx.x == 0 && threadIdx.x == 0) *live = false;
-  const long long b = (long long)blockIdx.x * W_LANES + threadIdx.x;
-  if (b >= B) return;
-  float* lane = sm + threadIdx.x;
-  Strided L{lane}, tv{lane + tri(P) * W_LANES}, dv{lane + (tri(P) + P) * W_LANES},
-      x{lane + (tri(P) + 2 * P) * W_LANES};
-  solve_lane<0>(L, tv, dv, x, P, b, B, Hp, gp, t, lam, lo, span, t_new, pt, stats);
+  float* buf = sm;
+  const float* hs = stage(buf, Hp + b0 * PP, nl * PP);
+  buf += run_floats(NL * PP);
+  const float* gs = stage(buf, gp + b0 * P, nl * P);
+  buf += run_floats(NL * P);
+  const float* ts = stage(buf, t + b0 * P, nl * P);
+  buf += run_floats(NL * P);
+  float* L = buf + l * P * S;  // row i, column k at i * S + k
+  buf += NL * P * S;
+  float* dv = buf + l * 4 * P;  // D, then off, y, x
+  float* off = dv + P;
+  float* y = dv + 2 * P;
+  float* x = dv + 3 * P;
+  __syncthreads();
+
+  const float* H = hs + l * PP;
+  const float lb = real ? __ldg(lam + b) : 0.f;
+  float di[R], f[R];  // D_i, then the forward substitution's running sum
+#pragma unroll
+  for (int q = 0; q < R; ++q) {
+    const int i = r + q * G;
+    if (i < P) {
+      const float ti = real ? ts[l * P + i] : 0.f, s = sigmoid(ti);
+      di[q] = __fmul_rn(__fmul_rn(__ldg(span + i), s), __fsub_rn(1.f, s));
+      dv[i] = di[q];
+      // A's diagonal: diag_i = max(H_ii, 1e-12) (NaN stays NaN, as
+      // torch.clamp); the entries of column i below it add lam * 0 *
+      // diag_i * 0, NaN where lam or diag_i is not finite.
+      const float hii = __fmul_rn(__fmul_rn(real ? H[i * P + i] : 1.f, di[q]), di[q]);
+      const float dg = isnan(hii) ? hii : fmaxf(hii, (float)1e-12);
+      L[i * S + i] = __fadd_rn(hii, __fmul_rn(__fmul_rn(__fmul_rn(lb, 1.f), dg), 1.f));
+      off[i] = __fmul_rn(__fmul_rn(__fmul_rn(lb, 0.f), dg), 0.f);
+      f[q] = __fmul_rn(real ? gs[l * P + i] : 0.f, di[q]);
+    }
+  }
+  __syncwarp();
+#pragma unroll
+  for (int q = 0; q < R; ++q) {
+    const int i = r + q * G;
+    if (i < P)
+      for (int j = 0; j < i; ++j)
+        L[i * S + j] = __fadd_rn(
+            __fmul_rn(__fmul_rn(real ? H[i * P + j] : 0.f, di[q]), dv[j]), off[j]);
+  }
+  __syncwarp();
+
+  // Cholesky, fit.lm._chol_factor_small's order, one column at a time.
+  for (int j = 0; j < P; ++j) {
+    float s[R];
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+      const int i = r + q * G;
+      s[q] = 0.f;
+      if (i >= j && i < P) {
+        float a = L[i * S + j];
+        for (int k = 0; k < j; ++k) a = __fsub_rn(a, __fmul_rn(L[i * S + k], L[j * S + k]));
+        s[q] = a;
+      }
+    }
+    const int owner = j % G;
+    float inv = 0.f;
+    if (r == owner) {
+      const float d = __fsqrt_rn(j >= G ? s[R - 1] : s[0]);
+      inv = __fdiv_rn(1.f, d);
+      L[j * S + j] = d;
+    }
+    inv = __shfl_sync(FULL, inv, owner, G);
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+      const int i = r + q * G;
+      if (i > j && i < P) L[i * S + j] = __fmul_rn(s[q], inv);
+    }
+    __syncwarp();
+  }
+
+  // fit.lm._chol_subst: L y = g as a wavefront (y_k broadcast, k ascending)...
+  for (int k = 0; k < P; ++k) {
+    const int owner = k % G;
+    float yk = 0.f;
+    if (r == owner) {
+      yk = __fdiv_rn(k >= G ? f[R - 1] : f[0], L[k * S + k]);
+      y[k] = yk;
+    }
+    yk = __shfl_sync(FULL, yk, owner, G);
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+      const int i = r + q * G;
+      if (i > k && i < P) f[q] = __fsub_rn(f[q], __fmul_rn(L[i * S + k], yk));
+    }
+  }
+  __syncwarp();
+  // ... then L^T x = y on one thread, x_{i+1} kept in a register.
+  if (r == 0) {
+    float xp = 0.f;
+    for (int i = P - 1; i >= 0; --i) {
+      float a = y[i];
+      if (i + 1 < P) a = __fsub_rn(a, __fmul_rn(L[(i + 1) * S + i], xp));
+      for (int k = i + 2; k < P; ++k) a = __fsub_rn(a, __fmul_rn(L[k * S + i], x[k]));
+      xp = __fdiv_rn(a, L[i * S + i]);
+      x[i] = xp;
+    }
+  }
+  __syncwarp();
+  if (!real) return;
+
+  // step = -x; t_new and the trial parameters of C, one parameter a thread.
+#pragma unroll
+  for (int q = 0; q < R; ++q) {
+    const int j = r + q * G;
+    if (j < P) {
+      const float tn = __fadd_rn(ts[l * P + j], -x[j]);
+      t_new[b * P + j] = tn;
+      pt[(long long)j * B + b] = __fadd_rn(__ldg(lo + j), __fmul_rn(__ldg(span + j), sigmoid(tn)));
+    }
+  }
+  // The gates' norms, summed in j order.
+  if (r == 0) {
+    float amax = 0.f, ns2 = 0.f, nt2 = 0.f;
+    for (int j = 0; j < P; ++j) {
+      const float st = -x[j], a = fabsf(st), tj = ts[l * P + j];
+      amax = (isnan(a) || a > amax) ? a : amax;  // NaN propagates, as torch.amax
+      ns2 = __fadd_rn(ns2, __fmul_rn(st, st));
+      nt2 = __fadd_rn(nt2, __fmul_rn(tj, tj));
+    }
+    stats[b] = amax;
+    stats[B + b] = __fsqrt_rn(ns2);
+    stats[2LL * B + b] = __fsqrt_rn(nt2);
+  }
 }
 
 __global__ void __launch_bounds__(E_THREADS)
@@ -210,42 +294,74 @@ lm_step_gate_kernel(const float* __restrict__ c_new, const float* __restrict__ c
                     float ftol_window, float xtol_rel, float lam0, float lam_mark,
                     float lam_stuck) {
   const long long b = (long long)blockIdx.x * E_THREADS + threadIdx.x;
-  if (b >= B) return;
-  bool dn = done[b];
-  int itb = it[b];
-  const bool frozen = dn || itb >= max_iter;
-  if (!frozen) {
-    const float cn = c_new[b], co = c_old[b], lb = lam[b], cb = c_best[b], cm = c_mark[b];
-    const bool improved = cn < co && isfinite(cn);
-    const float up = __fmul_rn(lb, (float)0.33), down = __fmul_rn(lb, (float)3.0);
-    const float lam_next = improved ? (isnan(up) ? up : fmaxf(up, (float)1e-12))
-                                    : (isnan(down) ? down : fminf(down, (float)1e10));
-    const bool small = stats[b] < xtol;
-    const bool flat = improved && __fsub_rn(co, cn) <= __fmul_rn(co, ftol);
-    const bool small_rel = improved && lb <= lam0
-        && stats[B + b] < __fmul_rn(__fadd_rn(stats[2LL * B + b], xtol_rel), xtol_rel);
-    // torch.minimum: NaN wins.
-    const float m1 = isfinite(co) ? co : cb, m2 = isfinite(cn) ? cn : cb;
-    const float mm = isnan(cb) ? cb : (isnan(m1) ? m1 : fminf(cb, m1));
-    const float cbn = isnan(mm) ? mm : (isnan(m2) ? m2 : fminf(mm, m2));
-    const bool at_window = (itb + 1) % window == 0;
-    const bool stalled = at_window && isfinite(cm) && lam_next <= lam_mark
-        && __fsub_rn(cm, cbn) <= __fmul_rn(cbn, ftol_window);
-    dn = (improved && small) || flat || small_rel || stalled || lam_next >= lam_stuck;
-    itb += 1;
-    if (at_window) c_mark[b] = cbn;
-    c_best[b] = cbn;
-    lam[b] = lam_next;
-    it[b] = itb;
-    done[b] = dn;
-    if (improved) {
-      for (int j = 0; j < P; ++j) {
-        t[b * P + j] = t_new[b * P + j];
-        pt[(long long)j * B + b] = pt_trial[(long long)j * B + b];
+  bool take = false, alive = false;  // this lane takes its step; is still live
+  if (b < B) {
+    bool dn = done[b];
+    int itb = it[b];
+    const bool frozen = dn || itb >= max_iter;
+    if (!frozen) {
+      const float cn = c_new[b], co = c_old[b], lb = lam[b], cb = c_best[b], cm = c_mark[b];
+      const bool improved = cn < co && isfinite(cn);
+      const float up = __fmul_rn(lb, (float)0.33), down = __fmul_rn(lb, (float)3.0);
+      const float lam_next = improved ? (isnan(up) ? up : fmaxf(up, (float)1e-12))
+                                      : (isnan(down) ? down : fminf(down, (float)1e10));
+      const bool small = stats[b] < xtol;
+      const bool flat = improved && __fsub_rn(co, cn) <= __fmul_rn(co, ftol);
+      const bool small_rel = improved && lb <= lam0
+          && stats[B + b] < __fmul_rn(__fadd_rn(stats[2LL * B + b], xtol_rel), xtol_rel);
+      // torch.minimum: NaN wins.
+      const float m1 = isfinite(co) ? co : cb, m2 = isfinite(cn) ? cn : cb;
+      const float mm = isnan(cb) ? cb : (isnan(m1) ? m1 : fminf(cb, m1));
+      const float cbn = isnan(mm) ? mm : (isnan(m2) ? m2 : fminf(mm, m2));
+      const bool at_window = (itb + 1) % window == 0;
+      const bool stalled = at_window && isfinite(cm) && lam_next <= lam_mark
+          && __fsub_rn(cm, cbn) <= __fmul_rn(cbn, ftol_window);
+      dn = (improved && small) || flat || small_rel || stalled || lam_next >= lam_stuck;
+      itb += 1;
+      if (at_window) c_mark[b] = cbn;
+      c_best[b] = cbn;
+      lam[b] = lam_next;
+      it[b] = itb;
+      done[b] = dn;
+      take = improved;
+      if (improved)
+        for (int j = 0; j < P; ++j) pt[(long long)j * B + b] = pt_trial[(long long)j * B + b];
+    }
+    alive = !dn && itb < max_iter;
+  }
+  // The t rows of the warp's lanes, one run of n P floats, by the warp:
+  // element e = q P + c where lane q takes its step.
+  const int lane = threadIdx.x % 32;
+  const long long w0 = b - lane;
+  if (w0 < B) {
+    const int n = (int)min(32LL, (long long)B - w0) * P;
+    const float* src = t_new + w0 * P;
+    float* dst = t + w0 * P;
+    const int dq = 32 / P, dc = 32 % P;
+    int q = lane / P, c = lane % P;
+    for (int e = lane; e < 32 * P; e += 32) {
+      const bool tk = __shfl_sync(FULL, take, q);
+      if (tk && e < n) dst[e] = src[e];
+      q += dq;
+      c += dc;
+      if (c >= P) {
+        c -= P;
+        ++q;
       }
     }
   }
-  if (!dn && itb < max_iter) *live = true;
+  if (__any_sync(FULL, alive) && lane == 0) *live = true;
+}
+
+template <int G>
+cudaError_t launch_solve(const float* Hp, const float* gp, const float* t, const float* lam,
+                         const float* lo, const float* span, float* t_new, float* pt,
+                         float* stats, bool* live, int B, int P, cudaStream_t s) {
+  constexpr int NL = D_THREADS / G;
+  lm_step_solve_kernel<G><<<(B + NL - 1) / NL, D_THREADS,
+                            solve_smem_floats(P) * sizeof(float), s>>>(
+      Hp, gp, t, lam, lo, span, t_new, pt, stats, live, B, P);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -260,29 +376,11 @@ int lm_step_solve_f32(const float* Hp, const float* gp, const float* t, const fl
                       float* stats, bool* live, int B, int P, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
   if (B <= 0 || P < 2 || P > P_MAX) return (int)cudaErrorInvalidValue;
-  if (P > P_NARROW) {
-    const int smem = wide_floats(P) * W_LANES * (int)sizeof(float);
-    if (smem > 48 * 1024) {
-      const cudaError_t e = cudaFuncSetAttribute(
-          lm_step_solve_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-      if (e != cudaSuccess) return (int)e;
-    }
-    lm_step_solve_wide_kernel<<<(B + W_LANES - 1) / W_LANES, W_LANES, smem, s>>>(
-        Hp, gp, t, lam, lo, span, t_new, pt, stats, live, B, P);
-    return (int)cudaGetLastError();
+  switch (group_of(P)) {
+    case 8: return (int)launch_solve<8>(Hp, gp, t, lam, lo, span, t_new, pt, stats, live, B, P, s);
+    case 16: return (int)launch_solve<16>(Hp, gp, t, lam, lo, span, t_new, pt, stats, live, B, P, s);
+    default: return (int)launch_solve<32>(Hp, gp, t, lam, lo, span, t_new, pt, stats, live, B, P, s);
   }
-  const int grid = (B + D_THREADS - 1) / D_THREADS;
-#define SOLVE(PP)                                                        \
-  case PP:                                                               \
-    lm_step_solve_kernel<PP><<<grid, D_THREADS, 0, s>>>(                 \
-        Hp, gp, t, lam, lo, span, t_new, pt, stats, live, B);            \
-    break;
-  switch (P) {
-    SOLVE(2) SOLVE(3) SOLVE(4) SOLVE(5) SOLVE(6) SOLVE(7) SOLVE(8) SOLVE(9)
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef SOLVE
-  return (int)cudaGetLastError();
 }
 
 // c_new, c_old (B,), t_new (B, P), pt_trial (P, B), stats (3, B) -> in

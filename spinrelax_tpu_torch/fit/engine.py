@@ -37,7 +37,6 @@ from .lm import (
     MultiExpFit, _finalise_multiexp, _init_multiexp, _mm, _multiexp_res_jac,
     _spd_inv_diag_small, _to_constrained, _to_unconstrained,
 )
-from .lm import _chol_solve_small  # noqa: F401  (the tests' copy of the pre-step loop)
 
 
 def _bounds(K: int, s2_free: bool, tau_max, dtype, device):

@@ -385,7 +385,7 @@ def _old_engine(dt, decay, sigma, K: int, s2_free: bool,
         g = g_p * D
         diag = torch.clamp(torch.diagonal(H, dim1=1, dim2=2), min=1e-12)
         A = H + lam[:, None, None] * eye * diag[:, None, :] * eye
-        step_v = -teng._chol_solve_small(A, g)
+        step_v = -tlm._chol_solve_small(A, g)
         t_new = t + step_v
         c_new = cuda_lm.cost(pt_of_t(t_new), y_t, isg_t, dt, K, s2_free)
         improved = (c_new < c_old) & torch.isfinite(c_new)

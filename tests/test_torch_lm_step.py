@@ -215,7 +215,9 @@ def _c_params(src: str, name: str):
 def test_step_kernels_c_signatures_match_ctypes():
     """The C entry points of csrc/lm_step.cu take, in order, what
     _build._SIGNATURES tells ctypes to pass (a pointer, int or float
-    each), and the source's P_MAX is the P of K = K_MAX with S2 free."""
+    each), the source's P_MAX is the P of K = K_MAX with S2 free, and
+    kernel D's lane groups (at most G_MAX threads, each owning at most
+    ROWS rows) stay inside one warp and cover P_MAX rows."""
     src = (Path(_build.CSRC) / "lm_step.cu").read_text()
     kinds = {_build._P: "*", _build._I: "int ", _build._F: "float "}
     for name in ("lm_step_solve_f32", "lm_step_gate_f32"):
@@ -225,7 +227,9 @@ def test_step_kernels_c_signatures_match_ctypes():
         for p, c in zip(params, sig):
             assert kinds[c] in p, (name, p)
     assert f"constexpr int P_MAX = {cuda_lm.n_par(cuda_lm.K_MAX, True)};" in src
-    assert f"constexpr int P_NARROW = {cuda_lm.n_par(cuda_lm.K_NARROW, True)};" in src
+    g_max, rows = (int(re.search(rf"constexpr int {n} = (\d+);", src).group(1))
+                   for n in ("G_MAX", "ROWS"))
+    assert g_max <= 32 and rows * g_max >= cuda_lm.n_par(cuda_lm.K_MAX, True)
 
 
 def test_step_dispatch_takes_the_plain_route_on_the_cpu(rng):

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time two checkouts' LM kernels B and C, and the paths over their LM
+"""Time two checkouts' LM kernels B to E, and the paths over their LM
 (the forward, the DoF ladder, the streamed finish), on one GPU.
 
     python3 tools/torch_lm_ab.py OLD_ROOT [NEW_ROOT]
@@ -8,14 +8,18 @@ OLD_ROOT and NEW_ROOT (default: the checkout holding this script) are
 roots of two checkouts of the repository whose
 ``spinrelax_tpu_torch/csrc/lm_hgc.cu`` export ``lm_hgc_f32`` and
 ``lm_cost_f32`` with one C signature (p, y, isg, dt, out, T, B, K,
-s2_free, stream).  The script builds each checkout's kernel library with
-that checkout's ``_build.py`` and prints:
+s2_free, stream), and whose ``csrc/lm_step.cu`` export
+``lm_step_solve_f32`` and ``lm_step_gate_f32`` with one C signature each.
+The script builds each checkout's kernel library with that checkout's
+``_build.py`` and prints:
 
-1. each kernel's device time per launch at the forward's shape (B 1024,
-   T 500, K 2, S2 free) and at a ladder rung (B 10 000, T 500, K 4, S2
-   free): CUDA events around a CUDA graph of back-to-back launches
+1. each kernel's device time per launch: B and C at the forward's shape
+   (B 1024, T 500, K 2, S2 free) and at a ladder rung (B 10 000, T 500,
+   K 4, S2 free), D and E there and at B 10 000, K 5 and K 8 (on
+   ``chip_smoke.timed_step_state``, one state for both checkouts): CUDA
+   events around a CUDA graph of back-to-back launches
    (``chip_smoke.graph_ms``), timed in turns old, new, new, old, beside
-   the bound ``chip_smoke.lm_bound`` computes;
+   the bound ``chip_smoke.lm_bound`` / ``step_bound`` computes;
 2. each checkout's full-width forward (32 x 1000 x 1024, f32), DoF
    ladder (``fit_ct_ladder`` on ``entry.hetero_cohort`` at 10 000 x 500,
    chip_smoke phase 5's input) and streamed finish (``run_finish`` on
@@ -56,6 +60,7 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parents[1]
 SHAPES = ((2, True, 1024, 500, 50), (4, True, 10_000, 500, 20))  # K, s2_free, B, T, reps
+STEP_SHAPES = SHAPES + ((5, True, 10_000, 500, 10), (8, True, 10_000, 500, 10))
 
 
 def _module(name: str, path: Path):
@@ -122,9 +127,13 @@ def paths_run(root: Path) -> dict:
     return out
 
 
-def kernel_times(torch, roots) -> None:
-    libs = [_module(f"_build_ab{i}", r / "spinrelax_tpu_torch" / "_build.py").load()
+def load_libs(roots) -> list:
+    """Each checkout's kernel library, built by that checkout's _build.py."""
+    return [_module(f"_build_ab{i}", r / "spinrelax_tpu_torch" / "_build.py").load()
             for i, r in enumerate(roots)]
+
+
+def kernel_times(torch, libs) -> None:
     gen = torch.Generator(device="cuda").manual_seed(3)
     for K, s2f, B, T, reps in SHAPES:
         p, y, isg, dt = smoke.lm_operands(torch, gen, K, s2f, B, T)
@@ -146,6 +155,42 @@ def kernel_times(torch, roots) -> None:
             t_old, t_new = smoke.paired_ms(torch, old, new, reps=reps, timer=smoke.graph_ms)
             bound, by = smoke.lm_bound(K, s2f, B, T, full)
             print(f"{kern} at B {B}, T {T}, K {K}, S2 {'free' if s2f else 'fixed'}: "
+                  f"old {t_old * 1e3:.3f} us ({bound / t_old:.2%} of bound), new "
+                  f"{t_new * 1e3:.3f} us ({bound / t_new:.2%} of bound), bound "
+                  f"{bound * 1e3:.3f} us ({by}); old / new {t_old / t_new:.2f}",
+                  flush=True)
+
+
+def step_kernel_times(torch, libs) -> None:
+    """Kernels D and E of both libraries on one state a shape."""
+    sys.path.insert(0, str(HERE))
+    from spinrelax_tpu_torch.ops import cuda_lm
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    for K, s2f, B, T, reps in STEP_SHAPES:
+        solve, ins, st, pt, g = smoke.timed_step_state(torch, cuda_lm, gen, K, s2f, B, T)
+        P = cuda_lm.n_par(K, s2f)
+        out = torch.empty(B * (2 * P + 3), device="cuda")
+        outs = (out[: B * P], out[B * P : 2 * B * P], out[2 * B * P :])
+        args = {"lm_step_solve_f32": [x.data_ptr() for x in (*solve, *outs, st[-1])] + [B, P],
+                "lm_step_gate_f32": [x.data_ptr() for x in (*ins, *st, pt)] + [
+                    B, P, g.max_iter, g.window, g.xtol, g.ftol, g.window * g.ftol,
+                    g.xtol_rel, g.lam0, 100.0 * g.lam0, g.lam_stuck]}
+        at_window = int(((st[2] + 1) % g.window == 0).sum())
+        for kern, gate in (("lm_step_solve_f32", False), ("lm_step_gate_f32", True)):
+            def launcher(lib):
+                fn = getattr(lib, kern)
+
+                def go():
+                    code = fn(*args[kern], torch.cuda.current_stream().cuda_stream)
+                    if code:
+                        raise RuntimeError(f"{kern}: CUDA error {code}")
+                return go
+
+            old, new = (launcher(lib) for lib in libs)
+            t_old, t_new = smoke.paired_ms(torch, old, new, reps=reps, timer=smoke.graph_ms)
+            bound, by = smoke.step_bound(P, B, gate, improved=B, at_window=at_window)
+            print(f"{kern} at B {B}, K {K}, S2 {'free' if s2f else 'fixed'} (P {P}): "
                   f"old {t_old * 1e3:.3f} us ({bound / t_old:.2%} of bound), new "
                   f"{t_new * 1e3:.3f} us ({bound / t_new:.2%} of bound), bound "
                   f"{bound * 1e3:.3f} us ({by}); old / new {t_old / t_new:.2f}",
@@ -268,7 +313,9 @@ def main(argv) -> int:
         return 3
     print(smoke.gpu_line(), flush=True)
     print(f"old {roots[0]}\nnew {roots[1]}", flush=True)
-    kernel_times(torch, roots)
+    libs = load_libs(roots)
+    kernel_times(torch, libs)
+    step_kernel_times(torch, libs)
     runs = {0: [], 1: []}
     for side in (0, 1, 1, 0):
         res = subprocess.run([sys.executable, __file__, "--paths", str(roots[side])],
