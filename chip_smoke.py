@@ -797,8 +797,8 @@ def kernel_of(name: str):
     """'A' .. 'E' or None for a profiled kernel name: acf_lag_sums_kernel
     and acf_lag_sums_slab_kernel are A; lm_kernel<K, s2_free, FULL> and
     lm_kernel_wide<FULL> are B with FULL true, else C;
-    lm_step_solve_kernel<G> (G threads a lane) is D, lm_step_gate_kernel
-    E."""
+    lm_step_solve_kernel<P, G> (a group of G threads a lane) is D,
+    lm_step_gate_kernel E."""
     if "acf_lag_sums" in name:
         return "A"
     if "lm_step_solve" in name:

@@ -32,48 +32,58 @@
 // H_p's lower triangle, g_p, t and lam (P(P+1)/2 + 2P + 1 floats) and
 // writes 2P + 3; at K = 2, S2 free (P = 5) and B = 1024 that is 0.15 MB,
 // 45 ns at 3.35 TB/s, and ~300 flops and 10 exps a lane.  E reads and
-// writes ~2P + 10 words a lane.  What a launch takes is the chain of
-// dependent operations of one lane, and how many SMs share the lanes.
+// writes ~2P + 10 words a lane.  D's time is one lane's chain of dependent
+// IEEE square roots and divisions (P of each in the factor, P in each
+// substitution) and, at B 10 000, the instructions every warp issues for
+// its lanes; E's is the launch and two memory round trips.
 //
-// Design of D: one lane group of G threads a lane, G the smallest power of
-// two >= P, at least G_MIN and at most G_MAX (a group stays inside one
-// warp); thread r of the group owns rows r and r + G of the lane's matrix
-// (the second only at P = 33).  A block of D_THREADS threads holds
-// D_THREADS / G consecutive lanes, so that B 1024 at P 5 gives 128 blocks
-// and B 10 000 at P 9 gives 2500.
+// Design of D: a lane group of G threads a lane, thread r of the group
+// owning rows r, r + G, .. (at most ROWS) of the lane's matrix, G the
+// smallest power of two >= G_MIN with P <= ROWS G (group_of: G 4 for
+// P <= 16, 8 for P <= 32, 16 at P 33), so a group stays inside one warp
+// and a warp holds 32 / G lanes.  G >= P (one row a thread) was measured
+// and lost at B 10 000: every warp issues its lanes' whole sequential
+// chain of divisions and square roots, for 2 lanes at G 16 where G 4
+// serves 8 (tools/torch_lm_step_probe.py --groups).
+// A block of D_THREADS threads holds D_THREADS / G consecutive lanes.  P
+// is a template parameter: every loop unrolls and a thread keeps its rows
+// of A (then L), y and x in registers.
 //   - Staging.  The block's lanes' H_p slabs, g_p and t rows are one
 //     contiguous run each; the block copies each into shared memory with
-//     16-byte loads (scalar at the run's unaligned ends), then builds A row
-//     by row into a padded (P, P | 1) array per lane (an odd row stride:
-//     a group's threads read one column without bank conflicts).
+//     16-byte loads (scalar at the run's unaligned ends), after loading
+//     its own scalars (lam, span, lo), so no global round trip follows the
+//     barrier.  Each thread then builds its rows of A from the slab.
 //   - Cholesky, row-parallel in fit.lm._chol_factor_small's order.  For
-//     column j every thread with a row i >= j forms A_ij - sum_{k<j}
-//     L_ik L_jk, k ascending; thread j takes the square root and 1 / d_j
-//     and broadcasts 1 / d_j by a shuffle; the rows below multiply by it.
-//     The chain a lane waits on falls from ~P^3/6 to ~P^2/2 operations.
-//   - Forward substitution as a wavefront: each thread keeps its row's
-//     running sum and subtracts L_ik y_k as y_k is broadcast, k ascending
-//     (the plain order); the chain falls from O(P^2) to O(P).
-//   - Back substitution on one thread of the group: the plain order (k =
-//     i+1 .. P-1 ascending) has no order-keeping parallel form.
-//   - Thread j does parameter j's sigmoid, chain-rule factor, t_new and
-//     trial parameter; one thread sums the norms in j order.
+//     column j every row i >= j forms A_ij - sum_{k<j} L_ik L_jk, k
+//     ascending, with row j's entries shuffled from its thread; every
+//     thread takes d_j and 1 / d_j from row j's sum (shuffled), so the
+//     group needs no branch.
+//   - Forward substitution as a wavefront: each row keeps its running sum
+//     and subtracts L_ik y_k as y_k = sum_k / d_k is shuffled out, k
+//     ascending (the plain order); every thread then holds every y_k.
+//   - Back substitution, every thread alike: x_i = (y_i - sum_{k>i} L_ki
+//     x_k) / d_i, k ascending (the plain order has no order-keeping
+//     parallel form), column i of L shuffled from its rows.
+//   - The thread of row j does parameter j's sigmoid, chain-rule factor,
+//     t_new and trial parameter; thread 0 sums the norms in j order.
 // Every operation of the solve is the plain version's
 // (ops/cuda_lm.step_solve_plain, i.e. fit.lm._chol_solve_small) in its
 // order, written with the _rn intrinsics that nvcc never contracts into an
-// FMA, with IEEE division and square root (no --use_fast_math): a
-// non-positive-definite A gives NaN as the plain version does, so the step
-// is refused and lam triples.  D differs from the plain version only
-// through expf's rounding and the norms' summation order.
+// FMA, with IEEE division, reciprocal and square root (no
+// --use_fast_math): a non-positive-definite A gives NaN as the plain
+// version does, so the step is refused and lam triples.  D differs from
+// the plain version only through expf's rounding and the norms' summation
+// order.
 //
-// Design of E: one thread a lane in blocks of E_THREADS; the (P, B)
-// parameter columns are copied lane by lane (coalesced across lanes); the
-// t rows of a warp's lanes, one contiguous run of 32 P floats, are copied
-// by the warp together, element e where lane e / P takes its step (that
-// flag fetched by a shuffle); live is stored once a warp, after
-// __any_sync.  E is selects, compares and single multiplies and adds on
-// the plain version's operands: it equals the plain version bit for bit.
-// A lane's bits in D and E depend on nothing but that lane.
+// Design of E: one thread a lane in blocks of E_THREADS; a lane that takes
+// its step copies its column of the (P, B) trial parameters (coalesced
+// across lanes); the t rows of a warp's lanes, one contiguous run of 32 P
+// floats, are copied by the warp together, element e where lane e / P
+// takes its step (the warp's flags fetched by one __ballot_sync); live is
+// stored once a warp, after __any_sync.  E is selects, compares and
+// single multiplies and adds on the plain version's operands: it equals
+// the plain version bit for bit.  A lane's bits in D and E depend on
+// nothing but that lane.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -81,17 +91,19 @@
 namespace {
 
 constexpr int P_MAX = 33;
-constexpr int G_MIN = 8;    // lane-group sizes: G_MIN, 2 G_MIN, .., G_MAX
+constexpr int G_MIN = 4;    // lane-group sizes: G_MIN, 2 G_MIN, .., G_MAX
 constexpr int G_MAX = 32;
-constexpr int ROWS = 2;     // rows a thread owns at most: P_MAX <= ROWS * G_MAX
+constexpr int ROWS = 4;     // rows a thread owns at most: P_MAX <= ROWS * G_MAX
 constexpr int D_THREADS = 64;
 constexpr int E_THREADS = 64;
 constexpr unsigned FULL = 0xffffffffu;
 static_assert(P_MAX <= ROWS * G_MAX, "a thread owns at most ROWS rows");
 
+// The group size at P: the smallest G >= G_MIN whose threads own at most
+// ROWS rows each (G 4 for P <= 16, 8 for P <= 32, 16 at P 33).
 __host__ __device__ constexpr int group_of(int P) {
   int g = G_MIN;
-  while (g < P && g < G_MAX) g *= 2;
+  while (g * ROWS < P && g < G_MAX) g *= 2;
   return g;
 }
 
@@ -99,23 +111,10 @@ __host__ __device__ constexpr int group_of(int P) {
 // 16-byte phase), rounded up to whole float4s so the next run is aligned.
 __host__ __device__ constexpr int run_floats(int n) { return (n + 3 + 3) / 4 * 4; }
 
-// Shared floats of a block of D at P: the staged H_p, g_p and t runs, the
-// padded factor, and D, off, y, x per lane.
-__host__ __device__ constexpr int solve_smem_floats(int P) {
-  const int nl = D_THREADS / group_of(P);
-  return run_floats(nl * P * P) + 2 * run_floats(nl * P) + nl * P * (P | 1) + nl * 4 * P;
-}
-
-constexpr int max_solve_smem_floats() {
-  int m = 0;
-  for (int P = 2; P <= P_MAX; ++P) m = solve_smem_floats(P) > m ? solve_smem_floats(P) : m;
-  return m;
-}
-static_assert(max_solve_smem_floats() * 4 <= 48 * 1024, "D's shared memory fits 48 KB");
-
-// fit.lm._sigmoid: 1 / (1 + exp(-t)), each operation rounded on its own.
+// fit.lm._sigmoid: 1 / (1 + exp(-t)), each operation rounded on its own
+// (__frcp_rn(x) is 1 / x correctly rounded: __fdiv_rn(1, x)'s bits).
 __device__ __forceinline__ float sigmoid(float t) {
-  return __fdiv_rn(1.f, __fadd_rn(1.f, expf(-t)));
+  return __frcp_rn(__fadd_rn(1.f, expf(-t)));
 }
 
 // Copies src[0, n) into the run at buf (16-byte aligned, run_floats(n)
@@ -135,127 +134,118 @@ __device__ __forceinline__ const float* stage(float* buf, const float* __restric
   return dst;
 }
 
-template <int G>
+// Value v of the group's thread that owns row j (row j / G of thread j % G).
+template <int G, int R>
+__device__ __forceinline__ float row_of(const float (&v)[R], int j) {
+  return __shfl_sync(FULL, v[j / G], j % G, G);
+}
+
+template <int P, int G>
 __global__ void __launch_bounds__(D_THREADS)
 lm_step_solve_kernel(const float* __restrict__ Hp, const float* __restrict__ gp,
                      const float* __restrict__ t, const float* __restrict__ lam,
                      const float* __restrict__ lo, const float* __restrict__ span,
                      float* __restrict__ t_new, float* __restrict__ pt,
-                     float* __restrict__ stats, bool* __restrict__ live, int B, int P) {
-  constexpr int NL = D_THREADS / G;        // lanes a block
-  constexpr int R = G == G_MAX ? ROWS : 1;  // rows a thread (P <= G below G_MAX)
-  extern __shared__ float4 sm4[];
+                     float* __restrict__ stats, bool* __restrict__ live, int B) {
+  constexpr int NL = D_THREADS / G, R = (P + G - 1) / G;
+  __shared__ float4 sm4[(run_floats(NL * P * P) + 2 * run_floats(NL * P)) / 4];
   float* sm = reinterpret_cast<float*>(sm4);
   if (blockIdx.x == 0 && threadIdx.x == 0) *live = false;  // E sets it again
   const int r = threadIdx.x % G, l = threadIdx.x / G;
   const long long b0 = (long long)blockIdx.x * NL, b = b0 + l;
   const int nl = (int)min((long long)NL, (long long)B - b0);
-  const bool real = l < nl;  // a lane past B computes the identity's solve, stores nothing
-  const int PP = P * P, S = P | 1;
-
-  float* buf = sm;
-  const float* hs = stage(buf, Hp + b0 * PP, nl * PP);
-  buf += run_floats(NL * PP);
-  const float* gs = stage(buf, gp + b0 * P, nl * P);
-  buf += run_floats(NL * P);
-  const float* ts = stage(buf, t + b0 * P, nl * P);
-  buf += run_floats(NL * P);
-  float* L = buf + l * P * S;  // row i, column k at i * S + k
-  buf += NL * P * S;
-  float* dv = buf + l * 4 * P;  // D, then off, y, x
-  float* off = dv + P;
-  float* y = dv + 2 * P;
-  float* x = dv + 3 * P;
-  __syncthreads();
-
-  const float* H = hs + l * PP;
+  const bool real = l < nl;  // a lane past B solves the identity and stores nothing
+  // This thread's scalars, loaded before the staging so that no global
+  // round trip follows the barrier: lam, and span and lo of its rows.
   const float lb = real ? __ldg(lam + b) : 0.f;
-  float di[R], f[R];  // D_i, then the forward substitution's running sum
+  float sp[R], lw[R];
 #pragma unroll
   for (int q = 0; q < R; ++q) {
-    const int i = r + q * G;
-    if (i < P) {
-      const float ti = real ? ts[l * P + i] : 0.f, s = sigmoid(ti);
-      di[q] = __fmul_rn(__fmul_rn(__ldg(span + i), s), __fsub_rn(1.f, s));
-      dv[i] = di[q];
-      // A's diagonal: diag_i = max(H_ii, 1e-12) (NaN stays NaN, as
-      // torch.clamp); the entries of column i below it add lam * 0 *
-      // diag_i * 0, NaN where lam or diag_i is not finite.
-      const float hii = __fmul_rn(__fmul_rn(real ? H[i * P + i] : 1.f, di[q]), di[q]);
-      const float dg = isnan(hii) ? hii : fmaxf(hii, (float)1e-12);
-      L[i * S + i] = __fadd_rn(hii, __fmul_rn(__fmul_rn(__fmul_rn(lb, 1.f), dg), 1.f));
-      off[i] = __fmul_rn(__fmul_rn(__fmul_rn(lb, 0.f), dg), 0.f);
-      f[q] = __fmul_rn(real ? gs[l * P + i] : 0.f, di[q]);
+    const int i = r + q * G < P ? r + q * G : 0;
+    sp[q] = __ldg(span + i);
+    lw[q] = __ldg(lo + i);
+  }
+  const float* hs = stage(sm, Hp + b0 * P * P, nl * P * P);
+  const float* gs = stage(sm + run_floats(NL * P * P), gp + b0 * P, nl * P);
+  const float* ts = stage(sm + run_floats(NL * P * P) + run_floats(NL * P), t + b0 * P, nl * P);
+  __syncthreads();
+  const float* H = hs + l * P * P;
+  const float* tl = ts + l * P;
+
+  // Row i = r + q G of the lane (q < R), where i < P: the chain-rule
+  // factor D_i, A's row i (zero right of the diagonal), and g_i D_i.
+  float a[R][P], di[R], off[R], f[R];
+#pragma unroll
+  for (int q = 0; q < R; ++q) {
+    const int i = r + q * G, ii = i < P ? i : 0;
+    const bool own = real && i < P;
+    const float s = sigmoid(own ? tl[ii] : 0.f);
+    di[q] = __fmul_rn(__fmul_rn(sp[q], s), __fsub_rn(1.f, s));
+    // diag_i = max(H_ii, 1e-12) (NaN stays NaN, as torch.clamp); the
+    // entries of column i below it add lam * 0 * diag_i * 0, NaN where lam
+    // or diag_i is not finite.
+    const float hii = __fmul_rn(__fmul_rn(own ? H[ii * P + ii] : 1.f, di[q]), di[q]);
+    const float dg = isnan(hii) ? hii : fmaxf(hii, (float)1e-12);
+    off[q] = __fmul_rn(__fmul_rn(__fmul_rn(lb, 0.f), dg), 0.f);
+    a[q][0] = __fadd_rn(hii, __fmul_rn(__fmul_rn(__fmul_rn(lb, 1.f), dg), 1.f));  // A_ii, for now
+    f[q] = __fmul_rn(own ? gs[l * P + ii] : 0.f, di[q]);
+  }
+#pragma unroll
+  for (int j = P - 1; j >= 0; --j) {
+    const float dj = row_of<G>(di, j), offj = row_of<G>(off, j);
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+      const int i = r + q * G;
+      const float h = real && i < P ? H[(i < P ? i : 0) * P + j] : 0.f;
+      const float aij = __fadd_rn(__fmul_rn(__fmul_rn(h, di[q]), dj), offj);
+      a[q][j] = j < i ? aij : (j == i ? a[q][0] : 0.f);
     }
   }
-  __syncwarp();
-#pragma unroll
-  for (int q = 0; q < R; ++q) {
-    const int i = r + q * G;
-    if (i < P)
-      for (int j = 0; j < i; ++j)
-        L[i * S + j] = __fadd_rn(
-            __fmul_rn(__fmul_rn(real ? H[i * P + j] : 0.f, di[q]), dv[j]), off[j]);
-  }
-  __syncwarp();
 
-  // Cholesky, fit.lm._chol_factor_small's order, one column at a time.
+  // Cholesky, fit.lm._chol_factor_small's order, one column at a time:
+  // every row i >= j forms A_ij - sum_{k<j} L_ik L_jk (k ascending) with
+  // row j's entries shuffled from its thread; every thread takes d_j and
+  // 1 / d_j from row j's sum, so the group needs no branch.
+  float dd[P];
+#pragma unroll
   for (int j = 0; j < P; ++j) {
     float s[R];
 #pragma unroll
-    for (int q = 0; q < R; ++q) {
-      const int i = r + q * G;
-      s[q] = 0.f;
-      if (i >= j && i < P) {
-        float a = L[i * S + j];
-        for (int k = 0; k < j; ++k) a = __fsub_rn(a, __fmul_rn(L[i * S + k], L[j * S + k]));
-        s[q] = a;
-      }
+    for (int q = 0; q < R; ++q) s[q] = a[q][j];
+#pragma unroll
+    for (int k = 0; k < j; ++k) {
+      const float ljk = __shfl_sync(FULL, a[j / G][k], j % G, G);
+#pragma unroll
+      for (int q = 0; q < R; ++q) s[q] = __fsub_rn(s[q], __fmul_rn(a[q][k], ljk));
     }
-    const int owner = j % G;
-    float inv = 0.f;
-    if (r == owner) {
-      const float d = __fsqrt_rn(j >= G ? s[R - 1] : s[0]);
-      inv = __fdiv_rn(1.f, d);
-      L[j * S + j] = d;
-    }
-    inv = __shfl_sync(FULL, inv, owner, G);
+    const float d = __fsqrt_rn(row_of<G>(s, j)), inv = __frcp_rn(d);
+    dd[j] = d;
 #pragma unroll
     for (int q = 0; q < R; ++q) {
       const int i = r + q * G;
-      if (i > j && i < P) L[i * S + j] = __fmul_rn(s[q], inv);
+      a[q][j] = i == j ? d : (i > j ? __fmul_rn(s[q], inv) : a[q][j]);
     }
-    __syncwarp();
   }
 
-  // fit.lm._chol_subst: L y = g as a wavefront (y_k broadcast, k ascending)...
-  for (int k = 0; k < P; ++k) {
-    const int owner = k % G;
-    float yk = 0.f;
-    if (r == owner) {
-      yk = __fdiv_rn(k >= G ? f[R - 1] : f[0], L[k * S + k]);
-      y[k] = yk;
-    }
-    yk = __shfl_sync(FULL, yk, owner, G);
+  // fit.lm._chol_subst: L y = g as a wavefront (y_k from row k's running
+  // sum, k ascending; every thread then holds every y_k) ...
+  float v[P];
 #pragma unroll
-    for (int q = 0; q < R; ++q) {
-      const int i = r + q * G;
-      if (i > k && i < P) f[q] = __fsub_rn(f[q], __fmul_rn(L[i * S + k], yk));
-    }
+  for (int k = 0; k < P; ++k) {
+    v[k] = __fdiv_rn(row_of<G>(f, k), dd[k]);
+#pragma unroll
+    for (int q = 0; q < R; ++q) f[q] = __fsub_rn(f[q], __fmul_rn(a[q][k], v[k]));
   }
-  __syncwarp();
-  // ... then L^T x = y on one thread, x_{i+1} kept in a register.
-  if (r == 0) {
-    float xp = 0.f;
-    for (int i = P - 1; i >= 0; --i) {
-      float a = y[i];
-      if (i + 1 < P) a = __fsub_rn(a, __fmul_rn(L[(i + 1) * S + i], xp));
-      for (int k = i + 2; k < P; ++k) a = __fsub_rn(a, __fmul_rn(L[k * S + i], x[k]));
-      xp = __fdiv_rn(a, L[i * S + i]);
-      x[i] = xp;
-    }
+  // ... then L^T x = y, every thread alike, column i of L shuffled from
+  // its rows (k = i+1 .. P-1 ascending, the plain order).
+#pragma unroll
+  for (int i = P - 1; i >= 0; --i) {
+    float s = v[i];
+#pragma unroll
+    for (int k = i + 1; k < P; ++k)
+      s = __fsub_rn(s, __fmul_rn(__shfl_sync(FULL, a[k / G][i], k % G, G), v[k]));
+    v[i] = __fdiv_rn(s, dd[i]);
   }
-  __syncwarp();
   if (!real) return;
 
   // step = -x; t_new and the trial parameters of C, one parameter a thread.
@@ -263,17 +253,21 @@ lm_step_solve_kernel(const float* __restrict__ Hp, const float* __restrict__ gp,
   for (int q = 0; q < R; ++q) {
     const int j = r + q * G;
     if (j < P) {
-      const float tn = __fadd_rn(ts[l * P + j], -x[j]);
+      float xj = 0.f;
+#pragma unroll
+      for (int k = 0; k < P; ++k) xj = k == j ? v[k] : xj;
+      const float tn = __fadd_rn(tl[j], -xj);
       t_new[b * P + j] = tn;
-      pt[(long long)j * B + b] = __fadd_rn(__ldg(lo + j), __fmul_rn(__ldg(span + j), sigmoid(tn)));
+      pt[(long long)j * B + b] = __fadd_rn(lw[q], __fmul_rn(sp[q], sigmoid(tn)));
     }
   }
   // The gates' norms, summed in j order.
   if (r == 0) {
     float amax = 0.f, ns2 = 0.f, nt2 = 0.f;
+#pragma unroll
     for (int j = 0; j < P; ++j) {
-      const float st = -x[j], a = fabsf(st), tj = ts[l * P + j];
-      amax = (isnan(a) || a > amax) ? a : amax;  // NaN propagates, as torch.amax
+      const float st = -v[j], a_ = fabsf(st), tj = tl[j];
+      amax = (isnan(a_) || a_ > amax) ? a_ : amax;  // NaN propagates, as torch.amax
       ns2 = __fadd_rn(ns2, __fmul_rn(st, st));
       nt2 = __fadd_rn(nt2, __fmul_rn(tj, tj));
     }
@@ -293,7 +287,7 @@ lm_step_gate_kernel(const float* __restrict__ c_new, const float* __restrict__ c
                     int B, int P, int max_iter, int window, float xtol, float ftol,
                     float ftol_window, float xtol_rel, float lam0, float lam_mark,
                     float lam_stuck) {
-  const long long b = (long long)blockIdx.x * E_THREADS + threadIdx.x;
+  const int b = blockIdx.x * E_THREADS + threadIdx.x, lane = threadIdx.x % 32;
   bool take = false, alive = false;  // this lane takes its step; is still live
   if (b < B) {
     bool dn = done[b];
@@ -324,24 +318,23 @@ lm_step_gate_kernel(const float* __restrict__ c_new, const float* __restrict__ c
       it[b] = itb;
       done[b] = dn;
       take = improved;
-      if (improved)
+      if (improved)  // the lane's column of B's next parameters (coalesced across lanes)
         for (int j = 0; j < P; ++j) pt[(long long)j * B + b] = pt_trial[(long long)j * B + b];
     }
     alive = !dn && itb < max_iter;
   }
-  // The t rows of the warp's lanes, one run of n P floats, by the warp:
-  // element e = q P + c where lane q takes its step.
-  const int lane = threadIdx.x % 32;
-  const long long w0 = b - lane;
-  if (w0 < B) {
-    const int n = (int)min(32LL, (long long)B - w0) * P;
-    const float* src = t_new + w0 * P;
-    float* dst = t + w0 * P;
-    const int dq = 32 / P, dc = 32 % P;
+  // The t rows of the warp's lanes, one run of n floats, by the warp:
+  // element e = q P + c where lane q (bit q of one ballot) takes its step.
+  const unsigned takes = __ballot_sync(FULL, take);
+  const int w0 = b - lane;
+  if (takes != 0u) {
+    const int n = min(32, B - w0) * P, dq = 32 / P, dc = 32 % P;
+    const float* src = t_new + (long long)w0 * P;
+    float* dst = t + (long long)w0 * P;
     int q = lane / P, c = lane % P;
-    for (int e = lane; e < 32 * P; e += 32) {
-      const bool tk = __shfl_sync(FULL, take, q);
-      if (tk && e < n) dst[e] = src[e];
+#pragma unroll 4
+    for (int e = lane; e < n; e += 32) {
+      if ((takes >> q) & 1u) dst[e] = src[e];
       q += dq;
       c += dc;
       if (c >= P) {
@@ -353,15 +346,20 @@ lm_step_gate_kernel(const float* __restrict__ c_new, const float* __restrict__ c
   if (__any_sync(FULL, alive) && lane == 0) *live = true;
 }
 
-template <int G>
+template <int P>
 cudaError_t launch_solve(const float* Hp, const float* gp, const float* t, const float* lam,
                          const float* lo, const float* span, float* t_new, float* pt,
-                         float* stats, bool* live, int B, int P, cudaStream_t s) {
-  constexpr int NL = D_THREADS / G;
-  lm_step_solve_kernel<G><<<(B + NL - 1) / NL, D_THREADS,
-                            solve_smem_floats(P) * sizeof(float), s>>>(
-      Hp, gp, t, lam, lo, span, t_new, pt, stats, live, B, P);
-  return cudaGetLastError();
+                         float* stats, bool* live, int B, int p, cudaStream_t s) {
+  if constexpr (P > P_MAX) {
+    return cudaErrorInvalidValue;
+  } else {
+    if (p != P)
+      return launch_solve<P + 1>(Hp, gp, t, lam, lo, span, t_new, pt, stats, live, B, p, s);
+    constexpr int NL = D_THREADS / group_of(P);
+    lm_step_solve_kernel<P, group_of(P)><<<(B + NL - 1) / NL, D_THREADS, 0, s>>>(
+        Hp, gp, t, lam, lo, span, t_new, pt, stats, live, B);
+    return cudaGetLastError();
+  }
 }
 
 }  // namespace
@@ -374,13 +372,9 @@ extern "C" {
 int lm_step_solve_f32(const float* Hp, const float* gp, const float* t, const float* lam,
                       const float* lo, const float* span, float* t_new, float* pt,
                       float* stats, bool* live, int B, int P, void* stream) {
-  const cudaStream_t s = (cudaStream_t)stream;
   if (B <= 0 || P < 2 || P > P_MAX) return (int)cudaErrorInvalidValue;
-  switch (group_of(P)) {
-    case 8: return (int)launch_solve<8>(Hp, gp, t, lam, lo, span, t_new, pt, stats, live, B, P, s);
-    case 16: return (int)launch_solve<16>(Hp, gp, t, lam, lo, span, t_new, pt, stats, live, B, P, s);
-    default: return (int)launch_solve<32>(Hp, gp, t, lam, lo, span, t_new, pt, stats, live, B, P, s);
-  }
+  return (int)launch_solve<2>(Hp, gp, t, lam, lo, span, t_new, pt, stats, live, B, P,
+                              (cudaStream_t)stream);
 }
 
 // c_new, c_old (B,), t_new (B, P), pt_trial (P, B), stats (3, B) -> in

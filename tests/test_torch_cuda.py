@@ -601,7 +601,7 @@ def test_graph_loop_profiled_launches_equal_steps(gen):
                       and not e.name.startswith(("Memcpy", "Memset"))),
                      key=lambda e: e.time_range.start)
     names = [e.name for e in kernels]
-    for key in ("lm_kernel<", "lm_kernel<2, true, false>", "lm_step_solve_kernel<5>",
+    for key in ("lm_kernel<", "lm_kernel<2, true, false>", "lm_step_solve_kernel<5,",
                 "lm_step_gate_kernel"):
         n = sum(key in name for name in names)
         assert n == (2 if key == "lm_kernel<" else 1) * info["steps"], key

@@ -87,12 +87,11 @@ def lm_kernel_of(name: str):
 PATHS = ("forward", "ladder", "finish")
 
 
-def paths_run(root: Path) -> dict:
-    """One checkout's forward, ladder and finish, in this process (see the
-    module docstring)."""
-    sys.path.insert(0, str(root))
-    import torch
-
+def lm_paths(torch) -> dict:
+    """{path: (call, calls to time)}: the full-width forward (32 x 1000 x
+    1024, f32), the DoF ladder on entry.hetero_cohort at 10 000 x 500 and
+    the streamed finish on 1024 residues, on the checkout first on
+    sys.path."""
     from spinrelax_tpu_torch.entry import correlated_walk, hetero_cohort, paf_ensemble
     from spinrelax_tpu_torch.fit.expfit import fit_ct_ladder
     from spinrelax_tpu_torch.models.diffusion import Diffusion
@@ -111,9 +110,18 @@ def paths_run(root: Path) -> dict:
     pv, pw = paf_ensemble(1024, 64, seed=1)
     fkw = dict(n_res=1024, delta_t=1.0, diffusion=Diffusion.axisymmetric(tau=4242.0, aniso=1.3),
                vecs=pv, weights=pw)
-    runs = {"forward": (lambda: fwd(vecs), 5),
+    return {"forward": (lambda: fwd(vecs), 5),
             "ladder": (lambda: fit_ct_ladder(names, dt, yc, dyc), 3),
             "finish": (lambda: run_finish(*acc, 32, **fkw), 5)}
+
+
+def paths_run(root: Path) -> dict:
+    """One checkout's forward, ladder and finish, in this process (see the
+    module docstring)."""
+    sys.path.insert(0, str(root))
+    import torch
+
+    runs = lm_paths(torch)
     out = {}
     for name in PATHS:
         fn, n = runs[name]
@@ -226,15 +234,8 @@ def loops_run() -> int:
     sys.path.insert(0, str(HERE))
     import torch
 
-    from spinrelax_tpu_torch.entry import correlated_walk, hetero_cohort, paf_ensemble
     from spinrelax_tpu_torch.fit import engine
-    from spinrelax_tpu_torch.fit.expfit import fit_ct_ladder
-    from spinrelax_tpu_torch.models.diffusion import Diffusion
-    from spinrelax_tpu_torch.ops.autocorr import palmer_group_update_pretiled, tile_palmer_group
-    from spinrelax_tpu_torch.parallel.pipeline import make_forward
-    from spinrelax_tpu_torch.parallel.streamed import run_finish
 
-    torch.backends.cuda.matmul.allow_tf32 = False
     graph = engine._run_graph
 
     def windowed(step, live, max_iter, window, counters=()):
@@ -244,19 +245,7 @@ def loops_run() -> int:
         return engine._run_eager(step, live, max_iter, window)
 
     runners = {"graph": graph, "windowed": windowed, "eager": eager}
-    vecs = torch.from_numpy(correlated_walk(32, 1000, 1024, seed=0)).cuda()
-    fwd = make_forward(tau_iso=4242.0, delta_t=1.0, n_components=2)
-    dt, y, dy = hetero_cohort(10_000, 500)
-    names = [str(i) for i in range(10_000)]
-    yc, dyc = (torch.tensor(a, dtype=torch.float32, device="cuda") for a in (y, dy))
-    zero = torch.zeros((500, 1024), device="cuda")
-    acc = palmer_group_update_pretiled(tile_palmer_group(vecs), zero, zero, 32, 1024)
-    pv, pw = paf_ensemble(1024, 64, seed=1)
-    fkw = dict(n_res=1024, delta_t=1.0, diffusion=Diffusion.axisymmetric(tau=4242.0, aniso=1.3),
-               vecs=pv, weights=pw)
-    runs = {"forward": (lambda: fwd(vecs), 5),
-            "ladder": (lambda: fit_ct_ladder(names, dt, yc, dyc), 3),
-            "finish": (lambda: run_finish(*acc, 32, **fkw), 5)}
+    runs = lm_paths(torch)
     ok = True
     try:
         for path in PATHS:
