@@ -48,11 +48,13 @@
 // A block of D_THREADS threads holds D_THREADS / G consecutive lanes.  P
 // is a template parameter: every loop unrolls and a thread keeps its rows
 // of A (then L), y and x in registers.
-//   - Staging.  The block's lanes' H_p slabs, g_p and t rows are one
-//     contiguous run each; the block copies each into shared memory with
-//     16-byte loads (scalar at the run's unaligned ends), after loading
-//     its own scalars (lam, span, lo), so no global round trip follows the
-//     barrier.  Each thread then builds its rows of A from the slab.
+//   - Staging.  The block's lanes' H_p slabs are one contiguous run; the
+//     block copies it into shared memory with 16-byte loads (scalar at the
+//     run's unaligned ends) while each thread loads its rows' t and g_p (a
+//     warp's loads fall in one contiguous run of each) and lam, span, lo,
+//     so no global round trip follows the barrier.  Each thread then
+//     builds its rows of A from the slab.  (Staging t and g_p through
+//     shared memory as well was slower at every P tried.)
 //   - Cholesky, row-parallel in fit.lm._chol_factor_small's order.  For
 //     column j every row i >= j forms A_ij - sum_{k<j} L_ik L_jk, k
 //     ascending, with row j's entries shuffled from its thread; every
@@ -76,11 +78,13 @@
 // order.
 //
 // Design of E: one thread a lane in blocks of E_THREADS; a lane that takes
-// its step copies its column of the (P, B) trial parameters (coalesced
-// across lanes); the t rows of a warp's lanes, one contiguous run of 32 P
-// floats, are copied by the warp together, element e where lane e / P
-// takes its step (the warp's flags fetched by one __ballot_sync); live is
-// stored once a warp, after __any_sync.  E is selects, compares and
+// its step copies its t row and its column of the (P, B) trial
+// parameters; live is stored once a warp, after __any_sync.  Copying the
+// warp's t rows (one contiguous run of 32 P floats) by the whole warp,
+// element e where lane e / P takes its step, was measured and lost: the
+// rows are a few L2-resident sectors, and the warp-wide copy added up to
+// a microsecond where E ends the engine's replayed step
+// (tools/torch_lm_step_probe.py --copies).  E is selects, compares and
 // single multiplies and adds on the plain version's operands: it equals
 // the plain version bit for bit.  A lane's bits in D and E depend on
 // nothing but that lane.
@@ -107,8 +111,8 @@ __host__ __device__ constexpr int group_of(int P) {
   return g;
 }
 
-// A staged run of n floats: 3 floats of slack (the run keeps its source's
-// 16-byte phase), rounded up to whole float4s so the next run is aligned.
+// Shared floats for a staged run of n: 3 of slack (the run keeps its
+// source's 16-byte phase), in whole float4s.
 __host__ __device__ constexpr int run_floats(int n) { return (n + 3 + 3) / 4 * 4; }
 
 // fit.lm._sigmoid: 1 / (1 + exp(-t)), each operation rounded on its own
@@ -148,29 +152,32 @@ lm_step_solve_kernel(const float* __restrict__ Hp, const float* __restrict__ gp,
                      float* __restrict__ t_new, float* __restrict__ pt,
                      float* __restrict__ stats, bool* __restrict__ live, int B) {
   constexpr int NL = D_THREADS / G, R = (P + G - 1) / G;
-  __shared__ float4 sm4[(run_floats(NL * P * P) + 2 * run_floats(NL * P)) / 4];
-  float* sm = reinterpret_cast<float*>(sm4);
+  __shared__ float4 sm4[run_floats(NL * P * P) / 4];  // the lanes' H_p slabs
+  __shared__ float ts[NL * P];                         // their t rows, for ||t||
   if (blockIdx.x == 0 && threadIdx.x == 0) *live = false;  // E sets it again
   const int r = threadIdx.x % G, l = threadIdx.x / G;
   const long long b0 = (long long)blockIdx.x * NL, b = b0 + l;
   const int nl = (int)min((long long)NL, (long long)B - b0);
   const bool real = l < nl;  // a lane past B solves the identity and stores nothing
-  // This thread's scalars, loaded before the staging so that no global
-  // round trip follows the barrier: lam, and span and lo of its rows.
+  // This thread's scalars, loaded with the staging so that no global round
+  // trip follows the barrier: lam, and t, g_p, span and lo of its rows (a
+  // warp's loads of t and of g_p fall in one contiguous run each).
   const float lb = real ? __ldg(lam + b) : 0.f;
-  float sp[R], lw[R];
+  float tq[R], gq[R], sp[R], lw[R];
 #pragma unroll
   for (int q = 0; q < R; ++q) {
     const int i = r + q * G < P ? r + q * G : 0;
+    const bool own = real && r + q * G < P;
+    tq[q] = own ? __ldg(t + b * P + i) : 0.f;
+    gq[q] = own ? __ldg(gp + b * P + i) : 0.f;
     sp[q] = __ldg(span + i);
     lw[q] = __ldg(lo + i);
   }
-  const float* hs = stage(sm, Hp + b0 * P * P, nl * P * P);
-  const float* gs = stage(sm + run_floats(NL * P * P), gp + b0 * P, nl * P);
-  const float* ts = stage(sm + run_floats(NL * P * P) + run_floats(NL * P), t + b0 * P, nl * P);
+  const float* H = stage(reinterpret_cast<float*>(sm4), Hp + b0 * P * P, nl * P * P) + l * P * P;
+#pragma unroll
+  for (int q = 0; q < R; ++q)
+    if (r + q * G < P) ts[l * P + r + q * G] = tq[q];
   __syncthreads();
-  const float* H = hs + l * P * P;
-  const float* tl = ts + l * P;
 
   // Row i = r + q G of the lane (q < R), where i < P: the chain-rule
   // factor D_i, A's row i (zero right of the diagonal), and g_i D_i.
@@ -179,7 +186,7 @@ lm_step_solve_kernel(const float* __restrict__ Hp, const float* __restrict__ gp,
   for (int q = 0; q < R; ++q) {
     const int i = r + q * G, ii = i < P ? i : 0;
     const bool own = real && i < P;
-    const float s = sigmoid(own ? tl[ii] : 0.f);
+    const float s = sigmoid(tq[q]);
     di[q] = __fmul_rn(__fmul_rn(sp[q], s), __fsub_rn(1.f, s));
     // diag_i = max(H_ii, 1e-12) (NaN stays NaN, as torch.clamp); the
     // entries of column i below it add lam * 0 * diag_i * 0, NaN where lam
@@ -188,7 +195,7 @@ lm_step_solve_kernel(const float* __restrict__ Hp, const float* __restrict__ gp,
     const float dg = isnan(hii) ? hii : fmaxf(hii, (float)1e-12);
     off[q] = __fmul_rn(__fmul_rn(__fmul_rn(lb, 0.f), dg), 0.f);
     a[q][0] = __fadd_rn(hii, __fmul_rn(__fmul_rn(__fmul_rn(lb, 1.f), dg), 1.f));  // A_ii, for now
-    f[q] = __fmul_rn(own ? gs[l * P + ii] : 0.f, di[q]);
+    f[q] = __fmul_rn(gq[q], di[q]);
   }
 #pragma unroll
   for (int j = P - 1; j >= 0; --j) {
@@ -256,7 +263,7 @@ lm_step_solve_kernel(const float* __restrict__ Hp, const float* __restrict__ gp,
       float xj = 0.f;
 #pragma unroll
       for (int k = 0; k < P; ++k) xj = k == j ? v[k] : xj;
-      const float tn = __fadd_rn(tl[j], -xj);
+      const float tn = __fadd_rn(tq[q], -xj);
       t_new[b * P + j] = tn;
       pt[(long long)j * B + b] = __fadd_rn(lw[q], __fmul_rn(sp[q], sigmoid(tn)));
     }
@@ -266,7 +273,7 @@ lm_step_solve_kernel(const float* __restrict__ Hp, const float* __restrict__ gp,
     float amax = 0.f, ns2 = 0.f, nt2 = 0.f;
 #pragma unroll
     for (int j = 0; j < P; ++j) {
-      const float st = -v[j], a_ = fabsf(st), tj = tl[j];
+      const float st = -v[j], a_ = fabsf(st), tj = ts[l * P + j];
       amax = (isnan(a_) || a_ > amax) ? a_ : amax;  // NaN propagates, as torch.amax
       ns2 = __fadd_rn(ns2, __fmul_rn(st, st));
       nt2 = __fadd_rn(nt2, __fmul_rn(tj, tj));
@@ -288,7 +295,7 @@ lm_step_gate_kernel(const float* __restrict__ c_new, const float* __restrict__ c
                     float ftol_window, float xtol_rel, float lam0, float lam_mark,
                     float lam_stuck) {
   const int b = blockIdx.x * E_THREADS + threadIdx.x, lane = threadIdx.x % 32;
-  bool take = false, alive = false;  // this lane takes its step; is still live
+  bool alive = false;  // this lane is still live after the gates
   if (b < B) {
     bool dn = done[b];
     int itb = it[b];
@@ -317,31 +324,14 @@ lm_step_gate_kernel(const float* __restrict__ c_new, const float* __restrict__ c
       lam[b] = lam_next;
       it[b] = itb;
       done[b] = dn;
-      take = improved;
-      if (improved)  // the lane's column of B's next parameters (coalesced across lanes)
-        for (int j = 0; j < P; ++j) pt[(long long)j * B + b] = pt_trial[(long long)j * B + b];
-    }
-    alive = !dn && itb < max_iter;
-  }
-  // The t rows of the warp's lanes, one run of n floats, by the warp:
-  // element e = q P + c where lane q (bit q of one ballot) takes its step.
-  const unsigned takes = __ballot_sync(FULL, take);
-  const int w0 = b - lane;
-  if (takes != 0u) {
-    const int n = min(32, B - w0) * P, dq = 32 / P, dc = 32 % P;
-    const float* src = t_new + (long long)w0 * P;
-    float* dst = t + (long long)w0 * P;
-    int q = lane / P, c = lane % P;
-#pragma unroll 4
-    for (int e = lane; e < n; e += 32) {
-      if ((takes >> q) & 1u) dst[e] = src[e];
-      q += dq;
-      c += dc;
-      if (c >= P) {
-        c -= P;
-        ++q;
+      if (improved) {  // the lane's t row, and its column of B's next parameters
+        for (int j = 0; j < P; ++j) {
+          t[(long long)b * P + j] = t_new[(long long)b * P + j];
+          pt[(long long)j * B + b] = pt_trial[(long long)j * B + b];
+        }
       }
     }
+    alive = !dn && itb < max_iter;
   }
   if (__any_sync(FULL, alive) && lane == 0) *live = true;
 }

@@ -15,7 +15,8 @@ The script builds each checkout's kernel library with that checkout's
 
 1. each kernel's device time per launch: B and C at the forward's shape
    (B 1024, T 500, K 2, S2 free) and at a ladder rung (B 10 000, T 500,
-   K 4, S2 free), D and E there and at B 10 000, K 5 and K 8 (on
+   K 4, S2 free), D and E there and at B 10 000 at the ladder's other
+   rungs (K 1 S2 fixed and free, K 2, K 3) and at K 5 and K 8 (on
    ``chip_smoke.timed_step_state``, one state for both checkouts): CUDA
    events around a CUDA graph of back-to-back launches
    (``chip_smoke.graph_ms``), timed in turns old, new, new, old, beside
@@ -60,7 +61,9 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parents[1]
 SHAPES = ((2, True, 1024, 500, 50), (4, True, 10_000, 500, 20))  # K, s2_free, B, T, reps
-STEP_SHAPES = SHAPES + ((5, True, 10_000, 500, 10), (8, True, 10_000, 500, 10))
+# D and E also at the ladder's other rungs (K 1 S2 fixed / free, K 2, K 3) and K 5, K 8
+STEP_SHAPES = SHAPES + tuple((K, s2f, 10_000, 500, 20) for K, s2f in (
+    (1, False), (1, True), (2, True), (3, True), (5, True), (8, True)))
 
 
 def _module(name: str, path: Path):

@@ -2,9 +2,9 @@
 """Where kernels D and E of the LM step (``csrc/lm_step.cu``) spend their
 time, on one GPU.
 
-    python3 tools/torch_lm_step_probe.py [--groups] [--neighbours] [--insitu]
+    python3 tools/torch_lm_step_probe.py [--groups] [--copies] [--neighbours] [--insitu]
 
-With no flag it runs all three parts:
+With no flag it runs all four parts:
 
 --groups      kernel D's lane-group design at fixed group sizes G = 2, 4,
               8, 16, 32 beside this checkout's rule (``group_of``): copies
@@ -16,12 +16,20 @@ With no flag it runs all three parts:
               launches (``chip_smoke.graph_ms``, best of two), each
               variant's t_new, trial parameters and norms checked equal to
               the checkout's kernel bit for bit.
+--copies      kernel E as it is (a lane copies its own t row) and a copy
+              of csrc/lm_step.cu whose E copies the warp's t rows with the
+              whole warp (WARP_COPY): alone (CUDA events over a graph of 50
+              launches) and as the last node of one step B, D, C, E
+              captured alone and replayed 50 times (torch.profiler), in
+              turns, at (K, S2, B) in NEIGHBOUR_SHAPES; outputs checked
+              equal bit for bit.
 --neighbours  kernels E and D per launch as torch.profiler reads them
               (CUPTI's kernel records, the measure of chip_smoke's in-situ
               times), in CUDA graphs of 50 of: E alone; C then E; D at P 33
               on other buffers then E; E on other buffers then E; D alone;
-              C then D; the whole step B, D, C, E; at (K, S2, B) in
-              NEIGHBOUR_SHAPES.
+              C then D; the whole step B, D, C, E; and one step captured
+              alone and its graph replayed 50 times by the host (as
+              fit.engine replays it); at (K, S2, B) in NEIGHBOUR_SHAPES.
 --insitu      the forward, the DoF ladder and the streamed finish
               (``tools/torch_lm_ab.lm_paths``) under torch.profiler: each
               LM call's (B, P) as kernel E's wrapper sees it, D's and E's
@@ -80,31 +88,49 @@ def _solve_call(torch, fn, solve, live, B, P):
     return _launcher(torch, fn, args), out
 
 
+def _variants(sources: dict) -> dict:
+    """{name: library} of csrc/lm_step.cu copies ({name: source text}),
+    built at once with _build's flags into spinrelax_tpu_torch/build/probe/,
+    their entry points bound as _build binds the checkout's."""
+    from spinrelax_tpu_torch import _build
+
+    out_dir = _build.BUILD_DIR / "probe"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, text in sources.items():
+        stem = re.sub(r"\W+", "_", name)
+        (out_dir / f"lm_step_{stem}.cu").write_text(text)
+        so = out_dir / f"lm_step_{stem}.so"
+        procs[name] = (subprocess.Popen([_build._nvcc(), *_build.COMPILE_FLAGS, "-shared", "-o",
+                                         str(so), str(out_dir / f"lm_step_{stem}.cu")]), so)
+    libs = {}
+    for name, (proc, so) in procs.items():
+        if proc.wait() != 0:
+            raise RuntimeError(f"nvcc failed on the copy {name}")
+        libs[name] = lib = ctypes.CDLL(str(so))
+        for fn in ("lm_step_solve_f32", "lm_step_gate_f32"):
+            getattr(lib, fn).argtypes = list(_build._SIGNATURES[fn])
+    return libs
+
+
+def _source() -> str:
+    from spinrelax_tpu_torch import _build
+
+    return (_build.CSRC / "lm_step.cu").read_text()
+
+
 def groups(torch) -> None:
     from spinrelax_tpu_torch import _build
     from spinrelax_tpu_torch.ops import cuda_lm
 
-    src = (_build.CSRC / "lm_step.cu").read_text()
+    src = _source()
     rule = re.compile(r"__host__ __device__ constexpr int group_of\(int P\) \{.*?\n\}", re.S)
     assert rule.search(src), "csrc/lm_step.cu has no group_of"
-    out_dir = _build.BUILD_DIR / "probe"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for G in GROUPS:
-        body = ("__host__ __device__ constexpr int group_of(int P) {\n"
-                f"  int g = {G};\n  while (g * 8 < P && g < G_MAX) g *= 2;\n  return g;\n}}")
-        cu = out_dir / f"lm_step_g{G}.cu"
-        cu.write_text(rule.sub(lambda _: body, src))
-        so = out_dir / f"lm_step_g{G}.so"
-        procs[G] = (subprocess.Popen([_build._nvcc(), *_build.COMPILE_FLAGS, "-shared", "-o",
-                                      str(so), str(cu)]), so)
-    libs = {"rule": _build.load()}
-    for G, (proc, so) in procs.items():
-        if proc.wait() != 0:
-            raise RuntimeError(f"nvcc failed on the G {G} copy")
-        lib = ctypes.CDLL(str(so))
-        lib.lm_step_solve_f32.argtypes = list(_build._SIGNATURES["lm_step_solve_f32"])
-        libs[f"G {G}"] = lib
+    bodies = {f"G {G}": ("__host__ __device__ constexpr int group_of(int P) {\n"
+                         f"  int g = {G};\n  while ((g * 8 < P || D_THREADS / g * P * P > 8192) "
+                         "&& g < G_MAX) g *= 2;\n  return g;\n}") for G in GROUPS}
+    libs = {"rule": _build.load(), **_variants(
+        {name: rule.sub(lambda _, b=body: b, src) for name, body in bodies.items()})}
     gen = torch.Generator(device="cuda").manual_seed(12)
     for P, B in GROUP_SHAPES:
         solve, _, st, _, _ = smoke.timed_step_state(torch, cuda_lm, gen, P // 2, bool(P % 2),
@@ -121,21 +147,7 @@ def groups(torch) -> None:
             us = min(smoke.graph_ms(torch, go, 50) for _ in range(2)) * 1e3
             times.append(f"{name} {us:.2f} us" + ("" if same else " (BITS DIFFER)"))
             smoke.check(same, f"D at G {name}, P {P}, B {B}: outputs equal the rule's bit for bit")
-        print(f"D at P {P}, B {B} (the rule's G {_group_of(P)}): "
-              + ", ".join(times), flush=True)
-
-
-def _group_of(P: int) -> int:
-    """csrc/lm_step.cu's group_of, read from its constants."""
-    from spinrelax_tpu_torch import _build
-
-    src = (_build.CSRC / "lm_step.cu").read_text()
-    g_min, g_max, rows = (int(re.search(rf"constexpr int {n} = (\d+);", src).group(1))
-                          for n in ("G_MIN", "G_MAX", "ROWS"))
-    g = g_min
-    while g * rows < P and g < g_max:
-        g *= 2
-    return g
+        print(f"D at P {P}, B {B}: " + ", ".join(times), flush=True)
 
 
 def _step_operands(torch, gen, K, s2f, B, T=500):
@@ -201,6 +213,127 @@ def _graph_profile(torch, fn, reps: int = 50):
     return {k: (len(v), statistics.median(v)) for k, v in durations.items()}, us
 
 
+def _replayed_profile(torch, fn, reps: int = 50):
+    """_graph_profile's readings for one call of fn captured alone and its
+    graph replayed reps times, each replay launched by the host."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    durations = {}
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                graph.replay()
+            torch.cuda.synchronize()
+        for e in prof.profiler.kineto_results.events():
+            if e.device_type() == DeviceType.CUDA and smoke.kernel_of(e.name()):
+                durations.setdefault(smoke.kernel_of(e.name()), []).append(e.duration_ns() / 1e3)
+        if durations:
+            break
+    us = smoke.cuda_ms(torch, graph.replay, reps) * 1e3
+    return {k: (len(v), statistics.median(v)) for k, v in durations.items()}, us
+
+
+# Kernel E with its t rows copied by the warp (the design it was measured
+# against): element e of the warp's run of 32 P floats where lane e / P
+# takes its step, the flags fetched by one __ballot_sync.
+WARP_COPY = (
+    ("  bool alive = false;  // this lane is still live after the gates\n",
+     "  bool take = false, alive = false;\n"),
+    ("""      if (improved) {  // the lane's t row, and its column of B's next parameters
+        for (int j = 0; j < P; ++j) {
+          t[(long long)b * P + j] = t_new[(long long)b * P + j];
+          pt[(long long)j * B + b] = pt_trial[(long long)j * B + b];
+        }
+      }
+""", """      take = improved;
+      if (improved)
+        for (int j = 0; j < P; ++j) pt[(long long)j * B + b] = pt_trial[(long long)j * B + b];
+"""),
+    ("  if (__any_sync(FULL, alive) && lane == 0) *live = true;",
+     """  const unsigned takes = __ballot_sync(FULL, take);
+  const int w0 = b - lane;
+  if (takes != 0u) {
+    const int n = min(32, B - w0) * P, dq = 32 / P, dc = 32 % P;
+    int q = lane / P, c = lane % P;
+#pragma unroll 4
+    for (int e = lane; e < n; e += 32) {
+      if ((takes >> q) & 1u) t[(long long)w0 * P + e] = t_new[(long long)w0 * P + e];
+      q += dq;
+      c += dc;
+      if (c >= P) {
+        c -= P;
+        ++q;
+      }
+    }
+  }
+  if (__any_sync(FULL, alive) && lane == 0) *live = true;"""),
+)
+
+
+def copies(torch) -> None:
+    """Kernel E with per-lane t rows (the checkout) and with WARP_COPY, on
+    one state: alone in a graph of 50 launches (CUDA events, best of two)
+    and as the last node of one step B, D, C, E captured alone and
+    replayed 50 times (torch.profiler), in turns; outputs bit for bit."""
+    from spinrelax_tpu_torch import _build
+    from spinrelax_tpu_torch.ops import cuda_lm
+
+    src = _source()
+    for old, _ in WARP_COPY:
+        assert old in src, "csrc/lm_step.cu's kernel E has changed: update WARP_COPY"
+    warp = src
+    for old, new in WARP_COPY:
+        warp = warp.replace(old, new)
+    libs = {"per lane": _build.load(), **_variants({"warp-wide": warp})}
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    for K, s2f, B in NEIGHBOUR_SHAPES:
+        o = _step_operands(torch, gen, K, s2f, B)
+        P = cuda_lm.n_par(K, s2f)
+        solve, gate = _step(cuda_lm, o)
+        g = o["gates"]
+
+        def launch(lib, gate, state, p):
+            args = [x.data_ptr() for x in (*gate, *state, p)] + [
+                B, P, g.max_iter, g.window, g.xtol, g.ftol, g.window * g.ftol, g.xtol_rel,
+                g.lam0, 100.0 * g.lam0, g.lam_stuck]
+            return _launcher(torch, lib.lm_step_gate_f32, args)
+
+        outs = []
+        for lib in libs.values():
+            state, p = tuple(x.clone() for x in o["state"]), o["p"].clone()
+            launch(lib, gate, state, p)()
+            outs.append(state + (p,))
+        smoke.check(all(smoke.same_bits(torch, a, b) for a, b in zip(*outs)),
+                    f"E per lane and warp-wide at K {K}, B {B}: the same bits")
+        res = {name: [] for name in libs}
+        for name in list(libs) + list(libs)[::-1]:
+            lib = libs[name]
+            alone = smoke.graph_ms(torch, launch(lib, gate, o["state"], o["p"]), 50) * 1e3
+
+            def step(lib=lib):
+                st = o["state"]
+                H_p, g_p, c_old = cuda_lm.hgc_cuda(o["p"], *o["ops"])
+                t_new, pt_trial, stats = cuda_lm.step_solve_cuda(
+                    H_p, g_p, st[0], st[1], o["lo"], o["span"], st[-1])
+                c_new = cuda_lm.cost_cuda(pt_trial, *o["ops"])
+                launch(lib, (c_new, c_old, t_new, pt_trial, stats), st, o["p"])()
+
+            med, _ = _replayed_profile(torch, step)
+            res[name].append((alone, med["E"][1]))
+        print(f"K {K}, S2 {'free' if s2f else 'fixed'}, B {B}: " + "; ".join(
+            f"E {name}: alone {statistics.mean(a for a, _ in v):.2f} us (CUDA events), last node "
+            f"of a replayed step {statistics.mean(e for _, e in v):.2f} us (profiler)"
+            for name, v in res.items()), flush=True)
+
+
 def neighbours(torch) -> None:
     from spinrelax_tpu_torch.ops import cuda_lm
 
@@ -224,6 +357,11 @@ def neighbours(torch) -> None:
         def d33():
             cuda_lm.step_solve_cuda(*solve_big, big["state"][-1])
 
+        med, us = _replayed_profile(torch, lambda: _step(cuda_lm, o))
+        print(f"K {K}, S2 {'free' if s2f else 'fixed'}, B {B}, one step B, D, C, E captured "
+              "alone and replayed 50 times (as fit.engine replays it): profiler median "
+              + ", ".join(f"{k} {m:.2f} us" for k, (_, m) in sorted(med.items()))
+              + f"; CUDA events {us:.2f} us per replay", flush=True)
         for name, fn in (("E alone", e), ("C, E", lambda: (c(), e())),
                          ("D at P 33 on other buffers, E", lambda: (d33(), e())),
                          ("E on other buffers, E", lambda: (e(gate2, o2), e())),
@@ -291,7 +429,8 @@ def insitu(torch) -> None:
 
 
 def main(argv) -> int:
-    parts = {"--groups": groups, "--neighbours": neighbours, "--insitu": insitu}
+    parts = {"--groups": groups, "--copies": copies, "--neighbours": neighbours,
+             "--insitu": insitu}
     if any(a not in parts for a in argv):
         print(__doc__, file=sys.stderr)
         return 2
