@@ -81,10 +81,10 @@
 // its step copies its t row and its column of the (P, B) trial
 // parameters; live is stored once a warp, after __any_sync.  Copying the
 // warp's t rows (one contiguous run of 32 P floats) by the whole warp,
-// element e where lane e / P takes its step, was measured and lost: the
-// rows are a few L2-resident sectors, and the warp-wide copy added up to
-// a microsecond where E ends the engine's replayed step
-// (tools/torch_lm_step_probe.py --copies).  E is selects, compares and
+// element e where lane e / P takes its step, was measured: as fast where
+// every lane steps (tools/torch_lm_step_probe.py --copies), slower in the
+// engine's LM (tools/torch_lm_ab.py), where a warp with one lane stepping
+// still walks its whole run.  E is selects, compares and
 // single multiplies and adds on the plain version's operands: it equals
 // the plain version bit for bit.  A lane's bits in D and E depend on
 // nothing but that lane.
