@@ -591,7 +591,14 @@ def phase_step(torch, cuda_lm, times):
           "step_solve_plain/step_gate_plain on the same state", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(20261017)
     worst_d = 0.0
-    cases = [(2, True, 1024, 500), (1, False, 1024, 500), (4, True, 10_000, 500),
+    # Every (B, P) at which the forward, the ladder and the finish launch D
+    # and E: (1024, 5), (1024, 2), (1024, 3), (10 000, 2), (10 000, 3),
+    # (9400, 5), (9176, 7), (1433, 7), (1147, 7), (520, 2), and P 4 at B
+    # 1433; the escalation's (8, 9) and (1, 9) as STEP_EDGES' (7, 9), (1, 9).
+    cases = [(2, True, 1024, 500), (1, False, 1024, 500), (1, True, 1024, 500),
+             (1, False, 10_000, 500), (1, True, 10_000, 500), (2, True, 9400, 500),
+             (3, True, 9176, 500), (3, True, 1433, 500), (3, True, 1147, 500),
+             (1, False, 520, 500), (2, False, 1433, 500), (4, True, 10_000, 500),
              (3, False, 10_000, 500), (5, True, 10_000, 500), (8, True, 10_000, 500),
              (16, True, 1025, 499)]
     bits = []
@@ -609,14 +616,14 @@ def phase_step(torch, cuda_lm, times):
             a, b = a.double(), b.double()
             near = ((a - b).abs() <= STEP_TOL["atol"] + STEP_TOL["rtol"] * b.abs()) | (
                 a.isnan() & b.isnan())
-            shares.append(float(near.all(dim=1 if name == "t_new" else 0).double().mean()))
+            shares.append(share_of(near.all(dim=1 if name == "t_new" else 0)))
         fin = (torch.isfinite(got[0]).all(1) & torch.isfinite(plain[0]).all(1)
                & torch.isfinite(ref[0]).all(1))
         err_k = float((got[0].double() - ref[0]).abs().amax(1)[fin].mean()) if fin.any() else 0.0
         err_p = float((plain[0].double() - ref[0]).abs().amax(1)[fin].mean()) if fin.any() else 0.0
         diff = (got[0].double() - plain[0].double()).abs()[fin]
         worst_d = max(worst_d, float(diff.max()) if fin.any() else 0.0)
-        same = float((got[0] == plain[0]).all(1).double().mean())
+        same = share_of((got[0] == plain[0]).all(1))
         same_pd = (got[0] == plain[0]).all(1)[~npd]
         bits.append((int(same_pd.sum()), int(same_pd.numel())))
         nan_k, nan_p = got[0].isnan().any(1), plain[0].isnan().any(1)
@@ -629,7 +636,7 @@ def phase_step(torch, cuda_lm, times):
               f"{STEP_TOL['atol']} of plain on {shares[0]:.5f} / {shares[1]:.5f} / "
               f"{shares[2]:.5f} of lanes (>= {STEP_TOL['share']}); t_new bit for bit on "
               f"{same:.4f}; live cleared")
-        share_pd = float(same_pd.double().mean()) if same_pd.numel() else 1.0
+        share_pd = share_of(same_pd) if same_pd.numel() else 1.0
         check(share_pd >= STEP_BITS,
               f"D {tag}: t_new bit for bit on {share_pd:.4f} of the {same_pd.numel()} "
               f"positive-definite lanes (>= {STEP_BITS})")
@@ -639,9 +646,9 @@ def phase_step(torch, cuda_lm, times):
                   f"{int((~npd).sum())} positive-definite lanes; mean |t_new - f64 solve| "
                   f"{err_k:.3e} <= 2 x plain f32's {err_p:.3e}")
         else:
-            check(err_k <= 2 * err_p + 1e-12 and float(fin.double().mean()) >= 0.99,
+            check(err_k <= 2 * err_p + 1e-12 and share_of(fin) >= 0.99,
                   f"D {tag}: mean |t_new - f64 solve| {err_k:.3e} <= 2 x plain f32's "
-                  f"{err_p:.3e} ({float(fin.double().mean()):.4f} of lanes finite in all three)")
+                  f"{err_p:.3e} ({share_of(fin):.4f} of lanes finite in all three)")
         check(all(torch.equal(a.view(torch.int32), b.view(torch.int32))
                   for a, b in zip(got, again)), f"D {tag}: relaunch bitwise equal")
         outs = []
@@ -782,6 +789,13 @@ def eager_loop(engine, lm=None):
             setattr(m, name, fn)
 
 
+def share_of(mask) -> float:
+    """The share of True in a boolean tensor, exactly 1.0 when all are
+    (a float mean of ones is 0.9999999999999999 at some lengths, 1433 for
+    one)."""
+    return int(mask.sum()) / mask.numel()
+
+
 def same_bits(torch, a, b) -> bool:
     """Tensors equal bit for bit, NaN equal to NaN."""
     return a.dtype == b.dtype and torch.equal(torch.nan_to_num(a.double(), nan=-7.0),
@@ -793,7 +807,7 @@ def kernel_of(name: str):
     and acf_lag_sums_slab_kernel are A; lm_kernel<K, s2_free, FULL> and
     lm_kernel_wide<FULL> are B with FULL true, else C;
     lm_step_solve_kernel<P, G> (a group of G threads a lane) is D,
-    lm_step_gate_kernel E."""
+    lm_step_gate_kernel<P> E."""
     if "acf_lag_sums" in name:
         return "A"
     if "lm_step_solve" in name:

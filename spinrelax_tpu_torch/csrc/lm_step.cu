@@ -35,7 +35,7 @@
 // writes ~2P + 10 words a lane.  D's time is one lane's chain of dependent
 // IEEE square roots and divisions (P of each in the factor, P in each
 // substitution) and, at B 10 000, the instructions every warp issues for
-// its lanes; E's is the launch and two memory round trips.
+// its lanes; E's is the launch and its memory round trips.
 //
 // Design of D: a lane group of G threads a lane, thread r of the group
 // owning rows r, r + G, .. (at most ROWS) of the lane's matrix, G the
@@ -44,7 +44,7 @@
 // and a warp holds 32 / G lanes.  G >= P (one row a thread) was measured
 // and lost at B 10 000: every warp issues its lanes' whole sequential
 // chain of divisions and square roots, for 2 lanes at G 16 where G 4
-// serves 8 (tools/torch_lm_step_probe.py --groups).
+// serves 8 (PERF.md, section 6).
 // A block of D_THREADS threads holds D_THREADS / G consecutive lanes.  P
 // is a template parameter: every loop unrolls and a thread keeps its rows
 // of A (then L), y and x in registers.
@@ -77,17 +77,23 @@
 // the plain version only through expf's rounding and the norms' summation
 // order.
 //
-// Design of E: one thread a lane in blocks of E_THREADS; a lane that takes
-// its step copies its t row and its column of the (P, B) trial
-// parameters; live is stored once a warp, after __any_sync.  Copying the
-// warp's t rows (one contiguous run of 32 P floats) by the whole warp,
-// element e where lane e / P takes its step, was measured: as fast where
-// every lane steps (tools/torch_lm_step_probe.py --copies), slower in the
-// engine's LM (tools/torch_lm_ab.py), where a warp with one lane stepping
-// still walks its whole run.  E is selects, compares and
-// single multiplies and adds on the plain version's operands: it equals
-// the plain version bit for bit.  A lane's bits in D and E depend on
-// nothing but that lane.
+// Design of E: one thread a lane in blocks of E_THREADS, P a template
+// parameter, one global round trip.  Every load is issued before any
+// loaded value is used: the lane's scalars, its column of the (P, B) trial
+// parameters and, by the warp, the warp's t_new rows (one contiguous run
+// of 32 P floats, read coalesced), whether or not the lane takes its step.
+// A lane that takes its step stores its column; the warp stores element e
+// of its t run where lane e / P takes its step (the flags from one
+// __ballot_sync); every live lane stores live.  One thread a lane reading
+// done and it, then a live lane's scalars, then an improved lane's rows
+// was three dependent round trips: in the engine's LM, where E ends each
+// replay of the step's graph and at B 10 000 follows C's stream through
+// L2, they cost more than the loads a frozen or refused lane now makes in
+// vain; launched back to back on a state in L2 the one-trip E is the
+// slower (PERF.md, section 6).  E is selects, compares and single
+// multiplies and adds on the plain version's operands: it equals the
+// plain version bit for bit.  A lane's bits in D and E depend on nothing
+// but that lane.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -284,6 +290,7 @@ lm_step_solve_kernel(const float* __restrict__ Hp, const float* __restrict__ gp,
   }
 }
 
+template <int P>
 __global__ void __launch_bounds__(E_THREADS)
 lm_step_gate_kernel(const float* __restrict__ c_new, const float* __restrict__ c_old,
                     const float* __restrict__ t_new, const float* __restrict__ pt_trial,
@@ -291,49 +298,75 @@ lm_step_gate_kernel(const float* __restrict__ c_new, const float* __restrict__ c
                     float* __restrict__ lam, int* __restrict__ it,
                     float* __restrict__ c_best, float* __restrict__ c_mark,
                     bool* __restrict__ done, bool* __restrict__ live, float* __restrict__ pt,
-                    int B, int P, int max_iter, int window, float xtol, float ftol,
+                    int B, int max_iter, int window, float xtol, float ftol,
                     float ftol_window, float xtol_rel, float lam0, float lam_mark,
                     float lam_stuck) {
   const int b = blockIdx.x * E_THREADS + threadIdx.x, lane = threadIdx.x % 32;
-  bool alive = false;  // this lane is still live after the gates
-  if (b < B) {
-    bool dn = done[b];
-    int itb = it[b];
-    const bool frozen = dn || itb >= max_iter;
-    if (!frozen) {
-      const float cn = c_new[b], co = c_old[b], lb = lam[b], cb = c_best[b], cm = c_mark[b];
-      const bool improved = cn < co && isfinite(cn);
-      const float up = __fmul_rn(lb, (float)0.33), down = __fmul_rn(lb, (float)3.0);
-      const float lam_next = improved ? (isnan(up) ? up : fmaxf(up, (float)1e-12))
-                                      : (isnan(down) ? down : fminf(down, (float)1e10));
-      const bool small = stats[b] < xtol;
-      const bool flat = improved && __fsub_rn(co, cn) <= __fmul_rn(co, ftol);
-      const bool small_rel = improved && lb <= lam0
-          && stats[B + b] < __fmul_rn(__fadd_rn(stats[2LL * B + b], xtol_rel), xtol_rel);
-      // torch.minimum: NaN wins.
-      const float m1 = isfinite(co) ? co : cb, m2 = isfinite(cn) ? cn : cb;
-      const float mm = isnan(cb) ? cb : (isnan(m1) ? m1 : fminf(cb, m1));
-      const float cbn = isnan(mm) ? mm : (isnan(m2) ? m2 : fminf(mm, m2));
-      const bool at_window = (itb + 1) % window == 0;
-      const bool stalled = at_window && isfinite(cm) && lam_next <= lam_mark
-          && __fsub_rn(cm, cbn) <= __fmul_rn(cbn, ftol_window);
-      dn = (improved && small) || flat || small_rel || stalled || lam_next >= lam_stuck;
-      itb += 1;
-      if (at_window) c_mark[b] = cbn;
-      c_best[b] = cbn;
-      lam[b] = lam_next;
-      it[b] = itb;
-      done[b] = dn;
-      if (improved) {  // the lane's t row, and its column of B's next parameters
-        for (int j = 0; j < P; ++j) {
-          t[(long long)b * P + j] = t_new[(long long)b * P + j];
-          pt[(long long)j * B + b] = pt_trial[(long long)j * B + b];
-        }
-      }
-    }
-    alive = !dn && itb < max_iter;
+  const bool in = b < B;
+  // One round trip: every load is issued before any loaded value is used.
+  // The lane's scalars and its column of C's trial parameters, and the
+  // warp's t_new rows (one contiguous run of n floats, element lane + 32 k
+  // in tr[k]), whether or not the lane will take its step.
+  const long long w0 = (long long)(b - lane) * P;
+  const int n = max(0, min(32, B - (b - lane))) * P;
+  bool dn = true;
+  int itb = 0;
+  float cn = 0.f, co = 0.f, lb = 0.f, cb = 0.f, cm = 0.f, s0 = 0.f, s1 = 0.f, s2 = 0.f;
+  if (in) {
+    dn = done[b];
+    itb = it[b];
+    cn = c_new[b];
+    co = c_old[b];
+    lb = lam[b];
+    cb = c_best[b];
+    cm = c_mark[b];
+    s0 = stats[b];
+    s1 = stats[B + b];
+    s2 = stats[2LL * B + b];
   }
-  if (__any_sync(FULL, alive) && lane == 0) *live = true;
+  float pc[P], tr[P];
+#pragma unroll
+  for (int k = 0; k < P; ++k) {
+    pc[k] = in ? pt_trial[(long long)k * B + b] : 0.f;
+    tr[k] = lane + 32 * k < n ? t_new[w0 + lane + 32 * k] : 0.f;
+  }
+
+  bool take = false;  // this lane takes its step
+  if (in && !(dn || itb >= max_iter)) {  // not frozen
+    const bool improved = cn < co && isfinite(cn);
+    const float up = __fmul_rn(lb, (float)0.33), down = __fmul_rn(lb, (float)3.0);
+    const float lam_next = improved ? (isnan(up) ? up : fmaxf(up, (float)1e-12))
+                                    : (isnan(down) ? down : fminf(down, (float)1e10));
+    const bool small = s0 < xtol;
+    const bool flat = improved && __fsub_rn(co, cn) <= __fmul_rn(co, ftol);
+    const bool small_rel = improved && lb <= lam0
+        && s1 < __fmul_rn(__fadd_rn(s2, xtol_rel), xtol_rel);
+    // torch.minimum: NaN wins.
+    const float m1 = isfinite(co) ? co : cb, m2 = isfinite(cn) ? cn : cb;
+    const float mm = isnan(cb) ? cb : (isnan(m1) ? m1 : fminf(cb, m1));
+    const float cbn = isnan(mm) ? mm : (isnan(m2) ? m2 : fminf(mm, m2));
+    const bool at_window = (itb + 1) % window == 0;
+    const bool stalled = at_window && isfinite(cm) && lam_next <= lam_mark
+        && __fsub_rn(cm, cbn) <= __fmul_rn(cbn, ftol_window);
+    dn = (improved && small) || flat || small_rel || stalled || lam_next >= lam_stuck;
+    itb += 1;
+    if (at_window) c_mark[b] = cbn;
+    c_best[b] = cbn;
+    lam[b] = lam_next;
+    it[b] = itb;
+    done[b] = dn;
+    take = improved;
+  }
+  // The lane's column of B's next parameters where it takes its step, and
+  // by the warp its t row: element e of the run where lane e / P does.
+  const unsigned takes = __ballot_sync(FULL, take);
+#pragma unroll
+  for (int k = 0; k < P; ++k) {
+    if (take) pt[(long long)k * B + b] = pc[k];
+    const int e = lane + 32 * k;
+    if (e < n && (takes >> (e / P)) & 1u) t[w0 + e] = tr[k];
+  }
+  if (in && !dn && itb < max_iter) *live = true;
 }
 
 template <int P>
@@ -348,6 +381,27 @@ cudaError_t launch_solve(const float* Hp, const float* gp, const float* t, const
     constexpr int NL = D_THREADS / group_of(P);
     lm_step_solve_kernel<P, group_of(P)><<<(B + NL - 1) / NL, D_THREADS, 0, s>>>(
         Hp, gp, t, lam, lo, span, t_new, pt, stats, live, B);
+    return cudaGetLastError();
+  }
+}
+
+template <int P>
+cudaError_t launch_gate(const float* c_new, const float* c_old, const float* t_new,
+                        const float* pt_trial, const float* stats, float* t, float* lam, int* it,
+                        float* c_best, float* c_mark, bool* done, bool* live, float* pt, int B,
+                        int p, int max_iter, int window, float xtol, float ftol,
+                        float ftol_window, float xtol_rel, float lam0, float lam_mark,
+                        float lam_stuck, cudaStream_t s) {
+  if constexpr (P > P_MAX) {
+    return cudaErrorInvalidValue;
+  } else {
+    if (p != P)
+      return launch_gate<P + 1>(c_new, c_old, t_new, pt_trial, stats, t, lam, it, c_best, c_mark,
+                                done, live, pt, B, p, max_iter, window, xtol, ftol, ftol_window,
+                                xtol_rel, lam0, lam_mark, lam_stuck, s);
+    lm_step_gate_kernel<P><<<(B + E_THREADS - 1) / E_THREADS, E_THREADS, 0, s>>>(
+        c_new, c_old, t_new, pt_trial, stats, t, lam, it, c_best, c_mark, done, live, pt, B,
+        max_iter, window, xtol, ftol, ftol_window, xtol_rel, lam0, lam_mark, lam_stuck);
     return cudaGetLastError();
   }
 }
@@ -378,10 +432,9 @@ int lm_step_gate_f32(const float* c_new, const float* c_old, const float* t_new,
                      float ftol, float ftol_window, float xtol_rel, float lam0,
                      float lam_mark, float lam_stuck, void* stream) {
   if (B <= 0 || P < 1 || P > P_MAX || window < 1) return (int)cudaErrorInvalidValue;
-  lm_step_gate_kernel<<<(B + E_THREADS - 1) / E_THREADS, E_THREADS, 0, (cudaStream_t)stream>>>(
-      c_new, c_old, t_new, pt_trial, stats, t, lam, it, c_best, c_mark, done, live, pt, B, P,
-      max_iter, window, xtol, ftol, ftol_window, xtol_rel, lam0, lam_mark, lam_stuck);
-  return (int)cudaGetLastError();
+  return (int)launch_gate<1>(c_new, c_old, t_new, pt_trial, stats, t, lam, it, c_best, c_mark,
+                             done, live, pt, B, P, max_iter, window, xtol, ftol, ftol_window,
+                             xtol_rel, lam0, lam_mark, lam_stuck, (cudaStream_t)stream);
 }
 
 }  // extern "C"

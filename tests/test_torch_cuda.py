@@ -282,7 +282,7 @@ STEP_CASES = [(K, s2f, 3000) for K in (1, 2, 3, 4, 5, 8, 16) for s2f in (False, 
 
 @pytest.mark.parametrize("K,s2f,B", STEP_CASES)
 def test_step_solve_kernel_matches_plain(gen, K, s2f, B):
-    """Kernel D (G threads a lane, G = 8, 16 or 32 by P) against its plain
+    """Kernel D (G threads a lane, G = 4, 8 or 16 by P) against its plain
     version on the same state on the card: t_new within 1e-4 relative
     (atol 1e-5) on every lane and equal bit for bit on every lane whose
     damped matrix is positive definite, the trial parameters and the three

@@ -29,7 +29,22 @@ The script builds each checkout's kernel library with that checkout's
    in turns old, new, new, old: per path the median wall of 5 calls (3
    for the ladder) after a first call, and from one torch.profiler run
    the device-busy time and the LM kernels' launches and time per launch
-   (B, C and, where the checkout has them, D and E).
+   (B, C and, where the checkout has them, D and E);
+3. kernel E of each checkout as the last node of one step B, D, C, E
+   (this checkout's B, D, C) captured alone in a CUDA graph and replayed
+   50 times by the host, as ``fit.engine._run_graph`` replays it, at
+   LAST_NODE_SHAPES, in turns old, new, new, old: E's mean time a launch
+   as torch.profiler reads it (the measure of the in-situ times) and the
+   replay's time by CUDA events.
+
+With ``--insitu`` instead of OLD_ROOT it runs this checkout's forward,
+ladder and finish under torch.profiler and prints each LM call's (B, P)
+as kernel E's wrapper sees it and D's and E's mean time a launch by P;
+then, at LAST_NODE_SHAPES, D and E as the profiler reads them alone (a
+graph of 50 launches), inside a graph of 50 steps B, D, C, E, and as the
+last node of a one-step graph replayed 50 times by the host.
+
+    python3 tools/torch_lm_ab.py --insitu
 
 With ``--loops`` instead of OLD_ROOT it times this checkout's LM loop
 three ways in one process (the wall differs up to 2x between processes),
@@ -64,6 +79,8 @@ SHAPES = ((2, True, 1024, 500, 50), (4, True, 10_000, 500, 20))  # K, s2_free, B
 # D and E also at the ladder's other rungs (K 1 S2 fixed / free, K 2, K 3) and K 5, K 8
 STEP_SHAPES = SHAPES + tuple((K, s2f, 10_000, 500, 20) for K, s2f in (
     (1, False), (1, True), (2, True), (3, True), (5, True), (8, True)))
+# (K, s2_free, B): the forward's LM call (P 5) and the ladder's K 3 rung (P 7)
+LAST_NODE_SHAPES = ((2, True, 1024), (3, True, 10_000))
 
 
 def _module(name: str, path: Path):
@@ -208,6 +225,192 @@ def step_kernel_times(torch, libs) -> None:
                   flush=True)
 
 
+def _step_operands(torch, gen, K, s2f, B, T=500):
+    """Kernels B to E's operands at random parameters, on a state that
+    never freezes (lam 1e-3, it 0, max_iter and lam_stuck out of reach)."""
+    import math
+
+    from spinrelax_tpu_torch.fit import engine
+    from spinrelax_tpu_torch.fit.lm import _to_constrained, _to_unconstrained
+    from spinrelax_tpu_torch.ops import cuda_lm
+
+    p, y, isg, dt = smoke.lm_operands(torch, gen, K, s2f, B, T)
+    lo, hi = engine._bounds(K, s2f, dt[-1] * 10.0, torch.float32, "cuda")
+    t = _to_unconstrained(p.T, lo, hi).contiguous()
+    eps = torch.finfo(torch.float32).eps
+    gates = cuda_lm.Gates(max_iter=2**31 - 1, window=8, xtol=1e-10, ftol=10.0 * eps,
+                          xtol_rel=math.sqrt(eps), lam0=1e-3, lam_stuck=1e30)
+    state = (t, torch.full((B,), 1e-3, device="cuda"),
+             torch.zeros(B, dtype=torch.int32, device="cuda"),
+             torch.full((B,), float("inf"), device="cuda"),
+             torch.full((B,), float("inf"), device="cuda"),
+             torch.zeros(B, dtype=torch.bool, device="cuda"),
+             torch.ones((), dtype=torch.bool, device="cuda"))
+    return dict(p=_to_constrained(t, lo, hi).T.contiguous(), ops=(y, isg, dt, K, s2f), lo=lo,
+                span=hi - lo, state=state, gates=gates)
+
+
+def _step(torch, cuda_lm, o, gate_lib=None):
+    """One step B, D, C, E on o; E from gate_lib's lm_step_gate_f32 where
+    given, else this checkout's wrapper."""
+    st, g = o["state"], o["gates"]
+    H_p, g_p, c_old = cuda_lm.hgc_cuda(o["p"], *o["ops"])
+    t_new, pt_trial, stats = cuda_lm.step_solve_cuda(H_p, g_p, st[0], st[1], o["lo"],
+                                                     o["span"], st[-1])
+    c_new = cuda_lm.cost_cuda(pt_trial, *o["ops"])
+    gate = (c_new, c_old, t_new, pt_trial, stats)
+    if gate_lib is None:
+        cuda_lm.step_gate_cuda(*gate, st, o["p"], g)
+        return
+    B, P = t_new.shape
+    code = gate_lib.lm_step_gate_f32(
+        *(x.data_ptr() for x in (*gate, *st, o["p"])), B, P, g.max_iter, g.window, g.xtol,
+        g.ftol, g.window * g.ftol, g.xtol_rel, g.lam0, 100.0 * g.lam0, g.lam_stuck,
+        torch.cuda.current_stream().cuda_stream)
+    if code:
+        raise RuntimeError(f"lm_step_gate_f32: CUDA error {code}")
+
+
+def _profiled(torch, run) -> dict:
+    """{'A' .. 'E': (launches, us per launch)} of run() as torch.profiler
+    reads it (the card's activity only), profiled again until some LM
+    kernel is seen (the profiler now and then loses a cycle's events)."""
+    _, per = smoke.device_profile(torch, run, lambda per: bool(smoke.kernel_times(per)),
+                                  cpu=False)
+    return smoke.kernel_times(per)
+
+
+def _graphed(torch, fn, reps: int):
+    """A CUDA graph of reps calls of fn (after one call outside it)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return graph
+
+
+def _replayed(torch, fn, reps: int = 50):
+    """(profiler's {kernel: (launches, us)}, CUDA events' us a replay) of
+    one call of fn captured alone and its graph replayed reps times by the
+    host, as fit.engine._run_graph replays its step."""
+    graph = _graphed(torch, fn, 1)
+
+    def run():
+        for _ in range(reps):
+            graph.replay()
+
+    return _profiled(torch, run), smoke.cuda_ms(torch, graph.replay, reps) * 1e3
+
+
+def last_node_times(torch, libs) -> None:
+    """Kernel E of both libraries as the last node of a replayed one-step
+    graph (see the module docstring, item 3)."""
+    sys.path.insert(0, str(HERE))
+    from spinrelax_tpu_torch.ops import cuda_lm
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    for K, s2f, B in LAST_NODE_SHAPES:
+        o = _step_operands(torch, gen, K, s2f, B)
+        res = {0: [], 1: []}
+        for side in (0, 1, 1, 0):
+            per, us = _replayed(torch, lambda: _step(torch, cuda_lm, o, libs[side]))
+            res[side].append((per["E"][1], us))
+        (e_old, r_old), (e_new, r_new) = ([statistics.mean(x) for x in zip(*res[s])]
+                                          for s in (0, 1))
+        print(f"E as the last node of a replayed one-step graph at B {B}, K {K}, S2 "
+              f"{'free' if s2f else 'fixed'} (P {cuda_lm.n_par(K, s2f)}): old {e_old:.3f} us, "
+              f"new {e_new:.3f} us a launch (profiler); replay old {r_old:.2f} us, new "
+              f"{r_new:.2f} us (CUDA events)", flush=True)
+
+
+def insitu_run() -> int:
+    """Each LM call's (B, P) on the three paths and D's and E's in-situ
+    times by P; D and E alone, in a graph of steps and as a replay's last
+    node (see the module docstring)."""
+    import re
+
+    sys.path.insert(0, str(HERE))
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from spinrelax_tpu_torch.ops import cuda_lm
+
+    shapes = []
+    gate = cuda_lm.step_gate_cuda
+
+    def seen(c_new, c_old, t_new, *a, **k):
+        shapes.append(tuple(t_new.shape))
+        return gate(c_new, c_old, t_new, *a, **k)
+
+    seen.launches = 0  # fit.engine adds its replays to the counter it finds here
+    cuda_lm.step_gate_cuda = seen
+    try:
+        for path, (fn, _) in lm_paths(torch).items():
+            fn()
+            torch.cuda.synchronize()
+            shapes.clear()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            events = sorted((e.start_ns(), e.duration_ns() / 1e3, e.name())
+                            for e in prof.profiler.kineto_results.events()
+                            if e.device_type() == DeviceType.CUDA)
+            by_p, last_p = {}, None
+            for _, us, name in events:
+                m = re.search(r"lm_step_solve_kernel<(\d+)", name)
+                if m:
+                    last_p = int(m.group(1))
+                    by_p.setdefault(("D", last_p), []).append(us)
+                elif smoke.kernel_of(name) == "E":
+                    by_p.setdefault(("E", last_p), []).append(us)
+            print(f"{path}: LM calls (B, P) {sorted(set(shapes))}", flush=True)
+            for (k, P), us in sorted(by_p.items(), key=str):
+                print(f"  {path} in situ {k} at P {P}: {len(us)} launches, mean "
+                      f"{statistics.mean(us):.2f} us (min {min(us):.2f}, max {max(us):.2f})",
+                      flush=True)
+    finally:
+        cuda_lm.step_gate_cuda = gate
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    for K, s2f, B in LAST_NODE_SHAPES:
+        o = _step_operands(torch, gen, K, s2f, B)
+        ins = []
+
+        def step():
+            _step(torch, cuda_lm, o)
+
+        def d():
+            cuda_lm.step_solve_cuda(*ins[0], o["state"][-1])
+
+        def e():
+            cuda_lm.step_gate_cuda(*ins[1], o["state"], o["p"], o["gates"])
+
+        H_p, g_p, c_old = cuda_lm.hgc_cuda(o["p"], *o["ops"])
+        st = o["state"]
+        ins.append((H_p, g_p, st[0], st[1], o["lo"], o["span"]))
+        t_new, pt_trial, stats = cuda_lm.step_solve_cuda(*ins[0], st[-1])
+        ins.append((cuda_lm.cost_cuda(pt_trial, *o["ops"]), c_old, t_new, pt_trial, stats))
+        tag = f"B {B}, K {K}, S2 {'free' if s2f else 'fixed'} (P {cuda_lm.n_par(K, s2f)})"
+        for name, fn in (("D alone", d), ("E alone", e)):
+            graph = _graphed(torch, fn, 50)
+            us = _profiled(torch, graph.replay)[name[0]][1]
+            print(f"{tag}, a graph of 50 x {name}: {us:.2f} us a launch (profiler)", flush=True)
+        graph = _graphed(torch, step, 50)
+        per = _profiled(torch, graph.replay)
+        print(f"{tag}, a graph of 50 steps B, D, C, E: " + ", ".join(
+            f"{k} {us:.2f} us" for k, (_, us) in sorted(per.items())) + " a launch (profiler)",
+            flush=True)
+        per, us = _replayed(torch, step)
+        print(f"{tag}, one step captured alone, replayed 50 times: " + ", ".join(
+            f"{k} {u:.2f} us" for k, (_, u) in sorted(per.items()))
+            + f" a launch (profiler); {us:.2f} us a replay (CUDA events)", flush=True)
+    return 0
+
+
 def _leaves(x):
     """The numbers of a nested result (tensors, numeric arrays, floats), in
     a fixed order, as tensors."""
@@ -291,6 +494,16 @@ def main(argv) -> int:
             return 3
         print(smoke.gpu_line(), flush=True)
         return loops_run()
+    if argv == ["--insitu"]:
+        import torch
+
+        if not torch.cuda.is_available():
+            print("torch_lm_ab: needs a GPU", file=sys.stderr)
+            return 3
+        print(smoke.gpu_line(), flush=True)
+        code = insitu_run()
+        print(smoke.gpu_line(), flush=True)
+        return code
     if len(argv) >= 2 and argv[0] == "--paths":
         print(json.dumps(paths_run(Path(argv[1]).resolve())))
         return 0
@@ -308,6 +521,7 @@ def main(argv) -> int:
     libs = load_libs(roots)
     kernel_times(torch, libs)
     step_kernel_times(torch, libs)
+    last_node_times(torch, libs)
     runs = {0: [], 1: []}
     for side in (0, 1, 1, 0):
         res = subprocess.run([sys.executable, __file__, "--paths", str(roots[side])],
