@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from ..ops import cuda_lm
+from ..utils import profiling
 from .lm import (
     MultiExpFit, _finalise_multiexp, _init_multiexp, _mm, _multiexp_res_jac,
     _spd_inv_diag_small, _to_constrained, _to_unconstrained,
@@ -47,13 +48,19 @@ def _bounds(K: int, s2_free: bool, tau_max, dtype, device):
     return torch.tensor(lo, dtype=dtype, device=device), hi
 
 
+def _look(live) -> bool:
+    """The host's read of ``live``, counted in ``fit.host_looks``."""
+    profiling.count("fit.host_looks")
+    return bool(live)
+
+
 def _run_eager(step, live, max_iter: int, window: int) -> int:
     """Call ``step`` while ``live`` (a bool scalar tensor the step keeps)
     is true; the host reads it every iteration.  Returns the steps run.
     (``max_iter`` and ``window`` are :func:`_run_graph`'s: the step itself
     clears ``live`` at ``max_iter``.)"""
     steps = 0
-    while bool(live):
+    while _look(live):
         step()
         steps += 1
     return steps
@@ -105,7 +112,7 @@ def _replay(replay, live, steps: int, max_iter: int, window: int, counters=()) -
         steps += n
         for c in counters:
             c.launches += n
-        if not bool(live):
+        if not _look(live):
             break
     return steps
 

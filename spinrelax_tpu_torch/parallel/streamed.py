@@ -26,6 +26,7 @@ import torch
 
 from ..constants import NucleusPair
 from ..ops import autocorr
+from ..utils import profiling
 from . import mesh as pm
 
 
@@ -198,6 +199,7 @@ class FlagshipRates(NamedTuple):
     drho: Optional[torch.Tensor] = None
 
 
+@profiling.span("run_finish")
 def run_finish(
     acc_s,
     acc_s2,
@@ -250,12 +252,14 @@ def run_finish(
     if names is None:
         names = [str(i) for i in range(n_res)]
     # NaN dCt (one-chunk streams) become weight 1 inside fit_ct_ladder.
-    cts = fit_ct_ladder(names, dt, Ct, ddecays=dCt, use_s2fast=use_s2fast,
-                        n_components=n_components, chisq_threshold=chisq_threshold,
-                        zeta=zeta, mesh=mesh)
+    with profiling.span("run_finish.ladder"):
+        cts = fit_ct_ladder(names, dt, Ct, ddecays=dCt, use_s2fast=use_s2fast,
+                            n_components=n_components, chisq_threshold=chisq_threshold,
+                            zeta=zeta, mesh=mesh)
     if mesh is None:
-        return FlagshipRates(Ct, dCt, cts,
-                             *_predict(pair, diffusion, cts, vecs, weights, csa, Ct.device))
+        with profiling.span("run_finish.rates"):
+            rates = _predict(pair, diffusion, cts, vecs, weights, csa, Ct.device)
+        return FlagshipRates(Ct, dCt, cts, *rates)
 
     def put(a):
         if a is None:
@@ -266,8 +270,9 @@ def run_finish(
         return pm.pad_and_shard(mesh, [a])[0][0]
 
     idx = pm.pad_and_shard(mesh, [torch.arange(n_res)])[0][0]
-    rates = _predict(pair, diffusion, cts.select(idx), put(vecs), put(weights), put(csa),
-                     Ct.device)
+    with profiling.span("run_finish.rates"):
+        rates = _predict(pair, diffusion, cts.select(idx), put(vecs), put(weights), put(csa),
+                         Ct.device)
     have = [r for r in rates if r is not None]
     full = iter(_unpack(pm.fetch(_pack(have), mesh, n_res), have))
     return FlagshipRates(Ct, dCt, cts, *(None if r is None else next(full) for r in rates))

@@ -11,7 +11,9 @@ runs it on the CPU instead.  ``ct --split G --devices N``, ``fit-ct
     torchrun --nproc-per-node N -m spinrelax_tpu_torch ct ... --split G --devices N
 
 (``--devices 1`` needs no launcher: the process starts its own one-rank
-group); rank 0 writes the artefacts.
+group); rank 0 writes the artefacts.  With SPINRELAX_TRACE_DIR set, each
+command runs under torch.profiler and writes ``<dir>/<command>.json``
+(``utils.profiling.trace``).
 
     spinrelax center      <- center-solute-gromacs.bash (native trjconv)
     spinrelax orient      <- PLUMED QUATERNION + gmx steps (now native)
@@ -43,6 +45,7 @@ import numpy as np
 import torch
 
 from .. import checked_device
+from ..utils import profiling
 
 
 def _split_floats(s: str):
@@ -1435,7 +1438,8 @@ def main(argv=None, device="cuda"):
     # reused by every later process.
     t0 = time.time()
     try:
-        COMMANDS[cmd](argv[1:], device)
+        with profiling.trace(label=cmd):  # a no-op unless SPINRELAX_TRACE_DIR is set
+            COMMANDS[cmd](argv[1:], device)
     except FileNotFoundError as exc:
         # Reference-style bail (_BAIL, spectral_densities.py:1818-1823)
         # instead of a raw traceback for the most common user error.

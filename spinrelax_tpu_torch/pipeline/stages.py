@@ -39,6 +39,7 @@ from ..models.diffusion import Diffusion
 from ..ops import autocorr, ired, observables, orient
 from ..ops import dq as dqops
 from ..parallel.mesh import barrier, device_of, is_writer
+from ..utils import profiling
 
 
 def _written(mesh, write) -> None:
@@ -48,6 +49,14 @@ def _written(mesh, write) -> None:
     if is_writer(mesh):
         write()
     barrier(mesh)
+
+
+def _artefact(mesh, write, *paths) -> None:
+    """One artefact of :func:`stage_ct_streamed`: ``write`` on the writing
+    rank, its files' sizes then counted in ``stage_ct.write_bytes``."""
+    _written(mesh, write)
+    if is_writer(mesh):
+        profiling.count("stage_ct.write_bytes", sum(os.path.getsize(p) for p in paths))
 
 
 def _fit_weights(top, fit_sel: str) -> np.ndarray:
@@ -1079,6 +1088,7 @@ def fused_group_update(vec_raw_g, vec_fit_g, w_g, q_rot, acc: dict,
 _HIST_SPILL_FRAMES = 2**31 - 2**24
 
 
+@profiling.span("stage_ct")
 def stage_ct_streamed(
     traj_files: Sequence[str],
     ref_pdbs: Sequence[str],
@@ -1269,7 +1279,7 @@ def stage_ct_streamed(
                     trj_fn, chunk_frames=group_frames, top_fn=ref_fn, timestep=delta_t):
                 yield orient.bond_obs_host(xyz_chunk, ref0, idx_h, idx_x, w)
 
-        for raw_diff, S in obs_chunks():
+        for raw_diff, S in profiling.spanned("stage_ct.decode", obs_chunks()):
             # Only the (F, nBonds, 3) bond differences and the (F, 3, 3)
             # Horn correlations cross host -> device, not the (F, nAtoms, 3)
             # coordinate block the decoder produced.
@@ -1277,14 +1287,17 @@ def stage_ct_streamed(
             if n_full == 0:
                 continue  # tail shorter than one Palmer chunk: dropped
             f = dtype or torch.from_numpy(raw_diff).dtype
-            bv = orient.bond_vectors_from_obs(
-                torch.from_numpy(raw_diff).to(device=dev, dtype=f),
-                torch.from_numpy(S).to(device=dev, dtype=f))
+            with profiling.span("stage_ct.h2d"):
+                raw_dev = torch.from_numpy(raw_diff).to(device=dev, dtype=f)
+                S_dev = torch.from_numpy(S).to(device=dev, dtype=f)
+            profiling.count("stage_ct.h2d_bytes", raw_diff.nbytes + S.nbytes)
+            bv = orient.bond_vectors_from_obs(raw_dev, S_dev)
             if q_rot is not None and q_rot_t is None:
                 q_rot_t = torch.as_tensor(np.asarray(q_rot), dtype=f, device=dev)
             g = n_full // fpc
-            accumulate(bv.raw[:n_full].reshape(g, fpc, -1, 3),
-                       bv.fitted[:n_full].reshape(g, fpc, -1, 3))
+            with profiling.span("stage_ct.accumulate"):
+                accumulate(bv.raw[:n_full].reshape(g, fpc, -1, 3),
+                           bv.fitted[:n_full].reshape(g, fpc, -1, 3))
 
     if n_chunks_total == 0:
         raise ValueError("no complete Palmer chunks found in the input")
@@ -1293,45 +1306,57 @@ def stage_ct_streamed(
     dt_lags = autocorr.lag_times(delta_t, tau_memory).numpy()
     R = float(n_chunks_total)
 
+    # each artefact in its own span: the D2H read of its statistics, the
+    # formatting and the write
     if do_ct:
         for key, suffix in (("ext", "_Ctext.dat"), ("int", "_Ctint.dat")):
-            if mesh is not None:
-                mean, dct = ct_streams[key].finalize()
-            else:
-                mean, dct = autocorr.palmer_pooled_stats(acc[f"ct_{key}_s"],
-                                                         acc[f"ct_{key}_s2"], R)
-            mean, dct = mean.cpu().numpy(), dct.cpu().numpy()  # (nDeltas, nBonds)
-            _written(mesh, lambda: xvg.print_sxylist(
-                out_prefix + suffix, res_ids, dt_lags, np.stack([mean.T, dct.T], axis=-1)))
+            with profiling.span("stage_ct.write"):
+                if mesh is not None:
+                    mean, dct = ct_streams[key].finalize()
+                else:
+                    mean, dct = autocorr.palmer_pooled_stats(acc[f"ct_{key}_s"],
+                                                             acc[f"ct_{key}_s2"], R)
+                mean, dct = mean.cpu().numpy(), dct.cpu().numpy()  # (nDeltas, nBonds)
+                _artefact(mesh, lambda: xvg.print_sxylist(
+                    out_prefix + suffix, res_ids, dt_lags, np.stack([mean.T, dct.T], axis=-1)),
+                    out_prefix + suffix)
             if key == "int":
                 out["Ct"], out["dCt"] = mean, dct
 
     if do_vec_avg:
-        avg = qt.vecnorm(acc["vec_sum"] / (R * fpc)).cpu().numpy()
-        _written(mesh, lambda: xvg.print_xylist(out_prefix + "_avgvec.dat", res_ids, avg.T,
-                                                cols=True))
+        with profiling.span("stage_ct.write"):
+            avg = qt.vecnorm(acc["vec_sum"] / (R * fpc)).cpu().numpy()
+            _artefact(mesh, lambda: xvg.print_xylist(out_prefix + "_avgvec.dat", res_ids, avg.T,
+                                                     cols=True), out_prefix + "_avgvec.dat")
         out["avgvec"] = avg
 
     if do_vec_dist:
-        if do_hist:
-            spill_hist()  # fold the device int32 into the int64 total
-            ep, ec = geometry.lambert_edges(*hist_nb, dtype=vec_dtype)
-            _written(mesh, lambda: vecio.save_histogram(
-                out_prefix + "_vecHistogram.npz", res_ids, hist_host, ep.numpy(), ec.numpy()))
-            out["vec_file"] = out_prefix + "_vecHistogram.npz"
-        else:
-            out["vec_file"] = out_prefix + ("_vecPhiTheta.dat" if vec_storage == "TextPhiTheta"
-                                            else "_vecPhiTheta.npz")
-            _written(mesh, lambda: pt_writer is not None and pt_writer.close())
+        with profiling.span("stage_ct.write"):
+            if do_hist:
+                spill_hist()  # fold the device int32 into the int64 total
+                ep, ec = geometry.lambert_edges(*hist_nb, dtype=vec_dtype)
+                out["vec_file"] = out_prefix + "_vecHistogram.npz"
+                _artefact(mesh, lambda: vecio.save_histogram(
+                    out["vec_file"], res_ids, hist_host, ep.numpy(), ec.numpy()), out["vec_file"])
+            else:
+                out["vec_file"] = out_prefix + ("_vecPhiTheta.dat"
+                                                if vec_storage == "TextPhiTheta"
+                                                else "_vecPhiTheta.npz")
+                _artefact(mesh, lambda: pt_writer is not None and pt_writer.close(),
+                          out["vec_file"])
 
     if do_s2:
-        if do_s2_outer:
-            s2, ds2 = autocorr.palmer_pooled_stats(acc["s2_s"], acc["s2_s2"], R)
-            arr = np.stack([s2.cpu().numpy(), ds2.cpu().numpy()], axis=-1)
-        else:
-            arr = _ired_spectrum_artefact(out_prefix, ired_stream.result(), mesh)
-        _written(mesh, lambda: xvg.print_xylist(out_prefix + "_S2.dat", res_ids,
-                                                (arr.T) * zeta, cols=True))
+        with profiling.span("stage_ct.write"):
+            if do_s2_outer:
+                s2, ds2 = autocorr.palmer_pooled_stats(acc["s2_s"], acc["s2_s2"], R)
+                arr = np.stack([s2.cpu().numpy(), ds2.cpu().numpy()], axis=-1)
+                spectrum = ()
+            else:
+                arr = _ired_spectrum_artefact(out_prefix, ired_stream.result(), mesh)
+                spectrum = (out_prefix + "_iREDspectrum.dat",)
+            _artefact(mesh, lambda: xvg.print_xylist(out_prefix + "_S2.dat", res_ids,
+                                                     (arr.T) * zeta, cols=True),
+                      out_prefix + "_S2.dat", *spectrum)
         out["S2"] = arr
     out["acc"] = acc
     if mesh is not None:
