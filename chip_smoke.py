@@ -67,12 +67,12 @@ Builds the port's CUDA kernels from csrc/ and runs, in order:
 7. the streamed C(t) stage: (a) stage_ct_streamed on a synthetic .xtc of
    ubiquitin's size (1231 atoms, 71 N-H bonds, 20 000 frames 2 ps apart,
    tau_memory 4000 ps: chunks of 2000 frames, 1000 lags), read by the
-   native codec and written by libfastio (both built here with the host
-   C++ compiler), held to the same stage on the CPU in float64 (C(t) 2e-6,
+   native codec and written by libfastio and libsxyfmt (all built here
+   with the host C++ compiler), held to the same stage on the CPU in float64 (C(t) 2e-6,
    S2 and the average vector 1e-5, <= 1e-3 of the histogram's samples in
    another bin: float32 vectors differ from float64 ones by ~1e-7, so a
    sample that close to a bin edge lands next door), with the C(t) writer
-   timed through libfastio and through numpy's row formatter (the same
+   timed through libsxyfmt and through numpy's row formatter (the same
    bytes); (b) 10 group steps of 4 chunks x 2000 frames x 1024 bonds from
    observables made on the card, through bond_vectors_from_obs and the
    fused update, held to a float64 plain route on the card, with the
@@ -1381,9 +1381,9 @@ def phase_stage(torch, tac, cuda_acf, counters, gen, ubq):
         h_card, h_ref = (torch.from_numpy(np.load(str(Path(tmp) / f"{n}_vecHistogram.npz"),
                                                   allow_pickle=True)["data"])
                          for n in ("card", "cpu"))
-        # The writer of _Ctext.dat / _Ctint.dat: libfastio's rows (the
-        # stage's route) against numpy's row formatter (the route before libfastio) on
-        # the same rows, the same bytes.
+        # The writer of _Ctext.dat / _Ctint.dat: libsxyfmt's rows (the
+        # stage's route) against numpy's row formatter (the route before the native
+        # renderer) on the same rows, the same bytes.
         rows = (card["res_ids"], tac.lag_times(dt, tau).numpy(),
                 np.stack([card["Ct"].T, card["dCt"].T], axis=-1))
         t0 = time.perf_counter()
@@ -1398,8 +1398,8 @@ def phase_stage(torch, tac, cuda_acf, counters, gen, ubq):
         finally:
             xvg._native_rows = native_rows
         check((Path(tmp) / "native.dat").read_bytes() == (Path(tmp) / "rows.dat").read_bytes(),
-              "libfastio's C(t) rows are numpy's row formatter's bytes")
-    print(f"  writing _Ctext.dat + _Ctint.dat ({2 * n_res * (fpc // 2)} rows) through libfastio "
+              "libsxyfmt's C(t) rows are numpy's row formatter's bytes")
+    print(f"  writing _Ctext.dat + _Ctint.dat ({2 * n_res * (fpc // 2)} rows) through libsxyfmt "
           f"takes {t_write:.3f} s = {t_write / secs:.1%} of the stage wall; through numpy's row "
           f"formatter (the stage's route before libfastio) {t_rows:.3f} s", flush=True)
     print(f"  stage wall {secs:.3f} s on the card for {n_read} frames ({n_read / secs:.0f} "

@@ -1,6 +1,7 @@
 """Build and load the port's native code: the CUDA kernels, and the host
-C++ libraries, the XTC codec (``csrc/xtc.cpp``) and the text reader and
-writers (``csrc/fastio.cpp``; :func:`load_host`).
+C++ libraries, the XTC codec (``csrc/xtc.cpp``), the text reader and
+writers (``csrc/fastio.cpp``) and the C(t) files' renderer
+(``csrc/sxyfmt.cpp``; :func:`load_host`).
 
 Every ``csrc/*.cu`` source compiles to an object in its own ``nvcc``
 process, all started together, and the objects link into one shared
@@ -165,7 +166,7 @@ def _host_compiler() -> str:
     raise RuntimeError(
         "no host C++ compiler found (tried $CXX, g++, c++, clang++): "
         "spinrelax_tpu_torch builds its host libraries (the XTC codec, the text "
-        "reader and writers) from csrc/*.cpp at first use"
+        "reader and writers, the C(t) files' renderer) from csrc/*.cpp at first use"
     )
 
 

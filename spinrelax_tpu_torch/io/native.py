@@ -1,12 +1,13 @@
 """ctypes bindings to the port's native host libraries: the text reader and
 writers (``csrc/fastio.cpp``; the fastio half of
-``spinrelax_tpu/io/native.py``) and the XTC codec (``csrc/xtc.cpp``; its
+``spinrelax_tpu/io/native.py``), the threaded renderer of the C(t) files
+(``csrc/sxyfmt.cpp``; port only) and the XTC codec (``csrc/xtc.cpp``; its
 XTC half).
 
 Each library is compiled with the host C++ compiler at first use into
 ``spinrelax_tpu_torch/build/`` (``_build.load_host``), keyed on the
 source's hash.  A build or load that fails raises: no numpy route stands
-in for either library.
+in for any of them.
 """
 
 from __future__ import annotations
@@ -33,6 +34,10 @@ _SIGNATURES = {
         "fastio_count_fields_headers": ((_S, _LP), _I),
         "fastio_write_table": ((_S, _I, _D, _L, _L), _I),
         "fastio_format_sxy": ((_D, _V, _I, _LL, _I, _S, _LL), _LL),
+    },
+    "sxyfmt": {
+        "sxyfmt_render_sets": ((_D, _V, _I, _LL, _LL, _I, _I, _V, _LL,
+                                ctypes.POINTER(_LL)), _LL),
     },
     "xtc": {
         "xtc_info": ((_S, _LP, _IP), _I),
@@ -131,6 +136,56 @@ def format_sxy(x, y) -> bytes:
     if nb < 0:
         raise RuntimeError(f"fastio_format_sxy failed (code {nb})")
     return out.raw[:nb]
+
+
+# The fewest rows a worker thread of format_sxy_sets is given: 5-8 ms of
+# rendering on one core (0.3-0.5 us a two-value row), against the tens of
+# microseconds a thread takes to start.  A smaller block renders on one
+# thread.
+ROWS_PER_WORKER = 1 << 14
+
+
+def sxy_workers(n_sets: int, n_rows: int) -> int:
+    """Worker threads for a (n_sets, n_rows, k) block: one per core of the
+    process's affinity and per set, and no more than give each worker
+    ``ROWS_PER_WORKER`` rows."""
+    return max(1, min(len(os.sched_getaffinity(0)), n_sets,
+                      n_sets * n_rows // ROWS_PER_WORKER))
+
+
+def format_sxy_sets(x, y):
+    """Render every set of a (nSets, n, k) block: set s is the bytes
+    ``format_sxy(x, y[s])`` gives, the sets back to back, in one native
+    call (``csrc/sxyfmt.cpp``) over as many threads as the block's shape
+    asks (:func:`sxy_workers`).  The bytes are the same at any worker
+    count.
+
+    Returns (block, offsets): the bytes as a memoryview, and the (nSets +
+    1,) int64 offsets of the sets in it.  Input as for :func:`format_sxy`
+    (float64 x (n,), float32/float64 y with k <= 3), else ValueError."""
+    lib = _load("sxyfmt")
+    x = np.ascontiguousarray(x)
+    y = np.asarray(y)
+    if (x.dtype != np.float64 or x.ndim != 1 or y.ndim != 3
+            or y.dtype not in (np.float32, np.float64) or y.shape[2] > 3
+            or y.shape[1] != x.shape[0]):
+        raise ValueError(f"format_sxy_sets renders float64 x (n,) beside float32/float64 y "
+                         f"(nSets, n, <= 3); got x {x.dtype} {x.shape}, y {y.dtype} {y.shape}")
+    y = np.ascontiguousarray(y)
+    n_sets, n, k = y.shape
+    workers = sxy_workers(n_sets, n)
+    cap = 64 + n * (40 + 40 * k)  # a set's slot: format_sxy's bound
+    out = np.empty(n_sets * cap, dtype=np.uint8)  # pages are touched only as written
+    lens = np.empty(n_sets, dtype=np.int64)
+    total = lib.sxyfmt_render_sets(_ptr(x, _D), y.ctypes.data_as(_V),
+                                   1 if y.dtype == np.float32 else 0, n_sets, n, k,
+                                   workers, out.ctypes.data_as(_V), cap,
+                                   _ptr(lens, ctypes.POINTER(_LL)))
+    if total < 0:
+        raise RuntimeError(f"sxyfmt_render_sets failed (code {total})")
+    offsets = np.zeros(n_sets + 1, dtype=np.int64)
+    np.cumsum(lens, out=offsets[1:])
+    return memoryview(out)[:total], offsets
 
 
 def write_table(fn: str, data, append: bool = False) -> None:

@@ -14,6 +14,7 @@ import csv
 
 import numpy as np
 
+from ..utils import profiling
 from .zopen import topen
 
 
@@ -163,7 +164,7 @@ def _default_printoptions() -> bool:
 
 
 def _native_rows(x, ylist) -> bool:
-    """Whether ``native.format_sxy`` renders these rows: default
+    """Whether ``native.format_sxy_sets`` renders these rows: default
     printoptions, float64 x, float32/float64 rows of at most 3 values."""
     return (ylist.ndim == 3 and ylist.shape[-1] <= 3
             and ylist.dtype in (np.float32, np.float64)
@@ -175,23 +176,31 @@ def print_sxylist(fn: str, legend, x, ylist, header: Sequence[str] = ()):
     ylist may be (nSets, nPts) or (nSets, nPts, nCols).
 
     The ndim == 3 rows are numpy's aligned ``str(ndarray)`` rendering (the
-    reference prints str(row).strip('[]')).  ``native.format_sxy`` renders
-    the same bytes in C, one set per call; numpy's row formatter takes what
-    the renderer does not render (see :func:`_native_rows`)."""
+    reference prints str(row).strip('[]')).  ``native.format_sxy_sets``
+    renders the same bytes in C, every set in one call over worker
+    threads; numpy's row formatter takes what the renderer does not render
+    (see :func:`_native_rows`).  The sets each route renders are counted
+    in ``xvg.native_sets`` / ``xvg.row_sets``."""
     ylist = np.asarray(ylist)
-    native_rows = _native_rows(x, ylist)
-    if native_rows:
+    if _native_rows(x, ylist):
         from . import native
 
-        xarr = np.ascontiguousarray(x, dtype=np.float64)
+        block, offsets = native.format_sxy_sets(np.asarray(x), ylist)
+        with topen(fn, "wb") as fp:
+            for line in header:
+                fp.write(f"{line}\n".encode())
+            for i in range(ylist.shape[0]):
+                fp.write(('@s%d legend "%s"\n' % (i, legend[i])).encode())
+                fp.write(block[offsets[i]:offsets[i + 1]])
+                fp.write(b"&\n")
+        profiling.count("xvg.native_sets", ylist.shape[0])
+        return
     with topen(fn, "w") as fp:
         for line in header:
             print(line, file=fp)
         for i in range(ylist.shape[0]):
             print('@s%d legend "%s"' % (i, legend[i]), file=fp)
-            if native_rows:
-                fp.write(native.format_sxy(xarr, ylist[i]).decode("ascii"))
-            elif ylist.ndim == 3:
+            if ylist.ndim == 3:
                 for j in range(len(x)):
                     # reference: str(ndarray).strip('[]') -- numpy's
                     # aligned rendering, incl. its padding whitespace
@@ -200,6 +209,7 @@ def print_sxylist(fn: str, legend, x, ylist, header: Sequence[str] = ()):
                 for j in range(len(x)):
                     print(x[j], ylist[i, j], file=fp)
             print("&", file=fp)
+    profiling.count("xvg.row_sets", ylist.shape[0])
 
 
 def print_gplot_hist(fn: str, hist, edges, header: str = "", sphere: bool = False):

@@ -41,7 +41,7 @@ _events: list = []  # (t_ns, name, n)
 _stack: list = []  # buffer indices of the open recorded spans (None: dropped)
 _drops = [None, None]  # first and last drop, perf_counter_ns
 _totals = {"stage_ct.h2d_bytes": 0, "stage_ct.write_bytes": 0, "fit.host_looks": 0,
-           "profiling.dropped": 0}
+           "xvg.native_sets": 0, "xvg.row_sets": 0, "profiling.dropped": 0}
 
 
 def _drop(t_ns: int) -> None:

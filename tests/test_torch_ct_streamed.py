@@ -215,6 +215,37 @@ def test_fused_xtc_reduction_equals_host_reduction(system):
     assert outs[0] == outs[1]
 
 
+def test_stage_ct_files_are_the_per_set_renderers_bytes(system, monkeypatch):
+    """_Ctext.dat and _Ctint.dat, each rendered in one call over worker
+    threads (forced here: the shape alone picks one for 5 sets), are the
+    bytes the per-set route (native.format_sxy, a call a set) gives for the
+    same statistics; the 10 sets are counted as native."""
+    from spinrelax_tpu_torch.io import native
+    from spinrelax_tpu_torch.utils import profiling
+
+    calls, write = [], xvg.print_sxylist
+
+    def spy(fn, legend, x, ylist, header=()):
+        calls.append((fn, list(legend), np.array(x), np.array(ylist)))
+        write(fn, legend, x, ylist, header)
+
+    monkeypatch.setattr(xvg, "print_sxylist", spy)
+    monkeypatch.setattr(native, "ROWS_PER_WORKER", 1)
+    before = profiling.counters()
+    p = str(system["tmp"] / "sets")
+    tstages.stage_ct_streamed([system["xtc"]], [system["ref"]], p, tau_memory=TAU,
+                              chunk_groups=2, device="cpu")
+    assert [c[0] for c in calls] == [p + "_Ctext.dat", p + "_Ctint.dat"]
+    for fn, legend, x, y in calls:
+        assert y.shape == (5, 80, 2) and y.dtype == np.float32
+        want = b"".join(('@s%d legend "%s"\n' % (i, leg)).encode() + native.format_sxy(x, y[i])
+                        + b"&\n" for i, leg in enumerate(legend))
+        assert open(fn, "rb").read() == want
+    after = profiling.counters()
+    assert after["xvg.native_sets"] - before["xvg.native_sets"] == 10
+    assert after["xvg.row_sets"] == before["xvg.row_sets"]
+
+
 @pytest.mark.parametrize("storage,ext", [("PhiTheta", "npz"), ("TextPhiTheta", "dat")])
 def test_stage_phitheta_storage_matches_jax(system, storage, ext):
     t, j, tp, jp = _both(system, storage, "xtc", chunk_groups=2, vec_storage=storage)

@@ -1,7 +1,8 @@
 """The port's text I/O against spinrelax_tpu's on the CPU: libfastio
 (spinrelax_tpu_torch.io.native, built from the port's own csrc/fastio.cpp
-with the host C++ compiler), print_sxylist through it, and the colvar,
-fittedCt and OpenDX formats.
+with the host C++ compiler), the threaded renderer of csrc/sxyfmt.cpp
+against fastio's, print_sxylist through it, and the colvar, fittedCt and
+OpenDX formats.
 
 Bytes are compared exactly; parsed tables exactly (both parsers are the
 same C code), and against numpy to 1e-12 relative.
@@ -27,6 +28,7 @@ from spinrelax_tpu_torch.io import fittedct as tfct
 from spinrelax_tpu_torch.io import native as tnat
 from spinrelax_tpu_torch.io import xvg as txvg
 from spinrelax_tpu_torch.models.ctmodel import CtModelSet
+from spinrelax_tpu_torch.utils import profiling
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -109,9 +111,9 @@ def test_gzip_paths_raise(tmp_path):
             call()
 
 
-def test_format_sxy_differential_fuzz():
-    """tests/test_native.py's fuzz: every row equals numpy's rendering and
-    the JAX wrapper's bytes."""
+def _fuzz_rows():
+    """tests/test_native.py's fuzz rows, (dtype, x (1,), vals (k,)): nan,
+    +-inf, +-0, subnormals, integral and 1e7-1e8 values, k = 1..3."""
     rng = np.random.default_rng(20260818)
     for dtype in (np.float64, np.float32):
         for trial in range(1500):
@@ -137,12 +139,81 @@ def test_format_sxy_differential_fuzz():
             if r == 10 and dtype == np.float64:
                 vals = (rng.normal(size=k) * 10.0 ** rng.uniform(-310, 305, k)).astype(dtype)
             x = np.array([rng.normal() * 10.0 ** rng.uniform(-12, 24)])
-            got = tnat.format_sxy(x, vals.reshape(1, -1))
-            assert got.decode() == f"{x[0]} {str(vals).strip('[]')}\n", (
-                dtype.__name__, vals.tobytes().hex())
-            assert got == jnat.format_sxy(x, vals.reshape(1, -1))
+            yield dtype, x, vals
 
 
+def test_format_sxy_differential_fuzz():
+    """tests/test_native.py's fuzz: every row equals numpy's rendering and
+    the JAX wrapper's bytes."""
+    for dtype, x, vals in _fuzz_rows():
+        got = tnat.format_sxy(x, vals.reshape(1, -1))
+        assert got.decode() == f"{x[0]} {str(vals).strip('[]')}\n", (
+            dtype.__name__, vals.tobytes().hex())
+        assert got == jnat.format_sxy(x, vals.reshape(1, -1))
+
+
+def _sets(block, offsets):
+    return [bytes(block[a:b]) for a, b in zip(offsets[:-1], offsets[1:])]
+
+
+def _cores():
+    return len(os.sched_getaffinity(0))
+
+
+@pytest.mark.parametrize("k", [1, 2, 3])
+@pytest.mark.parametrize("dtype", [np.float64, np.float32], ids=["float64", "float32"])
+def test_format_sxy_sets_equals_format_sxy_over_the_fuzz(dtype, k, monkeypatch):
+    """format_sxy_sets renders each set as format_sxy does, over the fuzz's
+    rows of one dtype and width: one set of every row beside its own lag,
+    and sets of 8 rows beside 8 of the lags, on one worker and on every
+    core (the worker count forced through sxy_workers)."""
+    rows = [(x[0], v) for d, x, v in _fuzz_rows() if d == dtype and v.size == k]
+    x = np.array([r[0] for r in rows])
+    y = np.stack([r[1] for r in rows])
+    m = len(rows) // 8 * 8
+    for xs, ys in ((x, y[None]), (x[:8], y[:m].reshape(-1, 8, k))):
+        want = [tnat.format_sxy(xs, s) for s in ys]
+        for workers in (1, max(_cores(), 2)):
+            monkeypatch.setattr(tnat, "sxy_workers", lambda s, r, w=workers: w)
+            block, offsets = tnat.format_sxy_sets(xs, ys)
+            assert offsets.shape == (ys.shape[0] + 1,) and offsets[-1] == len(block)
+            assert _sets(block, offsets) == want
+
+
+def _ct_shaped(n_sets, n_lags, seed=0):
+    """A C(t) file's block: float64 lags (2 ps), float32 [C, dC] rows, C
+    from 1 down to a plateau, dC decaying below 1e-4 (so rows turn
+    scientific)."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(n_lags) * 2.0
+    tau = rng.uniform(200.0, 20000.0, (n_sets, 1))
+    s2 = rng.uniform(0.5, 0.9, (n_sets, 1))
+    ct = s2 + (1 - s2) * np.exp(-t / tau)
+    ct += rng.normal(0, 1e-3, (n_sets, n_lags))
+    dct = 1e-3 * np.exp(-t / 1500.0) * rng.uniform(0.5, 2.0, (n_sets, n_lags))
+    return t, np.stack([ct, dct], axis=-1).astype(np.float32)
+
+
+@pytest.mark.parametrize("shape", [(370, 2500), (71, 2500), (5, 40)])
+def test_format_sxy_sets_same_bytes_at_every_worker_count(shape, monkeypatch):
+    """A C(t)-shaped block (mbp's 370 bonds x 2500 lags, ubq's 71, a test
+    file's 5 x 40) renders to format_sxy's bytes, set by set, with the
+    worker count its shape picks, with 1 worker, with every worker count up
+    to the core count and with more workers than cores (forced through
+    sxy_workers); the shape picks one worker for the small block."""
+    x, y = _ct_shaped(*shape)
+    want = [tnat.format_sxy(x, s) for s in y]
+    lines = b"".join(want).splitlines()
+    assert any(b"e-" in ln for ln in lines) and any(b"e" not in ln for ln in lines)
+    block, offsets = tnat.format_sxy_sets(x, y)
+    assert _sets(block, offsets) == want
+    assert tnat.sxy_workers(*shape) == max(1, min(_cores(), shape[0],
+                                                  shape[0] * shape[1] // 16384))
+    assert tnat.sxy_workers(5, 40) == 1
+    for workers in [*range(1, max(_cores(), 4) + 1), 2 * _cores() + 1]:
+        monkeypatch.setattr(tnat, "sxy_workers", lambda s, r, w=workers: w)
+        block, offsets = tnat.format_sxy_sets(x, y)
+        assert _sets(block, offsets) == want, workers
 @pytest.mark.parametrize("x,y", [(np.arange(3, dtype=np.float32), np.zeros((3, 2))),
                                  (np.arange(3.0), np.zeros((3, 4))),
                                  (np.arange(3.0), np.zeros((2, 2))),
@@ -150,6 +221,8 @@ def test_format_sxy_differential_fuzz():
 def test_format_sxy_refuses_what_it_does_not_render(x, y):
     with pytest.raises(ValueError, match="format_sxy"):
         tnat.format_sxy(x, y)
+    with pytest.raises(ValueError, match="format_sxy_sets"):
+        tnat.format_sxy_sets(x, y[None])
 
 
 def test_missing_compiler_raises(monkeypatch, tmp_path):
@@ -161,7 +234,8 @@ def test_missing_compiler_raises(monkeypatch, tmp_path):
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.delenv("CXX", raising=False)
     for call in (tnat.available, lambda: tnat.load_table(str(tmp_path / "x")),
-                 lambda: tnat.format_sxy(np.zeros(1), np.zeros((1, 1)))):
+                 lambda: tnat.format_sxy(np.zeros(1), np.zeros((1, 1))),
+                 lambda: tnat.format_sxy_sets(np.zeros(1), np.zeros((1, 1, 1)))):
         with pytest.raises(RuntimeError, match="compiler"):
             call()
 
@@ -173,19 +247,41 @@ def _ct_block(rng, dtype):
                     axis=-1).astype(dtype)
 
 
-@pytest.mark.parametrize("dtype", [np.float32, np.float64])
-def test_print_sxylist_native_equals_row_formatter(tmp_path, monkeypatch, dtype):
+def _text(fn):
+    """A file's bytes, a .gz file's uncompressed."""
+    if fn.endswith(".gz"):
+        import gzip
+
+        with gzip.open(fn, "rb") as fp:
+            return fp.read()
+    return _bytes(fn)
+
+
+def _set_counts():
+    c = profiling.counters()
+    return c["xvg.native_sets"], c["xvg.row_sets"]
+
+
+@pytest.mark.parametrize("dtype,suffix", [(np.float32, ".dat"), (np.float64, ".dat"),
+                                          (np.float32, ".dat.gz"), (np.float64, ".dat.gz")],
+                         ids=["float32", "float64", "float32-gz", "float64-gz"])
+def test_print_sxylist_native_equals_row_formatter(tmp_path, monkeypatch, dtype, suffix):
     """The native rows, the row formatter's (forced), and the JAX writer's
-    are the same bytes, headers, legends and '&' lines included."""
+    are the same bytes, headers, legends and '&' lines included, in plain
+    and gzip files; xvg.native_sets / xvg.row_sets count each route's
+    sets."""
     y = _ct_block(np.random.default_rng(7), dtype)
     x, leg = np.arange(1.0, 41.0) * 2.5, [f"s{i}" for i in range(5)]
-    fast, jax_fn, slow = (str(tmp_path / n) for n in ("f.dat", "j.dat", "s.dat"))
+    fast, jax_fn, slow = (str(tmp_path / (n + suffix)) for n in ("f", "j", "s"))
+    n0, r0 = _set_counts()
     txvg.print_sxylist(fast, leg, x, y, header=["# h1", "# h2"])
+    assert _set_counts() == (n0 + 5, r0)
     jxvg.print_sxylist(jax_fn, leg, x, y, header=["# h1", "# h2"])
     assert txvg._native_rows(x, y)
     monkeypatch.setattr(txvg, "_default_printoptions", lambda: False)
     txvg.print_sxylist(slow, leg, x, y, header=["# h1", "# h2"])
-    assert _bytes(fast) == _bytes(slow) == _bytes(jax_fn)
+    assert _set_counts() == (n0 + 5, r0 + 5)
+    assert _text(fast) == _text(slow) == _text(jax_fn)
 
 
 def test_print_sxylist_other_printoptions_take_the_row_route(tmp_path):
