@@ -22,9 +22,25 @@ metrics (``metrics/<metric>.py``).  The run:
    the last lines of standard error and under ``compared`` in the result;
 4. fails, printing no result, if a module of the JAX side was loaded.
 
+A cell whose ``chips`` in BENCHMARK.json is N > 1 runs as N rank
+processes of this script, one a card, under torchrun's environment
+(``bench/ranks.py``), so the program's mesh joins its group as under
+``torchrun``.  Rank 0's clock opens and closes the window and starts each
+job on every rank; a job ends when the last rank ends it, and one that
+raised on any rank failed.  Set-up runs from this process's start to the
+end of the last rank's warm job.  Rank 0 holds the kept job to the
+reference and its trace feeds the per-layer metrics and ``breakdown``.
+A rank that ends early, or a wait past the larger of 120 s and ten warm
+jobs, kills every rank: no result.
+
 The last line of standard output is one JSON object: correct, attempted,
 failed, metrics, device (and breakdown with ``--trace 1``), compared.
-Exits non-zero without a result when there is no card.
+``device.count`` is the number of distinct cards (by uuid) on which a
+rank ran the window's jobs; an N-rank run also gives ``per_device``, each
+rank's card index, uuid, kind, jobs, peak memory and, traced, busy
+seconds, with the fullest card's peak and the ranks' mean busy time
+above it.  Exits non-zero without a result when there is no card, or
+fewer distinct cards than the cell's ``chips`` ran its jobs.
 """
 
 import time
@@ -47,7 +63,7 @@ ROOT = HERE.parent
 if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
 
-from portbench.bench import guard, spec  # noqa: E402
+from portbench.bench import guard, ranks, spec  # noqa: E402
 
 
 def parse(argv=None):
@@ -63,7 +79,9 @@ def parse(argv=None):
 
 
 def log(*parts):
-    print(*parts, file=sys.stderr, flush=True)
+    # one write a line, so that the lines of several ranks do not interleave
+    sys.stderr.write(" ".join(map(str, parts)) + "\n")
+    sys.stderr.flush()
 
 
 def chips_of(cell: str) -> int:
@@ -77,12 +95,14 @@ def chips_of(cell: str) -> int:
 
 
 class Ctx:
-    """What a job gets: its configuration, parameters, seed, device and a
-    scratch directory under TMPDIR (removed at the end of the run)."""
+    """What a job gets: its configuration, parameters, seed, device, a
+    scratch directory under TMPDIR (removed at the end of the run), and
+    its rank of ``world`` (0 of 1 on one card)."""
 
-    def __init__(self, cfg, wl, seed, device, work):
+    def __init__(self, cfg, wl, seed, device, work, rank=0, world=1):
         self.cfg, self.params, self.seed = cfg, wl["params"], seed
         self.device, self.work = device, work
+        self.rank, self.world = rank, world
 
 
 def _cache_dirs():
@@ -93,34 +113,59 @@ def _cache_dirs():
 
 
 def run(args, device="cuda", cfg_override=None, emit=True):
-    """One run; returns the result dict (printed unless ``emit`` is false).
-    ``device="cpu"`` and ``cfg_override`` are for the CPU tests, which
-    drive a run at a tiny size without a card."""
-    import numpy as np
-    import torch
-
+    """One run; returns the result dict (printed unless ``emit`` is
+    false), or None where there is no result.  A one-chip cell runs in
+    this process; a cell on N chips as N rank processes, rank i on
+    ``<device>:i``.  ``device="cpu"`` and ``cfg_override`` are for the
+    CPU tests, which drive a run at a tiny size without a card."""
     wl = spec.workload(args.workload)
     cfg = spec.config(wl["config"])
     cfg.update(cfg_override or {})
-    on_card = device != "cpu"
+    chips = chips_of(args.workload)
+    if chips == 1:
+        core, card = measure(args, wl, cfg, spec.job(wl["job"]), device, ranks.Solo(), T_START)
+        cards = [card]
+    else:
+        got = ranks.launch(ranks.plan(args, wl, cfg, spec.HERE / "jobs" / f"{wl['job']}.py",
+                                      chips, T_START, device))
+        if got is None:
+            return None
+        core, cards = got
+    return report(core, cards, device != "cpu", bool(args.trace), chips, emit,
+                  per_device=chips > 1)
+
+
+def measure(args, wl, cfg, job_mod, device, peers, t_start):
+    """Set-up, the window and the check on this process's card, in step
+    with ``peers``; returns (the outcome, this card's use).  The outcome
+    (correct, attempted, failed, metrics, breakdown, compared, window) is
+    rank 0's to report; other ranks skip the readers and the check."""
+    import numpy as np
+    import torch
+
+    on_card = torch.device(device).type == "cuda"
+    lead = peers.rank == 0
+    tag = f"rank {peers.rank}: " if peers.world > 1 else ""
 
     def sync():
         if on_card:
             torch.cuda.synchronize()
 
-    readers = {m: spec.reader(m) for m in wl["per_layer"]} if args.trace else {}
+    readers = {m: spec.reader(m) for m in wl["per_layer"]} if args.trace and lead else {}
     work = tempfile.mkdtemp(prefix="portbench-")
     quiet = open(os.devnull, "w")  # the program's own prints
     seed = args.seed % (1 << 63)
     try:
-        job = spec.job(wl["job"]).Job(Ctx(cfg, wl, seed, device, work))
+        job = job_mod.Job(Ctx(cfg, wl, seed, device, work, peers.rank, peers.world))
         job.setup()
+        t_warm = time.perf_counter()
         with contextlib.redirect_stdout(quiet):
             job.run(-1)  # the warm job
         job.forget(-1)
         sync()
-        setup_s = time.perf_counter() - T_START
-        log(f"set-up {setup_s:.3f} s (inputs, warm job); window {args.seconds:g} s")
+        t_end = time.perf_counter()
+        setup_s = peers.ready(t_end, t_end - t_warm) - t_start
+        log(f"{tag}set-up {setup_s:.3f} s (inputs, warm job); window {args.seconds:g} s")
 
         from portbench.bench.trace import Traced
 
@@ -129,30 +174,40 @@ def run(args, device="cuda", cfg_override=None, emit=True):
         records, attempted, failed, kept = [], 0, 0, None
         draw = np.random.default_rng(seed)
         with Traced(torch, bool(args.trace), on_card) as tw, contextlib.redirect_stdout(quiet):
+            peers.opened()
             deadline = tw.t0 + args.seconds
-            while time.perf_counter() < deadline:
+            while peers.go(deadline):
                 attempted += 1
                 t0, c0 = time.perf_counter(), time.process_time()
+                i, rec = len(records), None
                 try:
-                    rec = job.run(len(records))
+                    rec = job.run(i)
                     sync()
                 except Exception:  # a failed job is counted and the loop goes on
+                    log(tag + traceback.format_exc())
+                ok, t1 = peers.done(rec is not None)
+                if not ok:  # on any rank
                     failed += 1
-                    log(traceback.format_exc())
+                    if rec is not None:
+                        job.forget(i)
                     continue
-                rec["t0"], rec["t1"] = t0, time.perf_counter()
+                rec["t0"], rec["t1"] = t0, t1
                 rec["cpu_s"] = time.process_time() - c0
                 records.append(rec)
-                i = len(records) - 1
                 if kept is None or draw.integers(len(records)) == 0:
                     kept, i = i, kept
                 if i is not None:
                     job.forget(i)
         bad = guard.forbidden()
         if bad:
-            log("loaded modules of the JAX side: " + ", ".join(bad))
+            log(tag + "loaded modules of the JAX side: " + ", ".join(bad))
             sys.exit(3)
         peak = torch.cuda.max_memory_allocated() if on_card else 0
+        busy = tw.busy_s() if args.trace and on_card else None
+        card = ranks.card(device, attempted, peak, busy)
+        if not lead:
+            job.release()
+            return None, card
         span = records[-1]["t1"] - records[0]["t0"] if records else float("nan")
         log(f"{len(records)} jobs in {span:.3f} s ({attempted} attempted, {failed} failed)")
         log("job seconds: " + " ".join(repr(r["t1"] - r["t0"]) for r in records))
@@ -193,32 +248,40 @@ def run(args, device="cuda", cfg_override=None, emit=True):
             if not math.isfinite(c["value"]):
                 c["value"], c["ok"] = 1e300, False
         correct = bool(records) and failed == 0 and all(c["ok"] for c in compared)
-        bad = guard.forbidden()
-        if bad:
-            log("loaded modules of the JAX side: " + ", ".join(bad))
-            sys.exit(3)
-
-        dev = {"platform": "gpu" if on_card else "cpu",
-               "kind": torch.cuda.get_device_name(0) if on_card else "cpu",
-               "count": 1, "memory_peak_bytes": int(peak)}
-        if args.trace and on_card:
-            dev["busy_s"] = tw.busy_s()
-            dev["window_s"] = tw.window_s
-        result = {"correct": correct, "attempted": attempted, "failed": failed,
-                  "metrics": metrics, "device": dev}
-        if breakdown is not None:
-            result["breakdown"] = breakdown
-        result["compared"] = {c["name"]: {"value": c["value"], "limit": c["limit"]}
-                              for c in compared}
-        if emit:
-            for c in compared:
-                log(f"compared {c['name']} {c['value']!r} limit {c['limit']!r} "
-                    f"{'ok' if c['ok'] else 'FAIL'}")
-            print(json.dumps(result), flush=True)
-        return result
+        core = {"correct": correct, "attempted": attempted, "failed": failed,
+                "metrics": metrics, "breakdown": breakdown, "compared": compared,
+                "window_s": tw.window_s if args.trace and on_card else None}
+        return core, card
     finally:
         quiet.close()
         shutil.rmtree(work, ignore_errors=True)
+
+
+def report(core, cards, on_card, trace, chips, emit=True, per_device=False):
+    """The result line from rank 0's outcome and every rank's card
+    (printed unless ``emit`` is false); None, printing nothing, when the
+    JAX side is loaded or fewer distinct cards than ``chips`` ran jobs."""
+    bad = guard.forbidden()
+    if bad:
+        log("loaded modules of the JAX side: " + ", ".join(bad))
+        sys.exit(3)
+    dev = ranks.device_block(cards, on_card, core["window_s"] if trace else None, per_device)
+    if dev["count"] < chips:
+        log(f"the window's jobs ran on {dev['count']} distinct card(s); the cell needs {chips}")
+        return None
+    result = {"correct": core["correct"], "attempted": core["attempted"],
+              "failed": core["failed"], "metrics": core["metrics"], "device": dev}
+    if core["breakdown"] is not None:
+        result["breakdown"] = core["breakdown"]
+    compared = core["compared"]
+    result["compared"] = {c["name"]: {"value": c["value"], "limit": c["limit"]}
+                          for c in compared}
+    if emit:
+        for c in compared:
+            log(f"compared {c['name']} {c['value']!r} limit {c['limit']!r} "
+                f"{'ok' if c['ok'] else 'FAIL'}")
+        print(json.dumps(result), flush=True)
+    return result
 
 
 class TraceView:
@@ -244,14 +307,15 @@ class TraceView:
 def main(argv=None) -> int:
     args = parse(argv)
     _cache_dirs()
+    if ranks.STORE_ENV in os.environ:  # a rank of an N-card run
+        return ranks.rank_main(measure)
     import torch
 
     need = chips_of(args.workload)
     if not torch.cuda.is_available() or torch.cuda.device_count() < need:
         log(f"no CUDA device (need {need}): the benchmark measures the card")
         return 2
-    run(args)
-    return 0
+    return 0 if run(args) is not None else 4
 
 
 if __name__ == "__main__":

@@ -48,6 +48,21 @@ def test_names_and_units():
             assert NAME.match(key)
 
 
+def test_multi_chip_cells_bring_their_control_test():
+    """``test_portbench_card.test_control_not_correct`` drives one-chip
+    cells; a cell on several chips brings a card test of its control in
+    ``tests/test_control_<cell>.py`` (``-`` and ``.`` written ``_``),
+    which names the cell."""
+    for w in BENCH["workloads"]:
+        if w["chips"] == 1:
+            continue
+        f = HERE / "tests" / f"test_control_{re.sub(r'[-.]', '_', w['name'])}.py"
+        assert f.is_file(), f"{w['name']} runs on {w['chips']} chips and has no {f.name}"
+        text = f.read_text()
+        assert f'"{w["name"]}"' in text and "@pytest.mark.cuda" in text, f.name
+        assert re.search(r"^def test_\w*control\w*\(", text, re.M), f.name
+
+
 @pytest.mark.parametrize("cell", CELLS)
 def test_cell_files_found_by_name(cell):
     """Each cell's data file names its configuration, traffic and job, and
@@ -55,7 +70,7 @@ def test_cell_files_found_by_name(cell):
     wl = spec.workload(cell)
     entry = next(w for w in BENCH["workloads"] if w["name"] == cell)
     assert (wl["config"], wl["traffic"]) == (entry["config"], entry["traffic"])
-    assert entry["chips"] == 1
+    assert entry["chips"] in (1, 4)
     cfg = spec.config(wl["config"])
     conf = next(c for c in BENCH["configs"] if c["name"] == wl["config"])
     assert conf["file"] == f"portbench/configs/{wl['config']}.json"
