@@ -27,6 +27,7 @@ import torch
 import torch.distributed as dist
 
 from .. import checked_device
+from ..utils import profiling
 from . import launch
 
 _MESHES: dict = {}
@@ -199,6 +200,8 @@ def is_writer(mesh) -> bool:
 
 def barrier(mesh) -> None:
     """Wait for every rank of the mesh (nothing without one): follows each
-    artefact write, so no rank reads a file before rank 0 has written it."""
+    artefact write, so no rank reads a file before rank 0 has written it.
+    Each wait is a ``mesh.barrier`` span."""
     if mesh is not None:
-        dist.barrier()
+        with profiling.span("mesh.barrier"):
+            dist.barrier()

@@ -101,8 +101,9 @@ class ShardedCtStream:
             w[:nc] = 1.0
         ps, ps2 = autocorr.palmer_group_sums(block, w)
         cnt = torch.full((), float(nc), dtype=self.dtype, device=self.device)
-        for t in (ps, ps2, cnt):
-            pm.all_reduce(t, self.mesh, "rep")
+        with profiling.span("ct_stream.allreduce"):
+            for t in (ps, ps2, cnt):
+                pm.all_reduce(t, self.mesh, "rep")
         self._acc_s = self._acc_s + ps
         self._acc_s2 = self._acc_s2 + ps2
         self._count = self._count + cnt

@@ -182,3 +182,48 @@ def runall_checks(rank, world, d, xtc, ref):
         experiments=config.ExperimentParams(bfields_mhz=(600.133,)))
     out = runall.run_workflow(cfg, device="cpu")
     return {k: out[k] for k in ("diso", "dani", "quat")}
+
+
+MESH_SPANS = ("ct_stream.allreduce", "mesh.barrier")
+
+
+def stream_mesh_checks(rank, world, xtcs, refs, d, kw):
+    """stage_ct_streamed over every replica's file with the mesh (float64,
+    each rank writing under ``d/rank<r>``), then run_finish(mesh=), inside
+    a CPU profiler (tests/test_torch_mesh_stream.py); then, unprofiled, the
+    same over the replicas' decoded frames as float64 .npy (``kw["npys"]``,
+    written under ``d/npy<r>``).  Returns the C(t), S2 and rates of both,
+    the files this rank wrote and the mesh spans' tallies."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from spinrelax_tpu_torch.parallel.streamed import run_finish
+    from spinrelax_tpu_torch.pipeline.stages import stage_ct_streamed
+    from spinrelax_tpu_torch.utils import profiling
+
+    mesh = make_mesh(world, device="cpu")
+
+    def both(trj, prefix, **opt):
+        out = stage_ct_streamed(trj, refs, prefix, kw["tau"], chunk_groups=kw["groups"],
+                                mesh=mesh, device="cpu", dtype=torch.float64, **opt)
+        fin = run_finish(*out["streams"]["int"].accumulators(), n_res=kw["n_res"],
+                         delta_t=out["delta_t"], diffusion=diffusion("axisymmetric"),
+                         pair=NucleusPair(B0=field_from_mhz(600.133), time_unit="ps"),
+                         vecs=kw["vecs"], weights=kw["weights"], zeta=0.89, mesh=mesh)
+        ext = out["streams"]["ext"].finalize()
+        res = {"Ct": out["Ct"], "dCt": out["dCt"], "Ctext": _np(ext[0]), "dCtext": _np(ext[1]),
+               "S2": out["S2"], "fit_S2": _np(fin.cts.S2)}
+        res.update({f: _np(getattr(fin, f)) for f in ("R1", "R2", "NOE", "rho")})
+        return res
+
+    mine = os.path.join(d, f"rank{rank}")
+    os.makedirs(mine)
+    profiling.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        res = both(xtcs, os.path.join(mine, "m"))
+    names = [s[0] for s in profiling.spans()]
+    profiling.clear()
+    res["spans"] = {n: names.count(n) for n in MESH_SPANS}
+    res["files"] = sorted(os.listdir(mine))
+    os.makedirs(os.path.join(d, f"npy{rank}"))
+    res["npy"] = both(kw["npys"], os.path.join(d, f"npy{rank}", "n"), timestep=kw["dt"])
+    return res
