@@ -98,13 +98,16 @@ def lambert_histogram(vecs, bins_phi: int = 72, bins_cos: int = 36, valid=None):
         n_slots = nbins + 1
     lead_shape = flat.shape[:-1]
     flat2 = flat.reshape((-1, flat.shape[-1]))
-    # One scatter-add over (row, bin) for every leading index.  Counts are
-    # int32, NOT the coordinate dtype: float32 counts saturate at 2^24
-    # (callers that pool chunk histograms pool in int64).
+    # One scatter-add over (row, bin) for every leading index, into a
+    # histogram of known size (bincount reads the largest index back to
+    # the host, a wait on the card).  Counts are int32, NOT the coordinate
+    # dtype: float32 counts saturate at 2^24 (callers that pool chunk
+    # histograms pool in int64).
     rows = torch.arange(flat2.shape[0], device=flat.device)[:, None]
-    hist = torch.bincount((rows * n_slots + flat2).reshape(-1),
-                          minlength=flat2.shape[0] * n_slots)
-    hist = hist.reshape(flat2.shape[0], n_slots)[:, :nbins].to(torch.int32)
+    idx = (rows * n_slots + flat2).reshape(-1)
+    hist = torch.zeros(flat2.shape[0] * n_slots, dtype=torch.int32, device=flat.device)
+    hist.index_add_(0, idx, torch.ones((), dtype=torch.int32, device=flat.device).expand_as(idx))
+    hist = hist.reshape(flat2.shape[0], n_slots)[:, :nbins]
     hist = hist.reshape(lead_shape + (bins_phi, bins_cos))
     edges_phi, edges_cos = lambert_edges(bins_phi, bins_cos, vecs.dtype, vecs.device)
     return hist, edges_phi, edges_cos

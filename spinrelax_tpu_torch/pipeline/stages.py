@@ -40,6 +40,7 @@ from ..ops import autocorr, ired, observables, orient
 from ..ops import dq as dqops
 from ..parallel.mesh import barrier, device_of, is_writer
 from ..utils import profiling
+from . import h2d
 
 
 def _written(mesh, write) -> None:
@@ -1120,7 +1121,9 @@ def stage_ct_streamed(
     (calculate-Ct-from-traj.py:426-453) with true streaming.
 
     The host reduces each group of frames to bond differences and 3x3 Horn
-    correlations (inside the .xtc decoder for .xtc input); the device turns
+    correlations (inside the .xtc decoder for .xtc input) and copies them
+    to the device (on a card through pinned slots, overlapped with the
+    previous group's compute: :mod:`pipeline.h2d`); the device turns
     them into raw and superposed unit bond vectors and runs
     :func:`fused_group_update`.  Writes ``_Ctext.dat``, ``_Ctint.dat``,
     ``_S2.dat``, ``_avgvec.dat`` and the vector distribution
@@ -1216,8 +1219,8 @@ def stage_ct_streamed(
             z = vec_raw_g.new_zeros((g_pad,) + vec_raw_g.shape[1:])
             vec_raw_g = torch.cat([vec_raw_g, z], dim=0)
             vec_fit_g = torch.cat([vec_fit_g, z], dim=0)
-        w_g = torch.cat([torch.ones(g), torch.zeros(max(g_pad, 0))]).to(
-            device=dev, dtype=vec_raw_g.dtype)
+        # made on the device: a copy from the host would wait for the card
+        w_g = (torch.arange(chunk_groups, device=dev) < g).to(vec_raw_g.dtype)
         new_acc, pt = fused_group_update(vec_raw_g, vec_fit_g, w_g, q_rot_t, acc, want_pt)
         acc.update(new_acc)
         if pt is not None and is_writer(mesh):
@@ -1235,6 +1238,7 @@ def stage_ct_streamed(
         n_chunks_total += g
 
     q_rot_t = None
+    copy = h2d.copier(dev, mesh)  # the group's copy to the device (pinned on a card)
     for trj_fn, ref_fn in zip(traj_files, ref_pdbs):
         top, ref_xyz = pdbio.read_structure(ref_fn)
         idx_h, idx_x, res_h = pdbio.bond_indices(top, h_sel, x_sel)
@@ -1282,14 +1286,16 @@ def stage_ct_streamed(
         for raw_diff, S in profiling.spanned("stage_ct.decode", obs_chunks()):
             # Only the (F, nBonds, 3) bond differences and the (F, 3, 3)
             # Horn correlations cross host -> device, not the (F, nAtoms, 3)
-            # coordinate block the decoder produced.
+            # coordinate block the decoder produced.  On a card the copy
+            # runs while the card still computes the previous group (the
+            # loop's only waits on the card: the copy's slot, and the Horn
+            # fit in bond_vectors_from_obs, before kernel A is queued).
             n_full = (raw_diff.shape[0] // fpc) * fpc
             if n_full == 0:
                 continue  # tail shorter than one Palmer chunk: dropped
             f = dtype or torch.from_numpy(raw_diff).dtype
             with profiling.span("stage_ct.h2d"):
-                raw_dev = torch.from_numpy(raw_diff).to(device=dev, dtype=f)
-                S_dev = torch.from_numpy(S).to(device=dev, dtype=f)
+                raw_dev, S_dev = copy([raw_diff, S], f)
             profiling.count("stage_ct.h2d_bytes", raw_diff.nbytes + S.nbytes)
             bv = orient.bond_vectors_from_obs(raw_dev, S_dev)
             if q_rot is not None and q_rot_t is None:

@@ -40,7 +40,8 @@ _spans: list = []  # [name, t0_ns, t1_ns or None while open, parent]
 _events: list = []  # (t_ns, name, n)
 _stack: list = []  # buffer indices of the open recorded spans (None: dropped)
 _drops = [None, None]  # first and last drop, perf_counter_ns
-_totals = {"stage_ct.h2d_bytes": 0, "stage_ct.write_bytes": 0, "fit.host_looks": 0,
+_totals = {"stage_ct.h2d_bytes": 0, "stage_ct.h2d_pinned_bytes": 0,
+           "stage_ct.write_bytes": 0, "fit.host_looks": 0,
            "xvg.native_sets": 0, "xvg.row_sets": 0, "profiling.dropped": 0}
 
 

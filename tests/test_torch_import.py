@@ -40,6 +40,7 @@ MODULES = [
     "spinrelax_tpu_torch.fit.legacy_expfit",
     "spinrelax_tpu_torch.__main__", "spinrelax_tpu_torch.ops.pbc", "spinrelax_tpu_torch.ops.ired",
     "spinrelax_tpu_torch.utils.profiling", "spinrelax_tpu_torch.pipeline.plotting",
+    "spinrelax_tpu_torch.pipeline.h2d",
     "spinrelax_tpu_torch.io.gro", "spinrelax_tpu_torch.io.gmx", "spinrelax_tpu_torch.io.dcd",
     "spinrelax_tpu_torch.io.amber", "spinrelax_tpu_torch.io.xyz", "spinrelax_tpu_torch.io.psf",
     "spinrelax_tpu_torch.io.prmtop", "spinrelax_tpu_torch.io.ndx",

@@ -100,8 +100,8 @@ def test_buffer_drops_past_its_bound(monkeypatch):
 def test_counters_name_every_counter():
     names = set(profiling.counters())
     assert {f"launches.{k}" for k in "ABCDE"} <= names
-    assert {"fit.host_reads", "stage_ct.h2d_bytes", "stage_ct.write_bytes",
-            "fit.host_looks", "profiling.dropped"} <= names
+    assert {"fit.host_reads", "stage_ct.h2d_bytes", "stage_ct.h2d_pinned_bytes",
+            "stage_ct.write_bytes", "fit.host_looks", "profiling.dropped"} <= names
 
 
 def test_stage_ct_spans_and_bytes(tmp_path):
